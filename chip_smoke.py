@@ -8,8 +8,7 @@ around it; it exits non-zero, printing no result, without either. Phases,
 each of which raises on failure:
 
   0. build every kernel of the port from ``opentransformer_tpu_torch/csrc``
-     with nvcc (one process per source, started together) and print ptxas's
-     register and shared-memory lines;
+     with nvcc and print ptxas's register and shared-memory lines;
   1. hold the ``project_logp_topk`` kernel against its plain PyTorch
      version on the card at the decode shapes, including ties, and time the
      kernel, the plain version and the unfused three-call composition;
@@ -98,7 +97,8 @@ def phase_build():
 
     sources = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith(".cu"))
     t0 = time.time()
-    cuda_build.build(sources)
+    for name in sources:
+        cuda_build.build(name)
     log(f"phase0 built {sources} in {time.time() - t0:.1f} s")
     for name in sources:
         for line in cuda_build.build_log(name).splitlines():
@@ -118,9 +118,9 @@ def _inputs(n, d, v, dtype, seed):
 def check_topk(h, w, b, k, label):
     """Kernel vs plain on the same card tensors. Ids must agree wherever the
     plain values are not tied within ``tie``; values and lse within
-    ``atol``: 1e-4 for float32; for bf16 inputs 1e-2 of the logits' scale
-    (the tolerance the JAX package's bf16 kernel test allows — both paths
-    round h and W to bf16 the same way, so only f32 summation order differs).
+    ``atol`` = 1e-4, for float32 and bf16 inputs alike: both paths see the
+    same (possibly bf16) h and W, whose products are exact in float32, and
+    accumulate in float32, so only the summation order differs.
     Every returned id must also carry its returned value in the full
     log-softmax. Returns the largest value error."""
     from opentransformer_tpu_torch.ops.project_topk import (
@@ -132,8 +132,7 @@ def check_topk(h, w, b, k, label):
     torch.cuda.synchronize()
     logits = h.float() @ w.float().T + b.float()
     scale = logits.abs().max().item()
-    f32 = h.dtype == torch.float32
-    atol = 1e-4 if f32 else 1e-2 * max(scale, 1.0)
+    atol = 1e-4
     tie = 1e-5 * max(scale, 1.0)
     ref_vals, ref_ids, ref_lse = project_logp_topk_plain(h, w, b, k, with_lse=True)
     k1 = min(k + 1, w.shape[0])

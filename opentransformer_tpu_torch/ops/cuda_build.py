@@ -4,7 +4,6 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``_build/<name>-<hash>.so`` (the directory is gitignored; the hash
 covers the source and the flags, so an edited source rebuilds), then loaded
 with ``ctypes``. No PyTorch headers are involved, so a build takes seconds.
-``build`` starts one nvcc per source, all at once, and waits for them.
 Nothing is built or loaded when this module is imported.
 """
 
@@ -40,32 +39,23 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 
-def build(names) -> dict[str, str]:
-    """Compile every named source that has no current library, one nvcc
-    process per source started together. Returns name → library path."""
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its current library exists; returns
+    the library path. nvcc's output (ptxas -v lines) goes beside it."""
+    so = library_path(name)
+    if os.path.exists(so):
+        return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out, procs = {}, {}
-    for name in names:
-        so = library_path(name)
-        out[name] = so
-        if os.path.exists(so):
-            continue
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                        text=True), tmp, so)
-    failures = []
-    for name, (proc, tmp, so) in procs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{stdout}{stderr}")
-            continue
-        with open(so[:-3] + ".log", "w") as f:
-            f.write(stdout + stderr)
-        os.replace(tmp, so)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return out
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {name}.cu failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    with open(so[:-3] + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+    return so
 
 
 def build_log(name: str) -> str:
@@ -81,6 +71,6 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build([name])[name])
+        lib = ctypes.CDLL(build(name))
         _loaded[name] = lib
     return lib

@@ -38,7 +38,7 @@ class Recognizer:
 
 def make_memory_search(model, beam_width: int, max_len: int, penalty: float = 0.6,
                        lamda: float = 5.0, eos_id: Optional[int] = None,
-                       force_beam: bool = False, fused_topk: bool = True):
+                       fused_topk: bool = True):
     """``(memory, memory_mask) -> BeamHypotheses`` over a precomputed encoder
     memory: the KV-cached beam (beam 1: greedy). The fused
     projection→log-softmax→top-k step is used whenever ``beam_width`` fits
@@ -48,7 +48,7 @@ def make_memory_search(model, beam_width: int, max_len: int, penalty: float = 0.
 
     @torch.inference_mode()
     def search(memory, memory_mask) -> BeamHypotheses:
-        if beam_width == 1 and not force_beam:
+        if beam_width == 1:
             return greedy_search(model.decode_step, model.init_cache, memory, memory_mask,
                                  max_len, eos_id=eos, decode_topk=decode_topk)
         return beam_search(model.decode_step, model.init_cache, memory, memory_mask,
