@@ -6,10 +6,18 @@ its counterpart's relative path and names, takes the same weights
 ``tests/test_torch_*.py``. The port imports ``torch`` and numpy only — no
 JAX, flax, yaml, and nothing from the JAX package.
 
+Ported so far: the speech2text decode side (conv frontend, transformer
+encoder, KV-cached decoder, batched beam and greedy search), the transformer
+and LSTM language models with shallow fusion and n-best rescoring, and the
+eval CLI. Training, the data pipeline, the CTC, Conformer and transducer
+models, streaming and serving are still to port (``ROADMAP.md``).
+
 The Pallas kernels of the JAX package become hand-written CUDA kernels
-under ``csrc/``, built with ``nvcc`` at first use (``ops/cuda_build.py``).
-Each kernel has a plain PyTorch version beside it, which is what runs for
-tensors on the CPU.
+under ``csrc/``, built with ``nvcc`` at first use (``ops/cuda_build.py``):
+the fused projection → log-softmax → top-k of a decode step
+(``project_topk.cu``) and its two-head form for LM fusion
+(``project2_topk.cu``). Each kernel has a plain PyTorch version beside it,
+which is what runs for tensors on the CPU.
 """
 
 __version__ = "0.1.0"

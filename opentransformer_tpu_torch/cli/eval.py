@@ -5,13 +5,19 @@ format) with its model config (a JSON file, or an export manifest carrying
 ``model_cfg``), decodes a kaldi feature scp with batched beam search and
 writes the JAX CLI's artifacts into ``--decode_dir``: ``predict.txt``
 (1-best), ``predict.log`` (n-best with scores) and ``RESULT`` (corpus CER,
-oracle CER, RTF).
+oracle CER, RTF). With ``-lm LM.npz --lm_cfg LM.json`` an external language
+model (``transformer_lm`` or ``rnn_lm``, same npz format) joins the beam by
+shallow fusion at weight ``-lmw``; ``-lm_resc W`` also rescores the n-best
+list by the LM's mean token log-prob.
 
     python -m opentransformer_tpu_torch.cli.eval \\
         --npz egs/synth_bench/trained/anchor_synth_f16.npz \\
         --model_cfg egs/synth_bench/trained/anchor_synth_f16.manifest.json \\
         --feats DATA/test/feats.scp --text DATA/test/text --vocab DATA/vocab \\
         -b 100 -bw 5 -pn 0.6 -ml 32 --decode_dir OUT
+
+    # with LM shallow fusion
+    python -m opentransformer_tpu_torch.cli.eval ... -lm LM.npz --lm_cfg LM.json -lmw 0.1
 
 It runs on the CUDA card unless ``--device cpu`` is given.
 """
@@ -32,7 +38,7 @@ from ..data import UNK, load_idx2unit_map, load_vocab
 from ..data.kaldi_io import load_mat, read_scp
 from ..models.registry import build_model
 from ..ops.levenshtein import ErrorRateAccumulator, edit_distances
-from ..recognize.base import SpeechToTextRecognizer
+from ..recognize.base import SpeechToTextRecognizer, lm_rescore
 from ..utils import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -54,6 +60,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-bw", "--beam_width", type=int, default=5)
     p.add_argument("-pn", "--penalty", type=float, default=0.6)
     p.add_argument("-ml", "--max_len", type=int, default=100)
+    p.add_argument("-lm", "--load_language_model", default=None,
+                   help="flattened float16 npz of an LM's JAX params (needs --lm_cfg)")
+    p.add_argument("--lm_cfg", default=None,
+                   help="JSON config of the LM (type transformer_lm or rnn_lm), or a "
+                        "manifest with a model_cfg key")
+    p.add_argument("-lmw", "--lm_weight", type=float, default=0.1,
+                   help="shallow-fusion weight of the LM's log-probs in the beam")
+    p.add_argument("-lm_resc", "--lm_rescore_weight", type=float, default=0.0,
+                   help="post-beam n-best LM rescoring weight (0: off)")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
     p.add_argument("--device", default=None, help="default: the CUDA card")
     return p
@@ -92,15 +107,21 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
+    if args.load_language_model and not args.lm_cfg:
+        raise SystemExit("error: -lm needs --lm_cfg (the LM's JSON config)")
     dev = resolve_device(args.device)
     model = build_model(load_model_cfg(args.model_cfg), dtype=DTYPES[args.dtype], device=dev)
     load_into(model, load_npz(args.npz))
+    lm = None
+    if args.load_language_model:
+        lm = build_model(load_model_cfg(args.lm_cfg), dtype=DTYPES[args.dtype], device=dev)
+        load_into(lm, load_npz(args.load_language_model))
 
     unit2idx = load_vocab(args.vocab)
     idx2unit = load_idx2unit_map(args.vocab)
     recognizer = SpeechToTextRecognizer(
-        model, beam_width=args.beam_width, max_len=args.max_len, penalty=args.penalty,
-        idx2unit=idx2unit)
+        model, lm=lm, beam_width=args.beam_width, max_len=args.max_len,
+        penalty=args.penalty, lm_weight=args.lm_weight, idx2unit=idx2unit)
     scp = list(read_scp(args.feats).items())
     refs = read_text(args.text)
     os.makedirs(args.decode_dir, exist_ok=True)
@@ -113,8 +134,14 @@ def main(argv=None) -> int:
             chunk = scp[s : s + args.batch_size]
             x, mask, lens = collate([load_mat(rx) for _, rx in chunk])
             t0 = time.time()
-            texts, scores = recognizer.recognize(torch.from_numpy(x).to(dev),
-                                                 torch.from_numpy(mask).to(dev))
+            feats, feat_mask = torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev)
+            if args.lm_rescore_weight > 0.0 and lm is not None:
+                hyp = lm_rescore(lm, recognizer.recognize_arrays(feats, feat_mask),
+                                 args.lm_rescore_weight)
+                texts = recognizer.nbest_translate(hyp.tokens[:, :, 1:].cpu().numpy())
+                scores = hyp.scores.float().cpu().numpy()
+            else:
+                texts, scores = recognizer.recognize(feats, feat_mask)
             accu_time += time.time() - t0
             total_frames += sum(lens)
             for i, (utt, _) in enumerate(chunk):

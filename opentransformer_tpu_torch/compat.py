@@ -4,15 +4,18 @@
 leaves, as ``model.init`` or ``load_npz`` give them) into a state dict for
 the port's modules, whose names mirror the flax module paths:
 
-  * a flax ``TorchLinear``'s ``dense`` level disappears into ``nn.Linear``;
+  * a flax ``TorchLinear``'s ``dense`` level disappears into ``nn.Linear``
+    (a bare flax ``nn.Dense``, as in the LSTM cell, is a ``modules.Dense``
+    and has no such level);
   * Dense ``kernel`` [in, out] → ``weight`` [out, in];
   * Conv ``kernel`` HWIO [kt, kf, in, out] → ``weight`` OIHW;
   * LayerNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
   * Embed ``embedding`` → ``weight``; other leaves keep their name.
 
 ``params_to_jax`` is the inverse (used to make seeded random weights in the
-JAX layout), and ``load_npz`` reads the ``"//"``-joined, float16 npz export
-of ``tools/export_trained_synth.py`` with numpy alone.
+JAX layout). ``load_npz`` reads the ``"//"``-joined, float16 npz export of
+``tools/export_trained_synth.py`` with numpy alone, and ``save_npz`` writes
+that format.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from .models.modules import Dense
 
 SEP = "//"
 
@@ -72,7 +77,8 @@ def params_to_jax(model: nn.Module) -> dict:
         for p_name, p in mod.named_parameters(recurse=False):
             arr = p.detach().float().cpu().numpy()
             if isinstance(mod, nn.Linear):
-                put(prefix + ["dense", "kernel" if p_name == "weight" else p_name],
+                level = [] if isinstance(mod, Dense) else ["dense"]
+                put(prefix + level + ["kernel" if p_name == "weight" else p_name],
                     arr.T if p_name == "weight" else arr)
             elif isinstance(mod, nn.Conv2d):
                 put(prefix + ["kernel" if p_name == "weight" else p_name],
@@ -97,6 +103,13 @@ def load_npz(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[parts[-1]] = z[key].astype(np.float32)
     return tree
+
+
+def save_npz(path: str, tree) -> None:
+    """Nested parameter dict → ``"//"``-joined flattened npz, float16 on
+    disk (what ``load_npz`` reads)."""
+    np.savez(path, **{SEP.join(keys): np.asarray(leaf, dtype=np.float16)
+                      for keys, leaf in _flatten(tree)})
 
 
 def load_into(model: nn.Module, tree) -> nn.Module:

@@ -28,108 +28,12 @@
 // The running top-k is a sorted list per row in shared memory; a warp offers
 // 32 candidates at once, and the few that beat the current k-th entry are
 // inserted one at a time with a warp-parallel shift (k <= 128, at most four
-// entries per lane).
+// entries per lane). The tile product, the online logsumexp and the list
+// functions are shared with the two-head kernel (topk_common.cuh).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "topk_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 32;                      // rows per block
-constexpr int kCols = 128;                     // vocab columns per tile
-constexpr int kDepth = 32;                     // D per shared-memory stage
-constexpr int kRowsPerWarp = kRows / kWarps;   // 4
-constexpr int kColsPerLane = kCols / 32;       // 4
-constexpr int kMaxK = 128;
-constexpr float kNeg = -1e30f;                 // finite: no inf - inf
-constexpr int kNoId = 0x7fffffff;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Order of the top-k list: larger value first, then smaller id.
-__device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-__device__ __forceinline__ int warp_sum_int(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// Insert (v, id) into the sorted list lv/li of cnt entries (capacity k).
-// Called by all 32 lanes with the same candidate; cnt is warp-uniform. The
-// caller guarantees the candidate belongs in the list.
-__device__ __forceinline__ void warp_insert(float* lv, int* li, int k, int& cnt,
-                                            float v, int id) {
-  const int lane = threadIdx.x & 31;
-  int before = 0;
-  for (int j = lane; j < cnt; j += 32) before += better(lv[j], li[j], v, id) ? 1 : 0;
-  const int pos = warp_sum_int(before);
-  const int new_cnt = cnt < k ? cnt + 1 : k;
-  float tv[kMaxK / 32];
-  int ti[kMaxK / 32];
-#pragma unroll
-  for (int r = 0; r < kMaxK / 32; ++r) {
-    const int j = lane + 32 * r;
-    if (j > pos && j < new_cnt) {
-      tv[r] = lv[j - 1];
-      ti[r] = li[j - 1];
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < kMaxK / 32; ++r) {
-    const int j = lane + 32 * r;
-    if (j > pos && j < new_cnt) {
-      lv[j] = tv[r];
-      li[j] = ti[r];
-    }
-  }
-  if (lane == 0) {
-    lv[pos] = v;
-    li[pos] = id;
-  }
-  __syncwarp();
-  cnt = new_cnt;
-}
-
-__device__ __forceinline__ bool wants(const float* lv, const int* li, int k, int cnt,
-                                      float v, int id, bool valid) {
-  return valid && (cnt < k || better(v, id, lv[k - 1], li[k - 1]));
-}
-
-// Offer one candidate per lane to the list; inserts those that belong.
-__device__ __forceinline__ void warp_offer(float* lv, int* li, int k, int& cnt,
-                                           float v, int id, bool valid) {
-  const int lane = threadIdx.x & 31;
-  unsigned mask = __ballot_sync(kFull, wants(lv, li, k, cnt, v, id, valid));
-  while (mask) {
-    const int src = __ffs(mask) - 1;
-    const float cv = __shfl_sync(kFull, v, src);
-    const int ci = __shfl_sync(kFull, id, src);
-    warp_insert(lv, li, k, cnt, cv, ci);
-    if (lane == src) valid = false;
-    mask = __ballot_sync(kFull, wants(lv, li, k, cnt, v, id, valid));
-  }
-}
 
 // Pass 1: one block per (32-row tile, vocab split). Writes the split's
 // partial row max, scaled sumexp and sorted top-k (padded with kNeg/kNoId).
@@ -167,40 +71,7 @@ partial_topk_kernel(const T* __restrict__ h, const T* __restrict__ w,
   for (int t = t_begin; t < t_end; ++t) {
     const int col0 = t * kCols;
     float acc[kRowsPerWarp][kColsPerLane];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += kDepth) {
-      for (int e = tid; e < kRows * kDepth; e += kThreads) {
-        const int r = e / kDepth, c = e % kDepth;
-        const int gr = row0 + r, gc = k0 + c;
-        hs[c * (kRows + 1) + r] =
-            (gr < n && gc < d) ? to_f32(h[(size_t)gr * d + gc]) : 0.f;
-      }
-      for (int e = tid; e < kCols * kDepth; e += kThreads) {
-        const int r = e / kDepth, c = e % kDepth;
-        const int gr = col0 + r, gc = k0 + c;
-        ws[c * (kCols + 1) + r] =
-            (gr < v && gc < d) ? to_f32(w[(size_t)gr * d + gc]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < kDepth; ++c) {
-        float a[kRowsPerWarp], b[kColsPerLane];
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          a[i] = hs[c * (kRows + 1) + warp * kRowsPerWarp + i];
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) b[j] = ws[c * (kCols + 1) + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-          for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+    tile_product(h, w, n, d, v, row0, col0, hs, ws, acc);
 
     // fold the tile into each row's online logsumexp and running top-k
 #pragma unroll
@@ -209,22 +80,13 @@ partial_topk_kernel(const T* __restrict__ h, const T* __restrict__ w,
       if (row0 + r >= n) continue;  // warp-uniform
       float x[kColsPerLane];
       bool ok[kColsPerLane];
-      float tmax = kNeg;
 #pragma unroll
       for (int j = 0; j < kColsPerLane; ++j) {
         const int g = col0 + lane + 32 * j;
         ok[j] = g < v;
         x[j] = ok[j] ? acc[i][j] + bias[g] : kNeg;
-        tmax = fmaxf(tmax, x[j]);
       }
-      tmax = warp_max(tmax);
-      const float m_new = fmaxf(m_run[i], tmax);
-      float se = 0.f;
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) se += ok[j] ? expf(x[j] - m_new) : 0.f;
-      se = warp_sum(se);
-      s_run[i] = s_run[i] * expf(m_run[i] - m_new) + se;
-      m_run[i] = m_new;
+      online_lse(x, ok, m_run[i], s_run[i]);
 #pragma unroll
       for (int j = 0; j < kColsPerLane; ++j)
         warp_offer(lv + r * k, li + r * k, k, cnt[i], x[j], col0 + lane + 32 * j, ok[j]);
@@ -241,11 +103,7 @@ partial_topk_kernel(const T* __restrict__ h, const T* __restrict__ w,
       part_m[base] = m_run[i];
       part_s[base] = s_run[i];
     }
-    for (int j = lane; j < k; j += 32) {
-      const bool have = j < cnt[i];
-      part_v[base * k + j] = have ? lv[r * k + j] : kNeg;
-      part_i[base * k + j] = have ? li[r * k + j] : kNoId;
-    }
+    store_partial_list(lv + r * k, li + r * k, k, cnt[i], part_v, part_i, base);
   }
 }
 
@@ -263,31 +121,8 @@ merge_topk_kernel(const float* __restrict__ part_m, const float* __restrict__ pa
   float* lv = smem + warp * k;
   int* li = reinterpret_cast<int*>(smem + kWarps * k) + warp * k;
 
-  float m = kNeg;
-  for (int s = lane; s < splits; s += 32) m = fmaxf(m, part_m[(size_t)s * n + row]);
-  m = warp_max(m);
-  float sum = 0.f;
-  for (int s = lane; s < splits; s += 32) {
-    const size_t idx = (size_t)s * n + row;
-    sum += part_s[idx] * expf(part_m[idx] - m);
-  }
-  sum = warp_sum(sum);
-  const float row_lse = m + logf(sum);
-
-  int cnt = 0;
-  const int total = splits * k;
-  for (int base = 0; base < total; base += 32) {
-    const int e = base + lane;
-    float cv = kNeg;
-    int ci = kNoId;
-    if (e < total) {
-      const int s = e / k, j = e % k;
-      const size_t idx = ((size_t)s * n + row) * k + j;
-      cv = part_v[idx];
-      ci = part_i[idx];
-    }
-    warp_offer(lv, li, k, cnt, cv, ci, ci != kNoId);
-  }
+  const float row_lse = merged_lse(part_m, part_s, n, row, splits);
+  merge_lists(part_v, part_i, n, k, row, splits, lv, li);
   for (int j = lane; j < k; j += 32) {
     vals[(size_t)row * k + j] = lv[j] - row_lse;
     ids[(size_t)row * k + j] = li[j];
@@ -299,7 +134,7 @@ template <typename T>
 int launch(const void* h, const void* w, const float* bias, int n, int d, int v, int k,
            int splits, int tiles_per_split, float* part, int* part_i, float* vals,
            int* ids, float* lse, cudaStream_t stream) {
-  const size_t smem1 = sizeof(float) * (kDepth * (kRows + 1) + kDepth * (kCols + 1)) +
+  const size_t smem1 = sizeof(float) * kStageFloats +
                        (sizeof(float) + sizeof(int)) * kRows * k;
   cudaError_t err = cudaFuncSetAttribute(partial_topk_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -142,6 +142,13 @@ class TransformerDecoder(nn.Module):
             x = self.after_norm(x)
         return x
 
+    def decode_hidden_step(self, token_t, cache, index: int, memory_pad_mask, src=None):
+        """One cached step up to the pre-projection hidden state:
+        (h [N, D], cache). The vocabulary head is applied elsewhere, fused
+        with an LM's head in ``project2_logp_topk`` for shallow fusion."""
+        x = self._decode_hidden(token_t, cache, index, memory_pad_mask, src)
+        return x[:, 0], cache
+
     def decode_step(self, token_t, cache, index: int, memory_pad_mask, src=None):
         """token_t: int[B·K]; src: optional int[B, K, U_max] ancestry map.
         Returns (log_probs f32[B·K, V], cache)."""

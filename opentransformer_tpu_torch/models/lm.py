@@ -1,0 +1,231 @@
+"""Language models for shallow fusion and n-best rescoring, inference side
+(counterpart of ``opentransformer_tpu/models/lm.py``).
+
+``TransformerLanguageModel``: embedding·√d + positions → N causal
+self-attention blocks (post-norm, no final norm) → tied or untied vocabulary
+head, with a KV-cached ``decode_step``. ``RecurrentLanguageModel``:
+embedding → LSTM stack → head, stepping on a carried hidden state.
+
+Both expose what the beam search needs: ``logits`` over whole sequences
+(rescoring), ``decode_step`` (log-probs of one step, the unfused path),
+``decode_hidden`` (the pre-projection hidden state of one step) and
+``vocab_head``, which together feed the fused two-head top-k
+(``ops/project_topk.py:project2_logp_topk``). Module and parameter names
+follow the flax modules so ``compat.params_from_jax`` maps their weights.
+
+Not ported: the training ``__call__`` and its loss, the MoE feed-forward
+(``moe_experts > 0`` raises), and the per-row ``index`` of the transformer
+LM's decode step, which only the transducer beam uses.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops.masks import causal_mask
+from .modules import (
+    Dense,
+    MultiHeadSelfAttention,
+    PositionwiseFeedForward,
+    layer_norm,
+    sinusoid_position_encoding,
+)
+
+
+class _VocabHead(nn.Module):
+    """The output projection both LMs share: the embedding matrix with a
+    separate ``output_bias`` when tied, an ``output_layer`` otherwise."""
+
+    def __init__(self, vocab_size: int, width: int, share_embedding: bool):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.share_embedding = share_embedding
+        self.embedding = nn.Embedding(vocab_size, width)
+        if share_embedding:
+            self.output_bias = nn.Parameter(torch.zeros(vocab_size))
+        else:
+            self.output_layer = nn.Linear(width, vocab_size)
+
+    def vocab_head(self):
+        """(weight [V, D], bias [V]) of the output projection."""
+        if self.share_embedding:
+            return self.embedding.weight, self.output_bias
+        return self.output_layer.weight, self.output_layer.bias
+
+    def _project(self, h):
+        """Logits in float32 (products accumulate there, as in the reference)."""
+        w, b = self.vocab_head()
+        return h.float() @ w.to(h.dtype).float().T + b.float()
+
+    def decode_step(self, token_t, state, index=None):
+        """token_t: int[N] → (log_probs f32[N, V], new state)."""
+        h, state = self.decode_hidden(token_t, state, index)
+        return torch.log_softmax(self._project(h), dim=-1), state
+
+
+class TransformerLMLayer(nn.Module):
+    """Self-attention and feed-forward, each followed by its LayerNorm
+    (the JAX model never sets its layers' ``normalize_before``)."""
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str = "glu"):
+        super().__init__()
+        self.norm1 = layer_norm(d_model)
+        self.norm2 = layer_norm(d_model)
+        self.slf_attn = MultiHeadSelfAttention(n_heads, d_model)
+        self.ffn = PositionwiseFeedForward(d_model, d_ff, activation)
+
+    def forward(self, x, attn_mask):
+        x = self.norm1(x + self.slf_attn(x, attn_mask))
+        return self.norm2(x + self.ffn(x))
+
+    def decode_step(self, x_t, cache, index: int, src=None):
+        """x_t: [N, 1, D]; writes position ``index`` of ``cache`` in place."""
+        x = self.norm1(x_t + self.slf_attn.decode_step(x_t, cache["k"], cache["v"], index, src))
+        return self.norm2(x + self.ffn(x))
+
+
+class TransformerLanguageModel(_VocabHead):
+    # config keys of the JAX model that only training reads
+    TRAINING_FIELDS = ("residual_dropout", "smoothing", "moe_top_k", "moe_capacity_factor",
+                       "moe_router_jitter", "moe_aux_weight")
+
+    def __init__(self, vocab_size: int, num_blocks: int = 6, d_model: int = 256,
+                 n_heads: int = 4, d_ff: int = 1024, share_embedding: bool = True,
+                 activation: str = "glu", moe_experts: int = 0):
+        super().__init__(vocab_size, d_model, share_embedding)
+        if moe_experts > 0:
+            raise NotImplementedError(
+                "the MoE feed-forward (moe_experts > 0) is not ported to "
+                "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: modules still to port)")
+        self.num_blocks = num_blocks
+        self.d_model = d_model
+        self.n_heads = n_heads
+        self.layers = []
+        for i in range(num_blocks):
+            layer = TransformerLMLayer(d_model, n_heads, d_ff, activation)
+            self.add_module(f"block_{i}", layer)
+            self.layers.append(layer)
+
+    def _embed(self, tokens):
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self.embedding(tokens)
+        return x * math.sqrt(self.d_model) + sinusoid_position_encoding(
+            pos, self.d_model)[None].to(x.dtype)
+
+    def logits(self, tokens):
+        """tokens int[B, T] → f32[B, T, V]. The mask is causal only: padded
+        keys stay attendable (reference parity)."""
+        mask = causal_mask(tokens.shape[1], device=tokens.device)
+        x = self._embed(tokens)
+        for layer in self.layers:
+            x = layer(x, mask)
+        return self._project(x)
+
+    def init_cache(self, batch: int, max_len: int):
+        """Per-block {"k", "v"} of [batch, H, max_len, Dh] zeros."""
+        p = self.embedding.weight
+        shape = (batch, self.n_heads, max_len, self.d_model // self.n_heads)
+        return [{"k": torch.zeros(shape, dtype=p.dtype, device=p.device),
+                 "v": torch.zeros(shape, dtype=p.dtype, device=p.device)}
+                for _ in range(self.num_blocks)]
+
+    def decode_hidden(self, token_t, cache, index: int, src=None):
+        """Pre-projection hidden of one step: (h [N, D], cache), the caches
+        written in place at position ``index`` (a scalar: lockstep beam).
+
+        ``src``: optional int[B, K, U] beam-ancestry map (B·K = N), the one
+        the decoder threads through its own step. With it the KV caches are
+        unordered append-only buffers read through the map
+        (``modules.ancestral_decode_context``) and the beam search never
+        gathers them: the LM consumes exactly the decoder's token sequence,
+        so the decoder's ancestry is the LM's. Without it the caches are in
+        hypothesis order and the caller reorders them between steps.
+
+        The position term is added as the JAX reference does: embedded at
+        position 0, then shifted by pe(index) − pe(0)."""
+        x = self._embed(token_t[:, None])
+        pos = torch.tensor([0, index], device=token_t.device)
+        pe = sinusoid_position_encoding(pos, self.d_model)
+        x = x + (pe[1] - pe[0]).to(x.dtype)
+        for layer, layer_cache in zip(self.layers, cache):
+            x = layer.decode_step(x, layer_cache, index, src)
+        return x[:, 0], cache
+
+
+class LSTMCell(nn.Module):
+    """flax ``OptimizedLSTMCell``: input kernels ``ii, if, ig, io`` without
+    bias, hidden kernels ``hi, hf, hg, ho`` with bias; the carry is (c, h)."""
+
+    GATES = "ifgo"
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        for g in self.GATES:
+            self.add_module("i" + g, Dense(input_size, hidden_size, bias=False))
+            self.add_module("h" + g, Dense(hidden_size, hidden_size))
+
+    def forward(self, carry, x):
+        c, h = carry
+        i, f, g, o = (getattr(self, "i" + n)(x) + getattr(self, "h" + n)(h) for n in self.GATES)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (c, h), h
+
+
+class RNN(nn.Module):
+    """flax ``nn.RNN`` over one cell: scans [B, T, D] from a carry."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.cell = LSTMCell(input_size, hidden_size)
+
+    def forward(self, x, carry):
+        outs = []
+        for t in range(x.shape[1]):
+            carry, y = self.cell(carry, x[:, t])
+            outs.append(y)
+        return carry, torch.stack(outs, dim=1)
+
+
+class RecurrentLanguageModel(_VocabHead):
+    # config keys of the JAX model that only training reads (inter-layer
+    # dropout is off in inference)
+    TRAINING_FIELDS = ("dropout", "residual_dropout", "smoothing")
+
+    def __init__(self, vocab_size: int, num_layers: int = 2, hidden_size: int = 1024,
+                 share_embedding: bool = True):
+        super().__init__(vocab_size, hidden_size, share_embedding)
+        self.num_layers = num_layers
+        self.hidden_size = hidden_size
+        self.rnns = []
+        for i in range(num_layers):
+            rnn = RNN(hidden_size, hidden_size)
+            self.add_module(f"lstm_{i}", rnn)
+            self.rnns.append(rnn)
+
+    def init_hidden(self, batch: int):
+        """Per-layer (c, h) of [batch, hidden] zeros."""
+        p = self.embedding.weight
+        return [(torch.zeros((batch, self.hidden_size), dtype=p.dtype, device=p.device),
+                 torch.zeros((batch, self.hidden_size), dtype=p.dtype, device=p.device))
+                for _ in range(self.num_layers)]
+
+    def _run(self, x, hidden):
+        finals = []
+        for rnn, carry in zip(self.rnns, hidden):
+            carry, x = rnn(x, carry)
+            finals.append(carry)
+        return x, finals
+
+    def logits(self, tokens):
+        """tokens int[B, T] → f32[B, T, V], from a zero hidden state."""
+        h, _ = self._run(self.embedding(tokens), self.init_hidden(tokens.shape[0]))
+        return self._project(h)
+
+    def decode_hidden(self, token_t, hidden, index=None):
+        """Pre-projection hidden of one step: (h [N, D], new hidden)."""
+        x, hidden = self._run(self.embedding(token_t)[:, None], hidden)
+        return x[:, 0], hidden

@@ -29,6 +29,12 @@ def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
 
 
+class Dense(nn.Linear):
+    """A flax ``nn.Dense`` used bare: its parameters sit directly under the
+    module's name, so ``compat`` writes no ``dense`` level for it (a plain
+    ``nn.Linear`` stands for the JAX package's ``TorchLinear``, which has one)."""
+
+
 def swish(x):
     return x * torch.sigmoid(x)
 

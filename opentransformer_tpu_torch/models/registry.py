@@ -1,17 +1,25 @@
 """Model registry (counterpart of ``opentransformer_tpu/models/registry.py``).
 
 Builds a model from the ``model`` section of a config, as a dict (read from
-JSON: the anchor manifest's ``model_cfg`` is one). This slice of the port
-covers ``speech2text`` with a conv frontend and an absolute-position
-transformer encoder; anything else raises and names the ROADMAP queue.
+JSON: the anchor manifest's ``model_cfg`` is one). The port covers
+``speech2text`` with a conv frontend and an absolute-position transformer
+encoder, and the language models ``transformer_lm`` and ``rnn_lm``;
+anything else raises and names the ROADMAP queue.
 """
 
 from __future__ import annotations
 
+import inspect
+import logging
+
 import torch
+from torch import nn
 
 from ..utils import disable_tf32, resolve_device
+from .lm import RecurrentLanguageModel, TransformerLanguageModel
 from .speech2text import SpeechToText
+
+LM_TYPES = {"transformer_lm": TransformerLanguageModel, "rnn_lm": RecurrentLanguageModel}
 
 # options the port does not implement yet, with the value that means "off"
 _NOT_PORTED = {
@@ -28,12 +36,33 @@ def _not_ported(what: str) -> NotImplementedError:
         "(see ROADMAP.md, Queue 1: modules still to port)")
 
 
+def _lm_kwargs(model_cfg: dict, cls) -> dict:
+    """The config keys ``cls`` takes, with a warning on keys that are
+    dropped. The LM field is ``num_blocks`` while encoders use ``n_blocks``:
+    a config that mixes them up would otherwise silently build the
+    default-depth LM."""
+    fields = [k for k in inspect.signature(cls.__init__).parameters if k != "self"]
+    known = (*fields, *cls.TRAINING_FIELDS, "type", "dtype")
+    dropped = sorted(k for k in model_cfg if k not in known)
+    if dropped:
+        logging.getLogger(__name__).warning(
+            "%s config keys %s are not model fields and were IGNORED (valid: %s)",
+            cls.__name__, dropped, sorted((*fields, *cls.TRAINING_FIELDS)))
+    return {k: v for k, v in model_cfg.items() if k in fields}
+
+
 def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
-                device: str | torch.device | None = None) -> SpeechToText:
+                device: str | torch.device | None = None) -> nn.Module:
     """Build an inference model on ``device`` (default: the CUDA card, which
     must exist) in ``dtype``. Weights are random until a state dict from
     ``compat.params_from_jax`` is loaded."""
     mtype = model_cfg["type"]
+    dev = resolve_device(device)
+    if dtype == torch.float32:
+        disable_tf32()
+    if mtype in LM_TYPES:
+        cls = LM_TYPES[mtype]
+        return cls(**_lm_kwargs(model_cfg, cls)).to(device=dev, dtype=dtype).eval()
     if mtype != "speech2text":
         raise _not_ported(f"model type {mtype!r}")
     if model_cfg.get("frontend_type", "conv") != "conv":
@@ -48,9 +77,6 @@ def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
         for key, off in options.items():
             if model_cfg[section].get(key, off) != off:
                 raise _not_ported(f"{section} option {key}={model_cfg[section][key]!r}")
-    dev = resolve_device(device)
-    if dtype == torch.float32:
-        disable_tf32()
     model = SpeechToText(model_cfg["frontend"], model_cfg["encoder"], model_cfg["decoder"],
                          ctc_weight=float(model_cfg.get("ctc_weight", 0.0)))
     return model.to(device=dev, dtype=dtype).eval()

@@ -64,3 +64,9 @@ class SpeechToText(nn.Module):
 
     def decode_step_topk(self, token_t, cache, index: int, memory_pad_mask, src, k: int):
         return self.decoder.decode_step_topk(token_t, cache, index, memory_pad_mask, src, k)
+
+    def decode_hidden_step(self, token_t, cache, index: int, memory_pad_mask, src=None):
+        return self.decoder.decode_hidden_step(token_t, cache, index, memory_pad_mask, src)
+
+    def vocab_head(self):
+        return self.decoder.vocab_head()

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``_build/<name>-<hash>.so`` (the directory is gitignored; the hash
-covers the source and the flags, so an edited source rebuilds), then loaded
-with ``ctypes``. No PyTorch headers are involved, so a build takes seconds.
-Nothing is built or loaded when this module is imported.
+covers the source, the ``csrc/*.cuh`` headers it may include and the flags,
+so an edited source or header rebuilds), then loaded with ``ctypes``. No
+PyTorch headers are involved, so a build takes seconds. Nothing is built or
+loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -33,10 +35,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> str:
@@ -56,6 +60,12 @@ def build(name: str) -> str:
         f.write(proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def build_all(names: list[str]) -> list[str]:
+    """``build`` for several sources at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return list(pool.map(build, names))
 
 
 def build_log(name: str) -> str:

@@ -1,5 +1,5 @@
 """Fused vocab projection → log-softmax → top-k
-(counterpart of ``opentransformer_tpu/ops/project_topk.py:project_logp_topk``).
+(counterpart of ``opentransformer_tpu/ops/project_topk.py``).
 
 Every beam or greedy decode step ends with ``log_softmax(h @ Wᵀ + b)``
 followed by a top-k. ``project_logp_topk`` computes that without writing
@@ -9,9 +9,16 @@ hand-written kernel of ``csrc/project_topk.cu`` (which replaces the Pallas
 same function in plain PyTorch. There is no other switch and no fallback:
 a CUDA tensor the kernel does not take raises.
 
-Semantics (both paths): values are float32 log-probs sorted descending,
+``project2_logp_topk`` is the two-head form that LM shallow fusion consumes:
+the top-k of ``log_softmax(h1 @ W1ᵀ + b1) + lam · log_softmax(h2 @ W2ᵀ + b2)``
+from the recognizer's and the LM's hidden states, through
+``csrc/project2_topk.cu`` (which replaces the Pallas ``_topk2_kernel``) on a
+CUDA tensor and ``project2_logp_topk_plain`` on a CPU tensor, under the same
+rule.
+
+Semantics (all paths): values are float32 log-probs sorted descending,
 ids int32, ties resolve to the smallest vocab id (the ``lax.top_k`` rule),
-``with_lse`` adds the row logsumexp. ``weight`` is cast to ``h``'s dtype
+``with_lse`` adds the row logsumexp. A weight is cast to its ``h``'s dtype
 (float32 or bfloat16) and the products accumulate in float32, as the JAX
 reference does with ``preferred_element_type``.
 """
@@ -76,26 +83,38 @@ def _library() -> ctypes.CDLL:
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _project_logp_topk_cuda(h, weight, bias, k: int):
+def _kernel_head(h, weight, bias):
+    """Check one head's (h [N, D], weight [V, D], bias [V]) for the kernels
+    and return (h, weight in h's dtype, bias in float32); raises on what the
+    kernels do not take."""
     if h.dim() != 2 or weight.dim() != 2 or bias.dim() != 1:
         raise ValueError(f"expected h [N, D], weight [V, D], bias [V]; got "
                          f"{tuple(h.shape)}, {tuple(weight.shape)}, {tuple(bias.shape)}")
-    n, d = h.shape
-    v = weight.shape[0]
-    if weight.shape[1] != d or bias.shape[0] != v:
+    if weight.shape[1] != h.shape[1] or bias.shape[0] != weight.shape[0]:
         raise ValueError(f"shape mismatch: h {tuple(h.shape)}, weight {tuple(weight.shape)}, "
                          f"bias {tuple(bias.shape)}")
     if h.dtype not in _DTYPE_CODE:
-        raise TypeError(f"project_logp_topk kernel takes float32 or bfloat16 h, got {h.dtype}")
-    if not 1 <= k <= min(MAX_K, v):
-        raise ValueError(f"k={k} must be in [1, min({MAX_K}, V={v})]")
+        raise TypeError(f"the top-k kernels take float32 or bfloat16 h, got {h.dtype}")
     if weight.device != h.device or bias.device != h.device:
         raise ValueError("h, weight and bias must be on the same device")
     w = weight.to(h.dtype)
     b = bias.to(torch.float32)
     for name, t in (("h", h), ("weight", w), ("bias", b)):
         if not t.is_contiguous():
-            raise ValueError(f"project_logp_topk kernel needs a contiguous {name}")
+            raise ValueError(f"the top-k kernels need a contiguous {name}")
+    return h, w, b
+
+
+def _check_k(k: int, v: int) -> None:
+    if not 1 <= k <= min(MAX_K, v):
+        raise ValueError(f"k={k} must be in [1, min({MAX_K}, V={v})]")
+
+
+def _project_logp_topk_cuda(h, weight, bias, k: int):
+    h, w, b = _kernel_head(h, weight, bias)
+    n, d = h.shape
+    v = w.shape[0]
+    _check_k(k, v)
     dev = h.device
     vals = torch.empty((n, k), dtype=torch.float32, device=dev)
     ids = torch.empty((n, k), dtype=torch.int32, device=dev)
@@ -136,3 +155,78 @@ def project_logp_topk(h, weight, bias, k: int, with_lse: bool = False):
 
 
 project_logp_topk.launches = 0
+
+
+def project2_logp_topk_plain(h1, w1, b1, h2, w2, b2, lam: float, k: int):
+    """Plain PyTorch version of the two-head form: both log-softmaxes
+    materialized, ``lp1 + lam · lp2``, then top-k."""
+    lp1 = torch.log_softmax(h1.float() @ w1.to(h1.dtype).float().T + b1.float(), dim=-1)
+    lp2 = torch.log_softmax(h2.float() @ w2.to(h2.dtype).float().T + b2.float(), dim=-1)
+    vals, idx = topk_smallest_id(lp1 + lam * lp2, k)
+    return vals, idx.to(torch.int32)
+
+
+def _library2() -> ctypes.CDLL:
+    lib = cuda_build.load("project2_topk")
+    if lib.project2_topk_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.project2_topk_launch.argtypes = [p, p, p, p, p, p, ctypes.c_float,
+                                             i, i, i, i, i, i, i, i, p, p, p, p, p]
+        lib.project2_topk_launch.restype = ctypes.c_int
+        lib.project2_topk_error_string.argtypes = [i]
+        lib.project2_topk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _project2_logp_topk_cuda(h1, w1, b1, h2, w2, b2, lam: float, k: int):
+    h1, w1, b1 = _kernel_head(h1, w1, b1)
+    h2, w2, b2 = _kernel_head(h2, w2, b2)
+    n, d1 = h1.shape
+    d2 = h2.shape[1]
+    v = w1.shape[0]
+    if h2.shape[0] != n:
+        raise ValueError(f"the heads disagree on rows: {n} and {h2.shape[0]}")
+    if w2.shape[0] != v:
+        raise ValueError(f"the heads disagree on the vocabulary: {v} and {w2.shape[0]}")
+    if h2.dtype != h1.dtype or h2.device != h1.device:
+        raise TypeError(f"the heads must share dtype and device: {h1.dtype} on {h1.device}, "
+                        f"{h2.dtype} on {h2.device}")
+    _check_k(k, v)
+    dev = h1.device
+    vals = torch.empty((n, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((n, k), dtype=torch.int32, device=dev)
+    if n == 0:
+        return vals, ids
+    splits, per_split = split_plan(n, v)
+    part = torch.empty((splits * n * (4 + k),), dtype=torch.float32, device=dev)
+    part_i = torch.empty((splits * n * k,), dtype=torch.int32, device=dev)
+    lib = _library2()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.project2_topk_launch(
+            h1.data_ptr(), w1.data_ptr(), b1.data_ptr(), h2.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), float(lam), _DTYPE_CODE[h1.dtype], n, d1, d2, v, k, splits,
+            per_split, part.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"project2_topk kernel launch failed: "
+                           f"{lib.project2_topk_error_string(err).decode()} ({err})")
+    project2_logp_topk.launches += 1
+    return vals, ids
+
+
+def project2_logp_topk(h1, w1, b1, h2, w2, b2, lam: float, k: int):
+    """(vals f32[N, k], ids i32[N, k]) of
+    ``log_softmax(h1 @ w1ᵀ + b1) + lam · log_softmax(h2 @ w2ᵀ + b2)``;
+    the heads share N and V, their widths D1 and D2 may differ.
+
+    CPU tensors → the plain version; CUDA tensors → the kernel, or an error.
+    ``project2_logp_topk.launches`` counts kernel launches."""
+    if h1.device.type == "cpu":
+        return project2_logp_topk_plain(h1, w1, b1, h2, w2, b2, lam, k)
+    if h1.device.type != "cuda":
+        raise ValueError(f"project2_logp_topk: unsupported device {h1.device}")
+    return _project2_logp_topk_cuda(h1, w1, b1, h2, w2, b2, lam, k)
+
+
+project2_logp_topk.launches = 0

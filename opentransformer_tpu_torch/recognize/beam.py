@@ -9,6 +9,9 @@ at additive 0 that forces EOS; the self-attention caches are append-only
 and read through the ancestry map ``src``; the search stops when every
 beam has ended; after the loop scores are divided by the length penalty
 ``((5+len)/6)^0.6`` with len = non-EOS tokens including BOS, and sorted.
+With an LM the per-step score is ``logp + lm_weight · lm_logp`` (shallow
+fusion), taken either from the fused two-head top-k or from the two
+materialized distributions.
 
 The JAX reference runs the loop as one ``lax.while_loop`` on the device;
 here it is a Python loop with one host sync per step for the early exit.
@@ -43,6 +46,17 @@ def _lengths(tokens: torch.Tensor, eos_id: int, max_len: int) -> torch.Tensor:
     return torch.where(is_eos.any(dim=-1), first, max_len) + 1
 
 
+def _gather_rows(state, rows: torch.Tensor):
+    """Reorder the leading axis of every tensor in a nest of lists, tuples
+    and dicts (a transformer LM's per-block {"k", "v"}, an LSTM's per-layer
+    (c, h))."""
+    if isinstance(state, torch.Tensor):
+        return state.index_select(0, rows)
+    if isinstance(state, dict):
+        return {key: _gather_rows(val, rows) for key, val in state.items()}
+    return type(state)(_gather_rows(val, rows) for val in state)
+
+
 def beam_search(
     decode_step: Callable,  # (tokens[B·K], cache, index, mem_mask, src) -> (logp, cache)
     init_cache: Callable,   # (memory, max_len, beam_width) -> cache
@@ -54,15 +68,29 @@ def beam_search(
     lamda: float = 5.0,
     eos_id: int = EOS,
     decode_topk: Optional[Callable] = None,  # (tokens, cache, index, mem_mask, src, k) -> (vals, ids, cache)
+    lm_step: Optional[Callable] = None,  # (tokens[N], state, index) -> (logp, state)
+    lm_init: Optional[Callable] = None,  # (n) -> state
+    lm_weight: float = 0.1,
+    decode_topk_lm: Optional[Callable] = None,  # (tokens, cache, lm_state, index, mem_mask, src, k) -> (vals, ids, cache, lm_state)
+    lm_ancestral: bool = False,
 ) -> BeamHypotheses:
     """``eos_id`` overrides the end token (an out-of-vocab id forces every
     decode to run ``max_len`` steps). ``decode_topk`` is the fused
-    projection→log-softmax→top-k step, used instead of ``decode_step`` and
-    a top-k over the full log-probs."""
+    projection→log-softmax→top-k step, used without an LM instead of
+    ``decode_step`` and a top-k over the full log-probs.
+
+    ``lm_step``/``lm_init`` switch shallow fusion on. ``decode_topk_lm`` is
+    its fused step: the top-k of ``logp_model + lm_weight · logp_lm`` from
+    the two hidden states, neither distribution materialized; without it
+    the two log-prob tensors are added and ranked. The LM state follows
+    the surviving hypotheses by a gather of its rows each step, unless
+    ``lm_ancestral``: then ``decode_topk_lm`` threads the ancestry map into
+    the LM, whose caches are append-only like the decoder's."""
     b = memory.shape[0]
     k = beam_width
     dev = memory.device
     cache = init_cache(memory, max_len + 1, k)
+    lm_state = lm_init(b * k) if lm_step is not None else None
 
     tokens = torch.full((b * k, max_len + 1), eos_id, dtype=torch.long, device=dev)
     tokens[:, 0] = BOS
@@ -81,10 +109,16 @@ def beam_search(
         if bool(end_flag.all()):
             break
         cur = tokens[:, step]
-        if decode_topk is not None:
+        if decode_topk_lm is not None and lm_step is not None:
+            top_vals, top_idx, cache, lm_state = decode_topk_lm(
+                cur, cache, lm_state, step, memory_mask, src, k)
+        elif decode_topk is not None and lm_step is None:
             top_vals, top_idx, cache = decode_topk(cur, cache, step, memory_mask, src, k)
         else:
             logp, cache = decode_step(cur, cache, step, memory_mask, src)
+            if lm_step is not None:
+                lm_logp, lm_state = lm_step(cur, lm_state, step)
+                logp = logp + lm_weight * lm_logp
             top_vals, top_idx = topk_smallest_id(logp, k)
         # finished beams: one alive branch with additive score 0, forced EOS
         fin = end_flag.reshape(b * k, 1)
@@ -103,6 +137,8 @@ def beam_search(
         # by each row itself next iteration
         src = torch.gather(src, 1, parent[:, :, None].expand(b, k, max_len + 1))
         src[:, :, step + 1] = ident
+        if lm_state is not None and not lm_ancestral:
+            lm_state = _gather_rows(lm_state, flat_parent)
         end_flag = end_flag.reshape(-1)[flat_parent].reshape(b, k) | (tok == eos_id)
         scores = best_scores
 
