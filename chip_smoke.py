@@ -32,7 +32,20 @@ each of which raises on failure:
      decodes agree on a small input for a transformer LM (ancestry-map
      caches) and an LSTM LM (gathered state), then the worst case of phase 3
      with bench.py's ``lm_fusion`` LM, one two-head launch per step, and
-     what fusion costs: decodes without and with the LM timed in turns.
+     what fusion costs: decodes without and with the LM timed in turns;
+  6. hold the ``spec_mel`` fbank kernel (DFT → power → mel → log) against
+     its plain version through ``fbank_batch`` at the on-device pipeline's
+     geometries, ragged rows and a silent row included, and time the
+     kernel, the plain version and the rfft composition at 16 utterances of
+     10 s;
+  7. train ``transformer_baseline`` (conf/transformer_baseline.json: d256,
+     12 encoder + 6 decoder blocks, V=4233, batch 16, accum 4) from raw
+     waveforms through the training CLI on a seeded corpus of 64 + 16 wavs:
+     2 epochs, 8 micro-batches, 2 updates, one fbank launch per micro-batch;
+     finite losses, no skipped update, a checkpoint that reloads into the
+     same decode; the kernel against the plain spectrum on one micro-batch
+     (features and loss); seconds per update and peak memory; and a
+     width-64 model that must halve its loss in 40 updates on 8 utterances.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -58,6 +71,26 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 ANCHOR = os.path.join(REPO, "egs", "synth_bench", "trained", "anchor_synth_f16")
 ANCHOR_CER_LIMIT = 0.75
+# phase 6: the device pipeline's geometries (tools/tpu_smoke.py:64-65) plus a
+# silent row; |Δ log-mel| on valid frames. Each side sums the same 400
+# float32 products per DFT bin, in another order, with a rounding error of
+# up to ~sqrt(400)·2^-24 of the sum of the products' magnitudes. Where a mel
+# energy is large that moves its log by ~1e-6; in a mel bin that holds only
+# a strong tone's side lobes the products cancel to ~1e-3 of their
+# magnitude, and either order can land ~1e-3 from the exact (float64)
+# log-mel. So the kernel is held to 1e-3 of the float64 result and to 2e-3
+# of the plain version, whose own error may fall on the other side.
+FBANK_ATOL = 2e-3
+FBANK_EXACT_ATOL = 1e-3
+FBANK_CASES = [("B=4 N=16000 M=40", 4, 16000, 40, None),
+               ("B=2 N=65536 M=40", 2, 65536, 40, None),
+               ("B=4 N=48000 M=80", 4, 48000, 80, None),
+               ("B=8 N=160000 M=40", 8, 160000, 40, None),
+               ("B=3 N=32000 M=40 with a silent row", 3, 32000, 40, 2)]
+FBANK_TIMED = (16, 160000, 40)  # the training batch: 16 utterances of 10 s
+TRAIN_CONF = os.path.join(REPO, "opentransformer_tpu_torch", "conf", "transformer_baseline.json")
+TRAIN_CORPUS = dict(train=64, dev=16, min_s=2.0, max_s=10.0, min_units=8, max_units=28)
+OVERFIT = dict(d_model=64, enc_blocks=2, dec_blocks=1, d_ff=256, utts=8, updates=40, lr=1e-3)
 FLAGSHIP_CFG = {
     "type": "speech2text",
     "frontend": {"input_size": 40, "output_size": 256, "in_channel": 1, "mid_channel": 64,
@@ -114,6 +147,16 @@ def topk2_bound_ms(n: int, d1: int, d2: int, v: int, k: int,
     flops = 2.0 * n * v * (d1 + d2)
     nbytes = (n + v) * (d1 + d2) * esize + 8 * v + 8 * n * k
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fbank_bound_ms(frames: int, mel: int, window: int = 400, freqs: int = 257) -> tuple[float, str]:
+    """Least time for the fbank spectrum stage: the dense DFT (two products),
+    the power and the mel product at the float32 rate, against the frames,
+    bases and output read or written once."""
+    flops = frames * (2.0 * 2 * window * freqs + 3 * freqs + 2.0 * freqs * mel)
+    nbytes = 4.0 * (frames * window + 2 * window * freqs + freqs * mel + frames * mel)
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32] * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -595,6 +638,319 @@ def phase_flagship_lm():
     return two
 
 
+# ---------------------------------------------------------------- phase 6
+def fbank_waves(b: int, n: int, seed: int, silent=None, device="cuda"):
+    """f32[B, N] noise plus two tones per row; row 1 ragged at 3/4 of N."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    w = np.empty((b, n), np.float32)
+    for i in range(b):
+        f1, f2 = 200.0 + 97.0 * i, 1500.0 + 311.0 * i
+        w[i] = (0.05 * rng.normal(size=n) + 0.3 * np.sin(2 * np.pi * f1 * t)
+                + 0.1 * np.sin(2 * np.pi * f2 * t))
+    lens = np.full(b, n, np.int32)
+    if b > 1:
+        lens[1] = 3 * n // 4
+        w[1, lens[1]:] = 0.0
+    if silent is not None:
+        w[silent] = 0.0
+    return torch.from_numpy(w).to(device), torch.from_numpy(lens).to(device)
+
+
+def plain_fbank(waveforms, lengths, num_mel_bins: int):
+    """``fbank_batch`` with the plain spectrum stage called directly."""
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+
+    frames = fk.extract_frames(waveforms)
+    b, t, ws = frames.shape
+    bases = fk.device_bases(num_mel_bins, 16000.0, frames.device)
+    feats = fk.spec_mel_plain(frames.reshape(b * t, ws), *bases).reshape(b, t, num_mel_bins)
+    return feats, fk.wave_frame_lengths(lengths)
+
+
+def exact_fbank(waveforms, num_mel_bins: int) -> torch.Tensor:
+    """The spectrum stage in float64 on the same float32 frames and bases."""
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+
+    frames = fk.extract_frames(waveforms).double()
+    cos_b, sin_b, mel_t = (x.double() for x in fk.device_bases(num_mel_bins, 16000.0,
+                                                               frames.device))
+    power = (frames @ cos_b).square() + (frames @ sin_b).square()
+    return torch.log(torch.clamp_min(power @ mel_t, fk.EPSILON)).float()
+
+
+def valid_max_err(a, b, frame_lengths) -> float:
+    valid = torch.arange(a.shape[1], device=a.device)[None] < frame_lengths[:, None]
+    return (a - b).abs()[valid].max().item()
+
+
+def phase_fbank():
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+    from opentransformer_tpu_torch.ops.fbank import num_frames
+    from opentransformer_tpu_torch.utils import disable_tf32
+
+    disable_tf32()
+    max_err = 0.0
+    for i, (label, b, n, bins, silent) in enumerate(FBANK_CASES):
+        w, lens = fbank_waves(b, n, seed=60 + i, silent=silent)
+        before = fk.spec_mel.launches
+        feats, flens = fk.fbank_batch(w, lens, bins)
+        launched = fk.spec_mel.launches - before
+        ref, rlens = plain_fbank(w, lens, bins)
+        exact = exact_fbank(w, bins)
+        torch.cuda.synchronize()
+        want = [num_frames(int(m)) for m in lens.tolist()]
+        counts_ok = (flens.tolist() == rlens.tolist() == want
+                     and feats.shape == ref.shape == (b, max(num_frames(n), 1), bins))
+        err = valid_max_err(feats, ref, flens)
+        err_exact = valid_max_err(feats, exact, flens)
+        plain_exact = valid_max_err(ref, exact, flens)
+        finite = bool(torch.isfinite(feats).all())
+        silent_ok = True
+        if silent is not None:
+            silent_ok = bool((feats[silent] == float(np.float32(np.log(fk.EPSILON)))).all())
+        ok = (counts_ok and finite and silent_ok and launched == 1 and err <= FBANK_ATOL
+              and err_exact <= FBANK_EXACT_ATOL)
+        log(f"phase6 {label}: frames {flens.tolist()} (plain {rlens.tolist()}), max|dlogmel| on "
+            f"valid frames vs plain {err:.3e} (atol {FBANK_ATOL:.0e}), vs float64 {err_exact:.3e} "
+            f"(atol {FBANK_EXACT_ATOL:.0e}; plain vs float64 {plain_exact:.3e}), "
+            f"launches {launched}"
+            f"{', silent row exactly log(EPSILON)' if silent is not None and silent_ok else ''} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fbank kernel disagrees with its plain version: {label}")
+        max_err = max(max_err, err)
+
+    b, n, bins = FBANK_TIMED
+    w, _ = fbank_waves(b, n, seed=99)
+    frames = fk.extract_frames(w)
+    flat = frames.reshape(-1, frames.shape[-1])
+    cos_b, sin_b, mel_t = fk.device_bases(bins, 16000.0, flat.device)
+    kern = cuda_ms(lambda: fk.spec_mel(flat, cos_b, sin_b, mel_t))
+    plain = cuda_ms(lambda: fk.spec_mel_plain(flat, cos_b, sin_b, mel_t))
+
+    def composition():
+        spec = torch.fft.rfft(flat, n=512, dim=-1)
+        power = spec.real.square() + spec.imag.square()
+        return torch.log(torch.clamp_min(power @ mel_t, fk.EPSILON))
+
+    comp_err = (composition() - fk.spec_mel(flat, cos_b, sin_b, mel_t)).abs().max().item()
+    comp = cuda_ms(composition)
+    bound, bound_by = fbank_bound_ms(flat.shape[0], bins)
+    log(f"phase6 time B={b} x {n} samples = {flat.shape[0]} frames M={bins}: kernel {kern:.4f} ms, "
+        f"plain version {plain:.4f} ms, rfft + |.|^2 + mel matmul + log (a composition of calls, "
+        f"not a library call; max|d| vs kernel {comp_err:.2e}) {comp:.4f} ms, bound {bound:.4f} ms "
+        f"({bound_by}) [{card_line()}]")
+    return max_err, (kern, plain, bound, bound_by)
+
+
+# ---------------------------------------------------------------- phase 7
+def write_train_corpus(root: str, seed: int = 7) -> dict:
+    """Seeded wavs (noise plus tones, 2-10 s) with 8-28-unit transcripts
+    over the 4,230 units, a vocab, and wav.scp/text for a train and a dev
+    split; returns {split: (wav.scp, text)} and the vocab path."""
+    import scipy.io.wavfile as siw
+
+    from opentransformer_tpu_torch.data import write_vocab
+
+    c = TRAIN_CORPUS
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    units = [f"u{i:04d}" for i in range(4230)]
+    write_vocab({"<PAD>": 0, "<S/E>": 1, "<UNK>": 2, **{u: 3 + i for i, u in enumerate(units)}},
+                os.path.join(root, "vocab"))
+    paths = {"vocab": os.path.join(root, "vocab")}
+    for split in ("train", "dev"):
+        scp, text = [], []
+        for i in range(c[split]):
+            n = int(rng.uniform(c["min_s"], c["max_s"]) * 16000)
+            t = np.arange(n) / 16000.0
+            tones = sum(a * np.sin(2 * np.pi * f * t)
+                        for a, f in zip(rng.uniform(0.05, 0.3, 3), rng.uniform(100, 4000, 3)))
+            wav = 0.05 * rng.normal(size=n) + tones
+            wav = (np.clip(wav, -1.0, 1.0) * 32767).astype(np.int16)
+            path = os.path.join(root, f"{split}{i:03d}.wav")
+            siw.write(path, 16000, wav)
+            ids = rng.integers(0, len(units), size=rng.integers(c["min_units"], c["max_units"] + 1))
+            scp.append(f"{split}{i:03d} {path}")
+            text.append(f"{split}{i:03d} " + " ".join(units[j] for j in ids))
+        for name, lines in (("wav.scp", scp), ("text", text)):
+            with open(os.path.join(root, f"{split}.{name}"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+        paths[split] = (os.path.join(root, f"{split}.wav.scp"), os.path.join(root, f"{split}.text"))
+    return paths
+
+
+def train_config(paths: dict, epochs: int = 2, model_cfg=None) -> dict:
+    """The committed baseline config pointed at the seeded corpus."""
+    with open(TRAIN_CONF) as f:
+        cfg = json.load(f)
+    cfg["data"]["vocab"] = paths["vocab"]
+    for split in ("train", "dev"):
+        cfg["data"][split] = {"feat": [paths[split][0]], "text": [paths[split][1]]}
+    cfg["data"].pop("test")
+    cfg["train"]["epochs"] = epochs
+    if model_cfg is not None:
+        cfg["model"] = model_cfg
+    return cfg
+
+
+def overfit_model_cfg(model_cfg: dict) -> dict:
+    """The baseline model at width 64 with 2 + 1 blocks."""
+    o = OVERFIT
+    cfg = json.loads(json.dumps(model_cfg))
+    cfg["frontend"]["output_size"] = o["d_model"]
+    cfg["encoder"].update(d_model=o["d_model"], n_blocks=o["enc_blocks"], d_ff=o["d_ff"])
+    cfg["decoder"].update(d_model=o["d_model"], memory_dim=o["d_model"], n_blocks=o["dec_blocks"],
+                          d_ff=o["d_ff"])
+    return cfg
+
+
+def reset_launch_counts():
+    from opentransformer_tpu_torch.ops.fbank_kernel import spec_mel
+    from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
+
+    spec_mel.launches = project_logp_topk.launches = project2_logp_topk.launches = 0
+
+
+def phase_train(workdir: str, device: str = "cuda", model_cfg=None):
+    """Train through the CLI, then the checks of the module docstring.
+    ``device="cpu"`` with a cut ``model_cfg`` rehearses the phase on the CPU
+    (where the fbank count stays 0); the card run uses the baseline as
+    committed."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.cli import run as run_cli
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+    from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
+    from opentransformer_tpu_torch.recognize.base import make_memory_search
+    from opentransformer_tpu_torch.train.checkpoint import Checkpointer
+    from opentransformer_tpu_torch.train.trainer import Trainer, feature_args
+
+    cuda = device == "cuda"
+    t0 = time.time()
+    paths = write_train_corpus(os.path.join(workdir, "corpus"))
+    cfg = train_config(paths, model_cfg=model_cfg)
+    conf = os.path.join(workdir, "train.json")
+    with open(conf, "w") as f:
+        json.dump(cfg, f)
+    expdir = os.path.join(workdir, "exp")
+    log(f"phase7 wrote the corpus and {conf} in {time.time() - t0:.1f} s")
+
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    trainer = run_cli.run(["-c", conf, "--expdir", expdir, "--log_interval", "1", "-s", "7",
+                           *([] if cuda else ["--device", device])])
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fk.spec_mel.launches
+    topk_launches = project_logp_topk.launches + project2_logp_topk.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    batches_per_epoch = -(-TRAIN_CORPUS["train"] // cfg["data"]["batch_size"])
+    micro = batches_per_epoch * cfg["train"]["epochs"]
+    losses = [x for r in trainer.history for x in r["losses"]]
+    finite = all(np.isfinite(losses)) and all(np.isfinite(trainer.dev_losses))
+    ck = Checkpointer(expdir)
+    gaps = [b["time"] - a["time"] for a, b in zip(trainer.history, trainer.history[1:])]
+    log(f"phase7 trained {cfg['train']['epochs']} epochs in {wall:.1f} s: {len(losses)} "
+        f"micro-batches, {len(trainer.history)} updates (lr {[r['lr'] for r in trainer.history]}, "
+        f"grad norms {[round(r['gnorm'], 3) for r in trainer.history]}), losses "
+        f"{[round(x, 4) for x in losses]}, dev losses {[round(x, 4) for x in trainer.dev_losses]}, "
+        f"NaN skips {trainer.nan_skips}, fbank launches {launches} (train micro-batches {micro}, "
+        f"dev 0), top-k launches {topk_launches}, checkpoints {ck.list_epochs()}, peak memory "
+        f"{peak:.2f} GiB, host seconds between updates {[round(g, 3) for g in gaps]}")
+    updates = cfg["train"]["epochs"] * -(-batches_per_epoch // cfg["train"]["accum_steps"])
+    # one kernel launch per training micro-batch (none on a CPU rehearsal)
+    if not (launches == (micro if cuda else 0) and micro == len(losses) and topk_launches == 0
+            and finite and trainer.nan_skips == 0 and ck.list_epochs() == [0, 1]
+            and len(trainer.history) == updates):
+        raise AssertionError("phase7: the training run is not what was asked for (see above)")
+
+    # the newest checkpoint, reloaded into a fresh model, decodes one dev
+    # batch to the same ids as the trained model
+    model = trainer.model.eval()
+    fresh = compat.load_into(build_model(cfg["model"], device=device),
+                             ck.load_params(ck.epoch_path(1)))
+    batch = next(iter(FeatureLoader(cfg, "dev", is_eval=True)))
+    feats, mask, targets, tlen = feature_args(batch, device)
+    ids = []
+    for m in (model, fresh):
+        with torch.inference_mode():
+            memory, memory_mask = m.encode(feats, mask)
+        ids.append(make_memory_search(m, 5, 16)(memory, memory_mask).tokens)
+    if not torch.equal(ids[0], ids[1]):
+        raise AssertionError("phase7: the reloaded checkpoint decodes differently")
+    log(f"phase7 model.epoch.1 reloaded into a fresh model: beam-5 decode of a dev batch of "
+        f"{feats.shape[0]} gives identical ids {tuple(ids[0].shape)} ok")
+
+    # one micro-batch with the kernel and with the plain spectrum, called directly
+    train_batch = next(iter(FeatureLoader(cfg, "train", seed=7)))
+    _, inputs, tg = train_batch
+    w = torch.as_tensor(inputs["waveforms"]).to(device)
+    wl = torch.as_tensor(inputs["wave_lengths"]).to(device)
+    frontend = trainer.frontend
+    feats_k, mask_k = frontend.finish(*fk.fbank_batch(w, wl, frontend.num_mel_bins), train=False)
+    feats_p, mask_p = frontend.finish(*plain_fbank(w, wl, frontend.num_mel_bins), train=False)
+    feat_err = valid_max_err(feats_k, feats_p, mask_k.sum(1))
+    targets = torch.as_tensor(tg["targets"]).long().to(device)
+    tlen = torch.as_tensor(tg["targets_length"]).long().to(device)
+    with torch.no_grad():
+        loss_k = model(feats_k, mask_k, targets, tlen)[0].item()
+        loss_p = model(feats_p, mask_p, targets, tlen)[0].item()
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = torch.equal(mask_k, mask_p) and feat_err <= FBANK_ATOL and rel <= 1e-4
+    log(f"phase7 one micro-batch ({w.shape[0]} x {w.shape[1]} samples) through the kernel and "
+        f"through the plain spectrum: max|dfeats| {feat_err:.3e} (atol {FBANK_ATOL:.0e}), "
+        f"loss {loss_k:.6f} vs {loss_p:.6f}, relative {rel:.2e} (limit 1e-4) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase7: kernel and plain spectrum disagree on a training batch")
+
+    # steady-state seconds per update: full windows of this epoch's batches
+    model.train()
+    window = list(FeatureLoader(cfg, "train", seed=7))[: cfg["train"]["accum_steps"]]
+    secs = []
+    for _ in range(4):
+        start = time.time()
+        for b in window:
+            trainer.micro_step(b)
+        trainer.update()
+        if cuda:
+            torch.cuda.synchronize()
+        secs.append(time.time() - start)
+    log(f"phase7 seconds per update ({len(window)} micro-batches of "
+        f"{cfg['data']['batch_size']} each, host clock, after the first): "
+        f"{[round(x, 3) for x in secs[1:]]}, median {sorted(secs[1:])[1]:.3f} s "
+        f"(first {secs[0]:.3f} s) [{card_line() if cuda else device}]")
+
+    # overfit: width 64, 2 + 1 blocks, constant lr, one batch of 8 utterances
+    o = OVERFIT
+    small = build_model(overfit_model_cfg(cfg["model"]), device=device)
+    over = Trainer({"accum_steps": 1, "clip_grad": cfg["train"]["clip_grad"],
+                    "optimizer_type": "adam", "optimizer": cfg["train"]["optimizer"],
+                    "scheduler_type": "constant", "scheduler": {"lr": o["lr"]}},
+                   small, frontend, torch.Generator(device=device).manual_seed(3))
+    batch8 = next(iter(FeatureLoader(cfg, "train", batch_size=o["utts"], seed=3)))
+    small.train()
+    curve = []
+    for _ in range(o["updates"]):
+        over.micro_step(batch8)
+        curve.append(over.update()["losses"][0])
+    ok = all(np.isfinite(curve)) and curve[-1] < 0.5 * curve[0] and over.nan_skips == 0
+    log(f"phase7 overfit width {o['d_model']}, {o['enc_blocks']}+{o['dec_blocks']} blocks, "
+        f"lr {o['lr']}, {len(batch8[0])} utterances, {o['updates']} updates: loss "
+        f"{curve[0]:.4f} -> {curve[-1]:.4f} (every 10th: {[round(x, 3) for x in curve[::10]]}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase7: the width-64 model did not halve its loss in 40 updates")
+    return launches
+
+
 def kernel_record(name, source, replaces, launches, max_err, timing):
     kern, plain, bound, bound_by = timing
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -619,9 +975,13 @@ def main() -> int:
         launches = phase_flagship()
         phase_anchor_lm(workdir, data)
     launches2 = phase_flagship_lm()
+    max_err3, timing3 = phase_fbank()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        launches3 = phase_train(workdir)
 
     # launches: each kernel's count on its own main path (phase 3 without an
-    # LM, phase 5 with one); times at the flagship bf16 beam-step shape
+    # LM, phase 5 with one, phase 7's training run); times at the flagship
+    # bf16 beam-step shape and at the 16 x 10 s training batch
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:96", launches, max_err,
@@ -629,6 +989,8 @@ def main() -> int:
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
                       timings2["flagship bf16"]),
+        kernel_record("fbank_spec_mel", "opentransformer_tpu_torch/csrc/fbank_spec_mel.cu",
+                      "opentransformer_tpu/ops/fbank_pallas.py:60", launches3, max_err3, timing3),
     ]}
     print(json.dumps(record))
     print(card_line())

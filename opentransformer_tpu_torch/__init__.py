@@ -8,16 +8,20 @@ JAX, flax, yaml, and nothing from the JAX package.
 
 Ported so far: the speech2text decode side (conv frontend, transformer
 encoder, KV-cached decoder, batched beam and greedy search), the transformer
-and LSTM language models with shallow fusion and n-best rescoring, and the
-eval CLI. Training, the data pipeline, the CTC, Conformer and transducer
-models, streaming and serving are still to port (``ROADMAP.md``).
+and LSTM language models with shallow fusion and n-best rescoring, the eval
+CLI, and training speech2text from raw waveforms (the online dataset and
+loader, the device feature stage, label smoothing, Adam/SGD with the seven
+schedules, per-epoch checkpoints, ``cli/run.py`` on JSON configs). The CTC
+loss and models, the Conformer and transducer models, the other datasets,
+streaming and serving are still to port (``ROADMAP.md``).
 
 The Pallas kernels of the JAX package become hand-written CUDA kernels
 under ``csrc/``, built with ``nvcc`` at first use (``ops/cuda_build.py``):
 the fused projection → log-softmax → top-k of a decode step
-(``project_topk.cu``) and its two-head form for LM fusion
-(``project2_topk.cu``). Each kernel has a plain PyTorch version beside it,
-which is what runs for tensors on the CPU.
+(``project_topk.cu``), its two-head form for LM fusion
+(``project2_topk.cu``) and the fused DFT → power → mel → log of the
+training feature stage (``fbank_spec_mel.cu``). Each kernel has a plain
+PyTorch version beside it, which is what runs for tensors on the CPU.
 """
 
 __version__ = "0.1.0"

@@ -49,9 +49,12 @@ FRAME_PAD_MULTIPLE = 32
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Decode with JAX-trained weights on the port")
-    p.add_argument("--npz", required=True, help="flattened float16 npz of the JAX params")
+    p.add_argument("--npz", required=True,
+                   help="flattened npz of the JAX params (an export, or params.npz of a "
+                        "training checkpoint)")
     p.add_argument("--model_cfg", required=True,
-                   help="JSON model config, or an export manifest with a model_cfg key")
+                   help="JSON model config, an export manifest with a model_cfg key, or a "
+                        "training run's config.json")
     p.add_argument("--feats", required=True, help="kaldi feats.scp")
     p.add_argument("--text", required=True, help="reference transcripts (utt unit unit ...)")
     p.add_argument("--vocab", required=True, help="'unit idx' vocab file")
@@ -75,9 +78,15 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def load_model_cfg(path: str) -> dict:
+    """The model section of a JSON model config, of an export manifest
+    (``model_cfg``) or of a training run's ``config.json`` (``model``)."""
     with open(path, encoding="utf-8") as f:
         cfg = json.load(f)
-    return cfg.get("model_cfg", cfg)
+    if "model_cfg" in cfg:
+        return cfg["model_cfg"]
+    if "type" not in cfg and "model" in cfg:
+        return cfg["model"]
+    return cfg
 
 
 def read_text(path: str) -> dict[str, list[str]]:

@@ -13,9 +13,11 @@ the port's modules, whose names mirror the flax module paths:
   * Embed ``embedding`` → ``weight``; other leaves keep their name.
 
 ``params_to_jax`` is the inverse (used to make seeded random weights in the
-JAX layout). ``load_npz`` reads the ``"//"``-joined, float16 npz export of
-``tools/export_trained_synth.py`` with numpy alone, and ``save_npz`` writes
-that format.
+JAX layout and to write training checkpoints); a round trip through both
+gives back the same state dict. ``load_npz`` reads the ``"//"``-joined npz
+export of ``tools/export_trained_synth.py`` (float16 on disk) with numpy
+alone, and ``save_npz`` writes that format, in float16 or, for training
+checkpoints, float32.
 """
 
 from __future__ import annotations
@@ -93,7 +95,8 @@ def params_to_jax(model: nn.Module) -> dict:
 
 
 def load_npz(path: str) -> dict:
-    """``"//"``-joined flattened npz (float16 on disk) → nested float32 dict."""
+    """``"//"``-joined flattened npz (float16 or float32 on disk) → nested
+    float32 dict."""
     tree: dict = {}
     with np.load(path) as z:
         for key in z.files:
@@ -105,10 +108,11 @@ def load_npz(path: str) -> dict:
     return tree
 
 
-def save_npz(path: str, tree) -> None:
-    """Nested parameter dict → ``"//"``-joined flattened npz, float16 on
-    disk (what ``load_npz`` reads)."""
-    np.savez(path, **{SEP.join(keys): np.asarray(leaf, dtype=np.float16)
+def save_npz(path: str, tree, dtype=np.float16) -> None:
+    """Nested parameter dict → ``"//"``-joined flattened npz in ``dtype``
+    (float16, the export format, unless asked otherwise; what ``load_npz``
+    reads)."""
+    np.savez(path, **{SEP.join(keys): np.asarray(leaf, dtype=dtype)
                       for keys, leaf in _flatten(tree)})
 
 

@@ -1,0 +1,27 @@
+"""Run configs (counterpart of ``opentransformer_tpu/config.py``).
+
+A config has the JAX package's three sections, ``data``, ``model`` and
+``train``, with the same keys, but the port reads it from JSON: the
+machine with the card has no ``pyyaml``. ``conf/transformer_baseline.json``
+is ``egs/aishell/conf/transformer_baseline.yaml`` with
+``data.extract_on_device: true`` added.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+CONF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf")
+
+
+def load_config(path: str) -> dict:
+    if path.endswith((".yaml", ".yml")):
+        raise ValueError(f"{path}: the port reads JSON configs (no pyyaml on the card); "
+                         "write the same sections as JSON, as in "
+                         "opentransformer_tpu_torch/conf/transformer_baseline.json")
+    with open(path, "r", encoding="utf-8") as f:
+        cfg = json.load(f)
+    if not isinstance(cfg, dict) or not {"data", "model", "train"} <= set(cfg):
+        raise ValueError(f"{path}: a config needs the sections data, model and train")
+    return cfg

@@ -1,0 +1,203 @@
+"""Batches for training and evaluation
+(counterpart of ``opentransformer_tpu/data/loader.py``).
+
+``FeatureLoader`` builds the online dataset of one split, a length-sorted
+sampler of fixed-size batches whose order is reshuffled by ``set_epoch``,
+and yields collated batches from a background thread. A training split
+with ``extract_on_device`` yields padded waveforms
+(``device_pipeline.collate_waveforms``); an evaluation split yields padded
+host features (``collate_speech``). Targets are BOS ⧺ y ⧺ EOS ⧺ PAD…
+with ``targets_length = len(y) + 1``. Ported for ``dataset_type: online``
+only; the kaldi, espnet and text datasets, the bucketing sampler (a
+``bucket`` section), multi-host sharding and the device-resident corpus
+are not, and raise.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Iterator, Optional
+
+import numpy as np
+
+from . import BOS, EOS, PAD
+from .datasets import AudioDataset
+from .device_pipeline import collate_waveforms
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to opentransformer_tpu_torch yet "
+        "(see ROADMAP.md, Queue 1 item 6: the data pipeline)")
+
+
+def quantize(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
+def collate_targets(tgts, ulens, target_pad_multiple: int = 8):
+    """Target ids → (BOS ⧺ y ⧺ EOS ⧺ PAD…, bool mask, targets_length = len + 1),
+    padded to a multiple of ``target_pad_multiple``."""
+    b = len(tgts)
+    u_max = quantize(max(ulens) + 2, target_pad_multiple)
+    y = np.full((b, u_max), PAD, np.int32)
+    y_mask = np.zeros((b, u_max), bool)
+    for i in range(b):
+        y[i, 0] = BOS
+        y[i, 1 : 1 + ulens[i]] = tgts[i]
+        y[i, 1 + ulens[i]] = EOS
+        y_mask[i, : ulens[i] + 2] = True
+    return {"targets": y, "targets_length": np.asarray(ulens, np.int32) + 1, "mask": y_mask}
+
+
+def collate_speech(samples, pad_to_frames: Optional[int] = None, target_pad_multiple: int = 8):
+    """[(utt, feat[T, F], T, targets, U)] → (utt_ids, inputs, targets) with
+    features zero-padded to ``pad_to_frames`` (longer ones are cut to it)."""
+    utt_ids = [s[0] for s in samples]
+    t_max = pad_to_frames or max(s[2] for s in samples)
+    tlens = [min(s[2], t_max) for s in samples]
+    b, f = len(samples), samples[0][1].shape[1]
+    x = np.zeros((b, t_max, f), np.float32)
+    x_mask = np.zeros((b, t_max), bool)
+    for i, s in enumerate(samples):
+        x[i, : tlens[i]] = s[1][: tlens[i]]
+        x_mask[i, : tlens[i]] = True
+    inputs = {"inputs": x, "inputs_length": np.asarray(tlens, np.int32), "mask": x_mask}
+    return utt_ids, inputs, collate_targets([s[3] for s in samples], [s[4] for s in samples],
+                                            target_pad_multiple)
+
+
+class _Prefetcher:
+    """Iterates ``gen_fn()`` in a background thread through a bounded
+    queue; abandoning the iterator stops the thread at its next put."""
+
+    def __init__(self, gen_fn, max_prefetch: int = 10):
+        self.gen_fn = gen_fn
+        self.max_prefetch = max_prefetch
+
+    def __iter__(self):
+        q: queue.Queue = queue.Queue(self.max_prefetch)
+        sentinel = object()
+        stop = threading.Event()
+        failure: list[Exception] = []
+
+        def put_bounded(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for item in self.gen_fn():
+                    if not put_bounded(item):
+                        return
+            except Exception as e:  # handed to the consumer, raised there
+                failure.append(e)
+            finally:
+                put_bounded(sentinel)
+
+        th = threading.Thread(target=worker, daemon=True)
+        th.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                yield item
+            if failure:
+                raise failure[0]
+        finally:
+            stop.set()
+            th.join(timeout=5.0)
+
+
+class _SimpleSampler:
+    """Length-sorted fixed-size batches, each with its frame count padded to
+    a multiple of ``frame_multiple``, in a permutation seeded by
+    ``seed + epoch``."""
+
+    def __init__(self, order, lengths, batch_size, seed=0, frame_multiple=32):
+        self.order = order
+        self.lengths = lengths
+        self.batch_size = batch_size
+        self.seed = seed
+        self.frame_multiple = frame_multiple
+        self.epoch = 0
+        self._regen()
+
+    def _regen(self):
+        rng = np.random.default_rng(self.seed + self.epoch)
+        batches = []
+        for s in range(0, len(self.order), self.batch_size):
+            chunk = self.order[s : s + self.batch_size]
+            max_len = max(self.lengths[i] for i in chunk)
+            batches.append((quantize(max_len, self.frame_multiple), chunk))
+        perm = rng.permutation(len(batches))
+        self.batches = [batches[i] for i in perm]
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+        self._regen()
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
+class FeatureLoader:
+    """Dataset + sampler + collate for one split of ``params['data']``."""
+
+    def __init__(self, params: Any, name: str = "train", is_eval: bool = False,
+                 batch_size: Optional[int] = None, seed: int = 0):
+        data_cfg = params["data"] if "data" in params else params
+        dataset_type = data_cfg.get("dataset_type", "kaldi")
+        if dataset_type != "online":
+            raise _not_ported(f"dataset_type {dataset_type!r}")
+        if data_cfg.get("bucket"):
+            raise _not_ported("the bucketing sampler (data.bucket)")
+        if data_cfg.get("device_resident", False):
+            raise _not_ported("the device-resident corpus (data.device_resident)")
+        self.target_pad_multiple = int(data_cfg.get("target_pad_multiple", 8))
+        self.num_workers = int(data_cfg.get("num_workers", 0))
+        self.dataset = AudioDataset(data_cfg, data_cfg[name], is_eval=is_eval,
+                                    rng=np.random.default_rng(seed))
+        self.extract_on_device = self.dataset.return_waveform
+        self.batch_size = int(batch_size or data_cfg.get("batch_size", 16))
+        pairs = self.dataset.index_length_pair()
+        order = [i for i, _ in sorted(pairs, key=lambda p: p[1])]
+        self.sampler = _SimpleSampler(order, dict(pairs), self.batch_size, seed=seed,
+                                      frame_multiple=int(data_cfg.get("frame_pad_multiple", 32)))
+
+    def __len__(self) -> int:
+        return len(self.sampler)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.sampler.set_epoch(epoch)
+
+    def _iter_batches(self):
+        pool = ThreadPoolExecutor(self.num_workers) if self.num_workers > 1 else None
+        try:
+            for boundary, idxs in self.sampler:
+                if pool is not None:
+                    samples = list(pool.map(self.dataset.__getitem__, idxs))
+                else:
+                    samples = [self.dataset[i] for i in idxs]
+                if self.extract_on_device:
+                    yield collate_waveforms(samples)
+                else:
+                    yield collate_speech(samples, pad_to_frames=boundary,
+                                         target_pad_multiple=self.target_pad_multiple)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+
+    def __iter__(self) -> Iterator:
+        return iter(_Prefetcher(self._iter_batches))

@@ -5,8 +5,12 @@ Teacher-forced ``forward`` for full sequences; ``init_cache`` projects the
 cross-attention K/V once per utterance (B rows) and allocates the
 self-attention caches at B·K rows, [N, H, U_max, Dh]; ``decode_step`` and
 ``decode_step_topk`` append one position. The output projection is the
-tied embedding with its own separate ``output_bias``. ``decode_step_topk``
-hands the last hidden state to the fused projection→log-softmax→top-k
+tied embedding with its own separate ``output_bias``. In training, dropout
+acts after the embedding (``pos_dropout``), on the attention outputs
+(``slf_attn_dropout``, ``src_attn_dropout``), inside the FFN
+(``ffn_dropout``) and on every sublayer's output before the residual add
+(``residual_dropout``); in eval mode, and so in every decode step, none.
+``decode_step_topk`` hands the last hidden state to the fused projection→log-softmax→top-k
 (``ops/project_topk.py``), so the [N, V] log-probs are never written.
 """
 
@@ -20,6 +24,7 @@ from torch import nn
 from ..ops.masks import causal_mask
 from ..ops.project_topk import project_logp_topk
 from .modules import (
+    Dropout,
     MultiHeadCrossAttention,
     MultiHeadSelfAttention,
     PositionwiseFeedForward,
@@ -30,7 +35,9 @@ from .modules import (
 
 class TransformerDecoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, normalize_before: bool = False,
-                 activation: str = "glu"):
+                 activation: str = "glu", slf_attn_dropout: float = 0.0,
+                 src_attn_dropout: float = 0.0, ffn_dropout: float = 0.0,
+                 residual_dropout: float = 0.1):
         super().__init__()
         self.d_model = d_model
         self.n_heads = n_heads
@@ -38,14 +45,15 @@ class TransformerDecoderLayer(nn.Module):
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
         self.norm3 = layer_norm(d_model)
-        self.slf_attn = MultiHeadSelfAttention(n_heads, d_model)
-        self.src_attn = MultiHeadCrossAttention(n_heads, d_model)
-        self.ffn = PositionwiseFeedForward(d_model, d_ff, activation)
+        self.slf_attn = MultiHeadSelfAttention(n_heads, d_model, slf_attn_dropout)
+        self.src_attn = MultiHeadCrossAttention(n_heads, d_model, src_attn_dropout)
+        self.ffn = PositionwiseFeedForward(d_model, d_ff, activation, ffn_dropout)
+        self.res_dropout = Dropout(residual_dropout)
 
     def _sublayer(self, norm, x, fn):
         # the residual is the sublayer's input: x (post-norm) or norm(x)
         h = norm(x) if self.normalize_before else x
-        x = h + fn(h)
+        x = h + self.res_dropout(fn(h))
         return x if self.normalize_before else norm(x)
 
     def forward(self, x, memory, self_mask, memory_mask):
@@ -72,10 +80,13 @@ class TransformerDecoderLayer(nn.Module):
 
 class TransformerDecoder(nn.Module):
     def __init__(self, vocab_size: int, d_model: int = 256, n_heads: int = 4, d_ff: int = 2048,
-                 memory_dim: int = 256, n_blocks: int = 6, activation: str = "glu",
-                 normalize_before: bool = False, share_embedding: bool = True):
+                 memory_dim: int | None = None, n_blocks: int = 6, activation: str = "glu",
+                 normalize_before: bool = False, share_embedding: bool = True,
+                 pos_dropout: float = 0.0, slf_attn_dropout: float = 0.0,
+                 src_attn_dropout: float = 0.0, ffn_dropout: float = 0.0,
+                 residual_dropout: float = 0.1):
         super().__init__()
-        if memory_dim != d_model:
+        if memory_dim is not None and memory_dim != d_model:
             raise ValueError(f"memory_dim {memory_dim} must equal d_model {d_model}")
         self.vocab_size = vocab_size
         self.d_model = d_model
@@ -83,21 +94,25 @@ class TransformerDecoder(nn.Module):
         self.embedding = nn.Embedding(vocab_size, d_model)
         self.layers = []
         for i in range(n_blocks):
-            layer = TransformerDecoderLayer(d_model, n_heads, d_ff, normalize_before, activation)
+            layer = TransformerDecoderLayer(d_model, n_heads, d_ff, normalize_before, activation,
+                                            slf_attn_dropout, src_attn_dropout, ffn_dropout,
+                                            residual_dropout)
             self.add_module(f"block_{i}", layer)
             self.layers.append(layer)
         self.after_norm = layer_norm(d_model) if normalize_before else None
+        self.pos_dropout = Dropout(pos_dropout)
         if share_embedding:
             # the tied output layer keeps its own bias (reference parity)
-            self.output_bias = nn.Parameter(torch.zeros(vocab_size))
+            bound = 1.0 / math.sqrt(d_model)  # torch's Linear bias init, as in JAX
+            self.output_bias = nn.Parameter(torch.empty(vocab_size).uniform_(-bound, bound))
         else:
             self.output_layer = nn.Linear(d_model, vocab_size)
 
     def _embed(self, tokens, start: int = 0):
         pos = torch.arange(start, start + tokens.shape[1], device=tokens.device)
         x = self.embedding(tokens)
-        return x * math.sqrt(self.d_model) + sinusoid_position_encoding(
-            pos, self.d_model)[None].to(x.dtype)
+        return self.pos_dropout(x * math.sqrt(self.d_model) + sinusoid_position_encoding(
+            pos, self.d_model)[None].to(x.dtype))
 
     def vocab_head(self):
         """(weight [V, D], bias [V]) of the output projection."""

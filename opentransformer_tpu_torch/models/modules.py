@@ -9,7 +9,10 @@ Numerics kept from the reference:
     model dtype; the softmax weights are rounded to the model dtype before
     the context product, which accumulates in float32;
   * masks are an additive ``NEG_INF`` inside the softmax;
-  * LayerNorm eps is 1e-6 (flax's default; torch's is 1e-5).
+  * LayerNorm eps is 1e-6 (flax's default; torch's is 1e-5);
+  * dropout sits where the JAX package has it and acts only in training
+    mode, drawing from the generator the trainer hands out
+    (``set_dropout_generator``); the cached decode paths have none.
 """
 
 from __future__ import annotations
@@ -33,6 +36,33 @@ class Dense(nn.Linear):
     """A flax ``nn.Dense`` used bare: its parameters sit directly under the
     module's name, so ``compat`` writes no ``dense`` level for it (a plain
     ``nn.Linear`` stands for the JAX package's ``TorchLinear``, which has one)."""
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training, zero each element with probability
+    ``p`` and scale the rest by 1/(1 − p); identity in eval mode or at
+    p = 0. Draws from ``self.generator``, which ``set_dropout_generator``
+    sets; training with p > 0 and no generator raises."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in training needs a generator (set_dropout_generator)")
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Make every ``Dropout`` of ``model`` draw from ``generator``."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator = generator
 
 
 def swish(x):
@@ -61,16 +91,17 @@ def sinusoid_position_encoding(positions: torch.Tensor, dim: int) -> torch.Tenso
 
 
 class PositionalEncoding(nn.Module):
-    """y = x·√d + pe (the reference's additive mode)."""
+    """y = dropout(x·√d + pe) (the reference's additive mode)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dropout_rate: float = 0.0):
         super().__init__()
         self.dim = dim
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
         pos = torch.arange(x.shape[1], device=x.device)
         pe = sinusoid_position_encoding(pos, self.dim)[None].to(x.dtype)
-        return x * math.sqrt(self.dim) + pe
+        return self.dropout(x * math.sqrt(self.dim) + pe)
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -122,12 +153,13 @@ def ancestral_decode_context(q, cache_k, cache_v, index: int, src):
 class MultiHeadSelfAttention(nn.Module):
     """Self-attention with a fused QKV projection and a cached decode step."""
 
-    def __init__(self, n_heads: int, d_model: int):
+    def __init__(self, n_heads: int, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
         self.d_model = d_model
         self.qkv_proj = nn.Linear(d_model, 3 * d_model)
         self.out_proj = nn.Linear(d_model, d_model)
+        self.attn_dropout = Dropout(dropout_rate)
 
     def _qkv(self, x):
         q, k, v = self.qkv_proj(x).split(self.d_model, dim=-1)
@@ -136,7 +168,7 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x, mask=None):
         q, k, v = self._qkv(x)
-        return self.out_proj(merge_heads(attention_context(q, k, v, mask)))
+        return self.attn_dropout(self.out_proj(merge_heads(attention_context(q, k, v, mask))))
 
     def decode_step(self, x_t, cache_k, cache_v, index: int, src=None):
         """One step at position ``index`` with a [N, H, U_max, Dh] cache.
@@ -161,13 +193,14 @@ class MultiHeadCrossAttention(nn.Module):
     """Cross-attention with a fused KV projection over the memory;
     ``project_kv`` runs once per utterance before decoding."""
 
-    def __init__(self, n_heads: int, d_model: int):
+    def __init__(self, n_heads: int, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
         self.d_model = d_model
         self.q_proj = nn.Linear(d_model, d_model)
         self.kv_proj = nn.Linear(d_model, 2 * d_model)
         self.out_proj = nn.Linear(d_model, d_model)
+        self.attn_dropout = Dropout(dropout_rate)
 
     def project_kv(self, memory):
         k, v = self.kv_proj(memory).split(self.d_model, dim=-1)
@@ -176,7 +209,8 @@ class MultiHeadCrossAttention(nn.Module):
     def forward(self, x, memory, memory_mask=None):
         k, v = self.project_kv(memory)
         q = split_heads(self.q_proj(x), self.n_heads)
-        return self.out_proj(merge_heads(attention_context(q, k, v, memory_mask)))
+        return self.attn_dropout(
+            self.out_proj(merge_heads(attention_context(q, k, v, memory_mask))))
 
     def attend_beamed(self, x, k, v, key_pad_mask=None):
         """Beam-tiled queries over per-utterance K/V.
@@ -198,15 +232,18 @@ class MultiHeadCrossAttention(nn.Module):
 
 
 class PositionwiseFeedForward(nn.Module):
-    """w1 → activation → w2; ``glu`` doubles w1's width and gates a·σ(b)."""
+    """w1 → activation → dropout → w2; ``glu`` doubles w1's width and gates
+    a·σ(b)."""
 
-    def __init__(self, d_model: int, d_ff: int, activation: str = "relu"):
+    def __init__(self, d_model: int, d_ff: int, activation: str = "relu",
+                 dropout_rate: float = 0.0):
         super().__init__()
         if activation != "glu" and activation not in ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}")
         self.activation = activation
         self.w1 = nn.Linear(d_model, 2 * d_ff if activation == "glu" else d_ff)
         self.w2 = nn.Linear(d_ff, d_model)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
         h = self.w1(x)
@@ -215,4 +252,4 @@ class PositionwiseFeedForward(nn.Module):
             h = a * torch.sigmoid(g)
         else:
             h = ACTIVATIONS[self.activation](h)
-        return self.w2(h)
+        return self.w2(self.dropout(h))

@@ -78,5 +78,6 @@ def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
             if model_cfg[section].get(key, off) != off:
                 raise _not_ported(f"{section} option {key}={model_cfg[section][key]!r}")
     model = SpeechToText(model_cfg["frontend"], model_cfg["encoder"], model_cfg["decoder"],
-                         ctc_weight=float(model_cfg.get("ctc_weight", 0.0)))
+                         ctc_weight=float(model_cfg.get("ctc_weight", 0.0)),
+                         smoothing=float(model_cfg.get("smoothing", 0.1)))
     return model.to(device=dev, dtype=dtype).eval()

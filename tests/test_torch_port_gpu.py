@@ -162,3 +162,101 @@ def test_decode_runs_through_kernel(cuda):
     plain = make_memory_search(model, 4, 10, eos_id=-1, fused_topk=False)(memory, memory_mask)
     assert torch.equal(fused.tokens, plain.tokens)
     torch.testing.assert_close(fused.scores, plain.scores, rtol=0, atol=1e-4)
+
+
+def _waves(b, n, seed=0, silent_row=None):
+    """f32[B, N] of noise plus a tone; row 1 ragged (3/4 of N), zeros after."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    w = (0.05 * rng.normal(size=(b, n)) + 0.3 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
+    lens = np.full(b, n, np.int32)
+    if b > 1:
+        lens[1] = 3 * n // 4
+        w[1, lens[1]:] = 0.0
+    if silent_row is not None:
+        w[silent_row] = 0.0
+    return torch.from_numpy(w), torch.from_numpy(lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,bins,silent", [
+    (4, 16000, 40, None), (2, 65536, 40, None), (4, 48000, 80, None), (8, 160000, 40, None),
+    (3, 32000, 40, 2)])
+def test_fbank_kernel_matches_plain_on_card(cuda, b, n, bins, silent):
+    """The fused DFT → power → mel → log kernel against its plain version and
+    a float64 spectrum on the same windowed frames: on valid frames within
+    1e-3 of the float64 log-mel and 2e-3 of the plain version (each float32
+    order of the 400-term DFT sums lands up to ~1e-3 from the exact result in
+    mel bins that hold only a tone's side lobes; chip_smoke.py, FBANK_ATOL),
+    the silent row exactly log(EPSILON)."""
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+    from opentransformer_tpu_torch.utils import disable_tf32
+
+    disable_tf32()
+    w, lens = _waves(b, n, seed=n, silent_row=silent)
+    frames = fk.extract_frames(w.to(cuda))
+    t = frames.shape[1]
+    flat_frames = frames.reshape(b * t, -1)
+    bases = fk.device_bases(bins, 16000.0, cuda)
+    before = fk.spec_mel.launches
+    got = fk.spec_mel(flat_frames, *bases)
+    assert fk.spec_mel.launches == before + 1
+    ref = fk.spec_mel_plain(flat_frames, *bases)
+    f64 = flat_frames.double()
+    cos_b, sin_b, mel_t = (x.double() for x in bases)
+    exact = torch.log(torch.clamp_min(((f64 @ cos_b).square() + (f64 @ sin_b).square()) @ mel_t,
+                                      fk.EPSILON)).float()
+    torch.cuda.synchronize()
+    valid = (torch.arange(t)[None] < fk.wave_frame_lengths(lens)[:, None]).reshape(-1).to(cuda)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[valid], exact[valid], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[valid], ref[valid], rtol=0, atol=2e-3)
+    if silent is not None:
+        log_eps = torch.log(torch.tensor(fk.EPSILON))
+        assert torch.equal(got.reshape(b, t, bins)[silent].cpu(),
+                           torch.full((t, bins), float(log_eps)))
+
+
+@pytest.mark.gpu
+def test_fbank_kernel_rejects_what_it_does_not_take(cuda):
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+
+    cos_b, sin_b, mel_t = fk.device_bases(40, 16000.0, cuda)
+    frames = torch.randn(10, 400, device=cuda)
+    with pytest.raises(TypeError):
+        fk.spec_mel(frames.double(), cos_b, sin_b, mel_t)
+    with pytest.raises(ValueError):  # not contiguous
+        fk.spec_mel(torch.randn(400, 10, device=cuda).t(), cos_b, sin_b, mel_t)
+    with pytest.raises(ValueError):  # window and bases disagree
+        fk.spec_mel(frames[:, :300].contiguous(), cos_b, sin_b, mel_t)
+    with pytest.raises(ValueError):  # more mel bins than the kernel holds
+        fk.spec_mel(frames, cos_b, sin_b, torch.zeros(257, 129, device=cuda))
+
+
+@pytest.mark.gpu
+def test_training_micro_batch_runs_through_fbank_kernel(cuda):
+    """One training micro-batch of waveforms on the card launches the fbank
+    kernel once and gives a finite loss and gradient."""
+    from opentransformer_tpu_torch.data.device_pipeline import (
+        collate_waveforms,
+        make_device_frontend,
+    )
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+    from opentransformer_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(0)
+    model = build_model(SMALL_CFG, device=cuda)
+    trainer = Trainer({"accum_steps": 1, "scheduler_type": "constant", "scheduler": {"lr": 1e-3}},
+                      model, make_device_frontend({"num_mel_bins": 20, "normalization": True,
+                                                   "spec_augment": True}, cuda),
+                      torch.Generator(device=cuda).manual_seed(0))
+    w, lens = _waves(3, 16000)
+    batch = collate_waveforms([(f"u{i}", w[i, : lens[i]].numpy(), int(lens[i]), [3, 4, 5], 3)
+                               for i in range(3)])
+    model.train()
+    before = fk.spec_mel.launches
+    loss = trainer.micro_step(batch)
+    rec = trainer.update()
+    assert fk.spec_mel.launches == before + 1
+    assert torch.isfinite(loss) and rec["applied"] and np.isfinite(rec["gnorm"])
