@@ -9,13 +9,16 @@ each of which raises on failure:
 
   0. build every kernel of the port from ``opentransformer_tpu_torch/csrc``
      with nvcc (one process per source, all at once) and print ptxas's
-     register and shared-memory lines;
+     register, shared-memory and spill lines; the top-k kernels must not
+     spill;
   1. hold the ``project_logp_topk`` kernel against its plain PyTorch
-     version on the card at the decode shapes, including ties, and time the
-     kernel, the plain version and the unfused three-call composition;
+     version on the card at the decode shapes, the tile edges (N=65,
+     N=2561, D=40, D=56, V=131, rows not on 16 bytes) and ties, and time the
+     kernel, the plain version and the unfused three-call composition, with
+     the achieved rate and the share of the bound;
   1b. the same for the two-head ``project2_logp_topk`` kernel of LM shallow
-     fusion: flagship, LSTM-LM and anchor widths, lm weights 0.1, 0 and
-     -0.3, ties;
+     fusion: flagship, LSTM-LM and anchor widths, the tile edges (D2=1024
+     among them), lm weights 0.1, 0 and -0.3, ties;
   2. decode the 500-utterance synthetic test split with the committed
      anchor weights through the eval CLI in float32 (fails above 0.75% CER;
      the JAX package scored 0.65%) and in bfloat16, showing the decode went
@@ -55,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -66,9 +70,13 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
-# the tensor cores, HBM3 bandwidth
+# the tensor cores, TF32 tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# the tensor-core top-k kernels are held to 0 bytes of register spill and of
+# stack frame (an accumulator or list array that falls to local memory)
+NO_SPILL_SOURCES = ("project_topk", "project2_topk")
 ANCHOR = os.path.join(REPO, "egs", "synth_bench", "trained", "anchor_synth_f16")
 ANCHOR_CER_LIMIT = 0.75
 # phase 6: the device pipeline's geometries (tools/tpu_smoke.py:64-65) plus a
@@ -128,14 +136,23 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def topk_ops_ms(flops: float, dtype: torch.dtype) -> float:
+    """Least time for the products of the top-k kernels: bf16 at the bf16
+    tensor-core rate; float32 at float32 accuracy as three TF32 passes
+    (3xTF32: hi·hi + hi·lo + lo·hi) at the TF32 rate, which is faster than
+    one pass at the 67 TFLOP/s FMA rate."""
+    if dtype == torch.float32:
+        return 3.0 * flops / PEAK_TF32 * 1e3
+    return flops / PEAK_FLOPS[dtype] * 1e3
+
+
 def topk_bound_ms(n: int, d: int, v: int, k: int, dtype: torch.dtype) -> tuple[float, str]:
     """Least time for one projection→log-softmax→top-k: the larger of its
-    operations over the peak rate of ``dtype`` and its bytes (inputs read
+    operations over the rate of ``topk_ops_ms`` and its bytes (inputs read
     once, outputs written once) over the memory rate."""
     esize = torch.tensor([], dtype=dtype).element_size()
-    flops = 2.0 * n * d * v
     nbytes = (n * d + v * d) * esize + v * 4 + n * k * 8 + n * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = topk_ops_ms(2.0 * n * d * v, dtype), nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -144,9 +161,8 @@ def topk2_bound_ms(n: int, d1: int, d2: int, v: int, k: int,
     """The same for the two-head form: two projections, two biases, one
     list of k values and ids per row."""
     esize = torch.tensor([], dtype=dtype).element_size()
-    flops = 2.0 * n * v * (d1 + d2)
     nbytes = (n + v) * (d1 + d2) * esize + 8 * v + 8 * n * k
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = topk_ops_ms(2.0 * n * v * (d1 + d2), dtype), nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -158,6 +174,11 @@ def fbank_bound_ms(frames: int, mel: int, window: int = 400, freqs: int = 257) -
     nbytes = 4.0 * (frames * window + 2 * window * freqs + freqs * mel + frames * mel)
     t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32] * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rate_note(flops: float, ms: float, bound: float) -> str:
+    """The achieved product rate and the share of the bound, for a log line."""
+    return f"{flops / ms * 1e-9:.1f} TFLOP/s achieved, {100.0 * bound / ms:.1f}% of the bound"
 
 
 def card_line() -> str:
@@ -175,10 +196,18 @@ def phase_build():
     t0 = time.time()
     cuda_build.build_all(sources)
     log(f"phase0 built {sources} in {time.time() - t0:.1f} s")
+    spills = []
     for name in sources:
         for line in cuda_build.build_log(name).splitlines():
             if "ptxas info" in line and ("Used" in line or "Compiling" in line):
                 log(f"phase0 {name}: {line.strip()}")
+            elif "spill stores" in line:
+                log(f"phase0 {name}:   {line.strip()}")
+                if name in NO_SPILL_SOURCES and any(int(x) for x in re.findall(r"\d+", line)):
+                    spills.append(f"{name}: {line.strip()}")
+    if spills:
+        raise AssertionError(f"the top-k kernels must keep to registers (no stack frame, "
+                             f"no spill): {spills}")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -206,8 +235,9 @@ def check_topk(h, w, b, k, label):
     """Kernel vs plain on the same card tensors. Ids must agree wherever the
     plain values are not tied within ``tie``; values and lse within
     ``atol`` = 1e-4, for float32 and bf16 inputs alike: both paths see the
-    same (possibly bf16) h and W, whose products are exact in float32, and
-    accumulate in float32, so only the summation order differs.
+    same (possibly bf16) h and W and accumulate in float32; bf16 products
+    are exact in float32, float32 products go through 3xTF32 in the kernel
+    (~2^-22 of each product), and the summation order differs.
     Every returned id must also carry its returned value in the full
     log-softmax. Returns the largest value error."""
     from opentransformer_tpu_torch.ops.project_topk import (
@@ -252,6 +282,13 @@ def phase_kernel():
         ("CTC sparse beam k=32+lse N=4096 D=256 V=4233 f32", 4096, 256, 4233, 32, torch.float32),
         ("ragged N=7 D=256 V=4233 k=5 bf16", 7, 256, 4233, 5, torch.bfloat16),
         ("widest k=128 N=33 D=40 V=131 f32", 33, 40, 131, 128, torch.float32),
+        # tile edges: 64-row blocks, 128-byte depth slices, 128-column tiles
+        ("row edge N=65 D=256 V=4233 k=5 bf16", 65, 256, 4233, 5, torch.bfloat16),
+        ("row edge N=2561 D=256 V=4233 k=5 f32", 2561, 256, 4233, 5, torch.float32),
+        ("depth edge D=40 N=500 V=4233 k=5 bf16", 500, 40, 4233, 5, torch.bfloat16),
+        ("depth edge D=56 N=130 V=4233 k=5 f32", 130, 56, 4233, 5, torch.float32),
+        ("vocab edge V=131 N=65 D=256 k=5 bf16", 65, 256, 131, 5, torch.bfloat16),
+        ("rows off 16 bytes D=50 N=70 V=300 k=8 bf16", 70, 50, 300, 8, torch.bfloat16),
     ]
     max_err = 0.0
     for i, (label, n, d, v, k, dtype) in enumerate(cases):
@@ -282,7 +319,8 @@ def phase_kernel():
         log(f"phase1 time {label} N={n} D={d} V=4233 k={k}: kernel {kern:.4f} ms, "
             f"plain version {plain:.4f} ms, unfused matmul+log_softmax+topk "
             f"(a composition of three calls, not a library call) {unfused:.4f} ms, "
-            f"bound {bound:.4f} ms ({bound_by}) [{card}]")
+            f"bound {bound:.4f} ms ({bound_by}); {rate_note(2.0 * n * d * 4233, kern, bound)}"
+            f"{'' if kern < unfused else ', SLOWER than the composition'} [{card}]")
     return max_err, timings
 
 
@@ -295,8 +333,9 @@ def check_topk2(args, lam, k, label):
     """Two-head kernel vs plain on the same card tensors, as ``check_topk``:
     ids agree wherever the plain values are not tied within ``tie``, values
     within ``atol`` = 1e-4 (both paths accumulate the same inputs in
-    float32; they differ in summation order and in where the two
-    normalisers are subtracted), and every returned id carries its returned
+    float32; they differ in summation order, in the kernel's 3xTF32
+    products for float32 inputs and in where the two normalisers are
+    subtracted), and every returned id carries its returned
     value in the materialised ``lp1 + lam * lp2``. Returns the largest
     value error."""
     from opentransformer_tpu_torch.ops.project_topk import (
@@ -344,6 +383,13 @@ def phase_kernel2():
         ("anchor beam step f32", 500, 128, 256, 4233, 5, f32, 0.0),
         ("ragged N=7 D1=D2=256 V=4233 k=5 bf16", 7, 256, 256, 4233, 5, bf16, -0.3),
         ("widest k=128 N=33 D1=40 D2=56 V=131 f32", 33, 40, 56, 131, 128, f32, 0.1),
+        # tile edges: 64-row blocks, 128-byte depth slices, 128-column tiles
+        ("row edge N=65 D1=D2=256 V=4233 k=5 bf16", 65, 256, 256, 4233, 5, bf16, 0.1),
+        ("row edge N=2561 D1=D2=256 V=4233 k=5 f32", 2561, 256, 256, 4233, 5, f32, -0.3),
+        ("depth edges D1=40 D2=56 N=500 V=4233 k=5 bf16", 500, 40, 56, 4233, 5, bf16, 0.1),
+        ("wide LM head D2=1024 N=130 V=4233 k=5 f32", 130, 256, 1024, 4233, 5, f32, 0.1),
+        ("vocab edge V=131 N=65 D1=256 D2=1024 k=5 bf16", 65, 256, 1024, 131, 5, bf16, 0.0),
+        ("rows off 16 bytes D1=50 D2=24 N=70 V=300 k=8 bf16", 70, 50, 24, 300, 8, bf16, 0.1),
     ]
     max_err = 0.0
     for i, (label, n, d1, d2, v, k, dtype, lam) in enumerate(cases):
@@ -381,7 +427,9 @@ def phase_kernel2():
         log(f"phase1b time {label} N={n} D1={d1} D2={d2} V=4233 k={k}: kernel {kern:.4f} ms, "
             f"plain version {plain:.4f} ms, unfused 2 matmuls + 2 log_softmax + add + topk "
             f"(a composition of calls, not a library call) {unfused:.4f} ms, "
-            f"bound {bound:.4f} ms ({bound_by}) [{card}]")
+            f"bound {bound:.4f} ms ({bound_by}); "
+            f"{rate_note(2.0 * n * (d1 + d2) * 4233, kern, bound)}"
+            f"{'' if kern < unfused else ', SLOWER than the composition'} [{card}]")
     return max_err, timings
 
 

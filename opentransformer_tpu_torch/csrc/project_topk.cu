@@ -8,107 +8,123 @@
 //
 // What bounds it on this card: at the flagship decode shape (N = B*K = 2560,
 // D = 256, V = 4233) the projection is 5.55 GFLOP against ~3.6 MB of inputs
-// and outputs, so it is bound by operations, not bytes. This first kernel
-// accumulates in float32 with plain FMA through shared-memory tiles (bf16
-// inputs are widened on load; their products are exact in f32), so it runs
-// at best at the 67 TFLOP/s f32 rate, not the 989 TFLOP/s bf16 tensor-core
-// rate. Tensor cores (mma.sync / wgmma with TMA) are later work.
+// and outputs, so it is bound by operations: 5.6 us at the 989 TFLOP/s bf16
+// tensor-core rate, and for float32 inputs three TF32 passes at 495 TFLOP/s
+// (33.6 us). The tile product therefore runs on the tensor cores (bf16
+// mma.sync, or 3xTF32 for float32), fed by a cp.async ring, and the epilogue
+// works from the accumulator registers; topk_common.cuh says how and why.
+// Measured, the tensor-core instructions are no longer what takes the time
+// (about a tenth of it in bf16, PERF.md): at 255 registers a thread two
+// blocks (8 warps) share an SM, and the shared-memory fragment loads, the
+// barrier of every depth slice and the epilogue have few warps to hide
+// behind.
 //
 // Design, against the TPU kernel: there the vocab axis is a sequential grid
 // dimension carrying (max, sumexp, top-k) in VMEM scratch. Blocks on Hopper
-// run in no order, so the carry becomes a loop over vocab tiles inside a
-// block, and the vocab is also split across blocks (blockIdx.y) so that a
-// small N still fills the 132 SMs. A second small kernel merges the partial
-// (max, sumexp, top-k) of the splits, one warp per row.
+// run in no order, so the carry becomes a loop over 128-column vocab tiles
+// inside a block, and the vocabulary is also split across blocks
+// (blockIdx.y) so that a small N still fills the 132 SMs. A second small
+// kernel merges the partial (max, sumexp, top-k) of the splits, one warp
+// per row.
 //
-// Block of pass 1: 256 threads own 32 rows x 128 vocab columns. Warp w
-// computes rows 4w..4w+3; lane l holds columns l, l+32, l+64, l+96. The same
-// warp then folds those logits into its rows' online logsumexp and running
-// top-k straight from registers, so the tile never goes through memory.
-// The running top-k is a sorted list per row in shared memory; a warp offers
-// 32 candidates at once, and the few that beat the current k-th entry are
-// inserted one at a time with a warp-parallel shift (k <= 128, at most four
-// entries per lane). The tile product, the online logsumexp and the list
-// functions are shared with the two-head kernel (topk_common.cuh).
+// Block of pass 1: one warpgroup (128 threads) owns 64 rows x 128 vocab
+// columns per tile; each warp owns 16 rows. The running top-k: for k <= 8
+// each lane keeps its own columns' best k in registers and the split's
+// top-k is picked from a row's four lane lists at the end; for larger k a
+// sorted list per row in shared memory takes each tile's values that beat
+// its k-th entry in one rank merge.
 
 #include "topk_common.cuh"
 
 namespace {
 
-// Pass 1: one block per (32-row tile, vocab split). Writes the split's
+constexpr int kStages = 3;   // ring slots
+// rows of a warp's buffer: the offers' 8 rows and, for k > kLaneK, 2 rows
+// of gathered candidates
+constexpr int kBufRows = 10;
+
+// Pass 1: one block per (64-row tile, vocab split). Writes the split's
 // partial row max, scaled sumexp and sorted top-k (padded with kNeg/kNoId).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool kLaneLists>
+__global__ void __launch_bounds__(kThreads, 2)
 partial_topk_kernel(const T* __restrict__ h, const T* __restrict__ w,
                     const float* __restrict__ bias, int n, int d, int v, int k,
-                    int tiles_per_split, float* __restrict__ part_m,
+                    int tiles_per_split, bool aligned, float* __restrict__ part_m,
                     float* __restrict__ part_s, float* __restrict__ part_v,
                     int* __restrict__ part_i) {
-  extern __shared__ float smem[];
-  float* hs = smem;                                   // [kDepth][kRows + 1]
-  float* ws = hs + kDepth * (kRows + 1);              // [kDepth][kCols + 1]
-  float* lv = ws + kDepth * (kCols + 1);              // [kRows][k]
-  int* li = reinterpret_cast<int*>(lv + kRows * k);   // [kRows][k]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  extern __shared__ __align__(16) unsigned char pass1_smem[];
+  const Pass1Smem sm = carve_smem(pass1_smem, kStages, kBufRows, k);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = blockIdx.x * kRows;
   const int split = blockIdx.y;
   const int n_tiles = (v + kCols - 1) / kCols;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  constexpr int kElems = kSliceBytes / sizeof(T);
+  const int slices = (d + kElems - 1) / kElems;
+  const int steps = max(t_end - t_begin, 0) * slices;
 
-  float m_run[kRowsPerWarp], s_run[kRowsPerWarp];
-  int cnt[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m_run[i] = kNeg;
-    s_run[i] = 0.f;
-    cnt[i] = 0;
+  if constexpr (!kLaneLists) {
+    for (int r = threadIdx.x; r < kRows; r += kThreads) sm.cnt[r] = 0;
+    __syncthreads();
   }
+  const int my_row = 16 * warp + (lane >> 2);
+  const bool row_ok[2] = {row0 + my_row < n, row0 + my_row + 8 < n};
+  float m_run[2] = {kNeg, kNeg}, s_run[2] = {0.f, 0.f};
+  RowThresholds thr;
+  LaneLists lanes;
+  if constexpr (kLaneLists)
+    init_lane_lists(lanes, k);
+  else
+    init_thresholds(thr);
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int col0 = t * kCols;
-    float acc[kRowsPerWarp][kColsPerLane];
-    tile_product(h, w, n, d, v, row0, col0, hs, ws, acc);
+  // step s: depth slice s % slices of vocab tile t_begin + s / slices
+  auto fetch = [&](int s) {
+    if (s < steps)
+      load_slice<T>(sm.ring + (s % kStages) * kStageBytes, h, w, n, d, v, row0,
+                    (t_begin + s / slices) * kCols, (s % slices) * kElems, aligned);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) fetch(s);
 
-    // fold the tile into each row's online logsumexp and running top-k
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp * kRowsPerWarp + i;
-      if (row0 + r >= n) continue;  // warp-uniform
-      float x[kColsPerLane];
-      bool ok[kColsPerLane];
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) {
-        const int g = col0 + lane + 32 * j;
-        ok[j] = g < v;
-        x[j] = ok[j] ? acc[i][j] + bias[g] : kNeg;
-      }
-      online_lse(x, ok, m_run[i], s_run[i]);
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j)
-        warp_offer(lv + r * k, li + r * k, k, cnt[i], x[j], col0 + lane + 32 * j, ok[j]);
+  float acc[kNTiles][4];
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice s is in; every warp is done with slice s - 1
+    fetch(s + kStages - 1);
+    const int c = s % slices;
+    if (c == 0) zero_acc(acc);
+    slice_product<T>(sm.ring + (s % kStages) * kStageBytes, acc);
+    if (c == slices - 1) {
+      const int col0 = (t_begin + s / slices) * kCols;
+      add_bias(acc, bias, col0, v);
+      fold_lse(acc, m_run, s_run);
+      if constexpr (kLaneLists)
+        offer_tile_lanes(acc, col0, v, sm.xs, lanes);
+      else
+        offer_tile(acc, col0, v, row_ok, sm.lv, sm.li, sm.cnt, k, sm.xs, thr);
     }
   }
+  cp_async_wait<0>();
 
+  if ((lane & 3) == 0) {
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp * kRowsPerWarp + i;
-    const int gr = row0 + r;
-    if (gr >= n) continue;
-    const size_t base = (size_t)split * n + gr;
-    if (lane == 0) {
-      part_m[base] = m_run[i];
-      part_s[base] = s_run[i];
+    for (int r = 0; r < 2; ++r) {
+      if (!row_ok[r]) continue;
+      const size_t base = (size_t)split * n + row0 + my_row + 8 * r;
+      part_m[base] = m_run[r];
+      part_s[base] = s_run[r];
     }
-    store_partial_list(lv + r * k, li + r * k, k, cnt[i], part_v, part_i, base);
   }
+  if constexpr (kLaneLists)
+    store_lane_lists(lanes, sm.xs, k, row0, n, split, part_v, part_i);
+  else
+    store_warp_lists(sm.lv, sm.li, sm.cnt, k, row0, n, split, part_v, part_i);
 }
 
 // Pass 2: one warp per row merges the splits' partial results.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMergeThreads)
 merge_topk_kernel(const float* __restrict__ part_m, const float* __restrict__ part_s,
                   const float* __restrict__ part_v, const int* __restrict__ part_i,
                   int n, int k, int splits, float* __restrict__ vals,
@@ -116,10 +132,10 @@ merge_topk_kernel(const float* __restrict__ part_m, const float* __restrict__ pa
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
+  const int row = blockIdx.x * kMergeWarps + warp;
   if (row >= n) return;  // warp-uniform; no block-wide barrier below
   float* lv = smem + warp * k;
-  int* li = reinterpret_cast<int*>(smem + kWarps * k) + warp * k;
+  int* li = reinterpret_cast<int*>(smem + kMergeWarps * k) + warp * k;
 
   const float row_lse = merged_lse(part_m, part_s, n, row, splits);
   merge_lists(part_v, part_i, n, k, row, splits, lv, li);
@@ -134,9 +150,9 @@ template <typename T>
 int launch(const void* h, const void* w, const float* bias, int n, int d, int v, int k,
            int splits, int tiles_per_split, float* part, int* part_i, float* vals,
            int* ids, float* lse, cudaStream_t stream) {
-  const size_t smem1 = sizeof(float) * kStageFloats +
-                       (sizeof(float) + sizeof(int)) * kRows * k;
-  cudaError_t err = cudaFuncSetAttribute(partial_topk_kernel<T>,
+  const size_t smem1 = pass1_smem_bytes(kStages, kBufRows, k);
+  const auto kernel = k <= kLaneK ? partial_topk_kernel<T, true> : partial_topk_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem1);
   if (err != cudaSuccess) return (int)err;
@@ -144,13 +160,13 @@ int launch(const void* h, const void* w, const float* bias, int n, int d, int v,
   float* part_s = part + (size_t)splits * n;
   float* part_v = part + (size_t)2 * splits * n;
   dim3 grid1((n + kRows - 1) / kRows, splits);
-  partial_topk_kernel<T><<<grid1, kThreads, smem1, stream>>>(
+  kernel<<<grid1, kThreads, smem1, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w), bias, n, d, v, k,
-      tiles_per_split, part_m, part_s, part_v, part_i);
+      tiles_per_split, rows_aligned<T>(h, w, d), part_m, part_s, part_v, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = (sizeof(float) + sizeof(int)) * kWarps * k;
-  merge_topk_kernel<<<(n + kWarps - 1) / kWarps, kThreads, smem2, stream>>>(
+  const size_t smem2 = (sizeof(float) + sizeof(int)) * kMergeWarps * k;
+  merge_topk_kernel<<<(n + kMergeWarps - 1) / kMergeWarps, kMergeThreads, smem2, stream>>>(
       part_m, part_s, part_v, part_i, n, k, splits, vals, ids, lse);
   return (int)cudaGetLastError();
 }

@@ -32,10 +32,10 @@ import torch
 from . import cuda_build
 
 MAX_K = 128
-# tile geometry of csrc/project_topk.cu (kRows, kCols); the split plan below
+# tile geometry of csrc/topk_common.cuh (kRows, kCols); the split plan below
 # must agree with it
-_ROWS, _COLS = 32, 128
-# aim for about two waves of blocks over the H100's 132 SMs
+_ROWS, _COLS = 64, 128
+# at most one wave of blocks: two blocks on each of the H100's 132 SMs
 _TARGET_BLOCKS = 264
 
 
@@ -59,12 +59,14 @@ def project_logp_topk_plain(h, weight, bias, k: int, with_lse: bool = False):
 
 
 def split_plan(n: int, v: int) -> tuple[int, int]:
-    """(splits, tiles_per_split): how many blocks share one row tile's
-    vocabulary. Enough splits that a small N still fills the card, each
-    split a whole number of 128-column tiles, none empty."""
+    """(splits, tiles_per_split): how many blocks share one 64-row tile's
+    vocabulary. As many splits as keep the grid within one wave of
+    ``_TARGET_BLOCKS``, so that a small N still fills the card and a large
+    one leaves no short second wave; each split a whole number of
+    128-column tiles, none empty."""
     n_tiles = -(-v // _COLS)
     row_blocks = -(-n // _ROWS)
-    want = max(1, min(n_tiles, -(-_TARGET_BLOCKS // row_blocks)))
+    want = max(1, min(n_tiles, _TARGET_BLOCKS // row_blocks))
     per_split = -(-n_tiles // want)
     return -(-n_tiles // per_split), per_split
 

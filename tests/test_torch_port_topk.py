@@ -8,7 +8,15 @@ Tolerances: ids identical (ties included), values and logsumexp within
 as ``tests/test_project_topk.py`` allows for them.
 
 The CUDA kernel itself runs only on the card: ``test_torch_port_gpu.py``
-holds it against the plain version there.
+holds it against the plain version there. What the CPU can check is its
+float32 arithmetic: the kernel multiplies float32 inputs as 3xTF32 on the
+tensor cores, and ``matmul_tf32`` below models that (TF32 rounding is
+float32 with its mantissa rounded to 10 bits, to nearest, ties away from
+zero, as ``cvt.rna.tf32.f32``). Held to JAX's float32 result at the
+flagship and anchor widths: values within 1e-4 (the card's tolerance
+between the kernel and the plain version), ids equal wherever the top
+values stand more than 1e-4 apart; one TF32 pass does not stay within
+1e-4, which is why the kernel splits each operand.
 """
 
 import jax.numpy as jnp
@@ -29,6 +37,36 @@ def _rand(n, d, v, seed=0):
     w = (rng.normal(size=(v, d)) * 0.3).astype(np.float32)
     b = (rng.normal(size=(v,)) * 0.1).astype(np.float32)
     return h, w, b
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32: 10 mantissa bits, to nearest, ties away
+    from zero (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """``a @ b.T`` as the kernels take it on the tensor cores for float32
+    inputs: with ``passes=3`` (3xTF32) each operand splits into
+    hi = tf32(x) and lo = tf32(x - hi), and lo·hi + hi·lo + hi·hi sum in
+    float32 (each TF32 product is exact in float32); ``passes=1`` is plain
+    TF32, hi·hi alone."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi.T
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    return a_lo @ b_hi.T + a_hi @ b_lo.T + a_hi @ b_hi.T
+
+
+def untied(vals: np.ndarray, k: int, gap: float) -> np.ndarray:
+    """bool[N, k] from the top-(k+1) values: slots whose value stands more
+    than ``gap`` apart from both neighbours."""
+    d = vals[:, :-1] - vals[:, 1:]
+    sep = np.ones((vals.shape[0], k), bool)
+    sep[:, 1:] &= d[:, : k - 1] > gap
+    sep &= d[:, :k] > gap
+    return sep
 
 
 def _port(h, w, b, k, with_lse=False, dtype=torch.float32):
@@ -101,9 +139,11 @@ def test_wrapper_sends_cpu_tensors_to_plain_version():
 
 
 @pytest.mark.parametrize("n,v,splits,per_split", [
-    (2560, 4233, 4, 9),    # flagship beam step: 80 row tiles x 4 splits
-    (500, 4233, 17, 2),    # anchor beam step
-    (7, 4233, 34, 1),      # ragged small N: every vocab tile its own split
+    (2560, 4233, 6, 6),    # flagship beam step: 40 row tiles x 6 splits = 240 blocks
+    (2561, 4233, 6, 6),    # one row past the tile edge: 41 x 6 = 246
+    (500, 4233, 17, 2),    # anchor beam step: 8 x 17 = 136
+    (65, 4233, 34, 1),     # two row tiles: every vocab tile its own split
+    (7, 4233, 34, 1),      # ragged small N
     (3, 50, 1, 1),         # vocab within one tile
 ])
 def test_split_plan(n, v, splits, per_split):
@@ -111,3 +151,58 @@ def test_split_plan(n, v, splits, per_split):
     # every split non-empty and together covering every tile
     n_tiles = -(-v // 128)
     assert (splits - 1) * per_split < n_tiles <= splits * per_split
+    # one wave: at most two 64-row blocks on each of the 132 SMs
+    assert -(-n // 64) * splits <= 264
+
+
+@pytest.mark.parametrize("n,d", [(64, 256), (64, 128)], ids=["flagship", "anchor"])
+def test_3xtf32_matches_jax(n, d):
+    """The kernel's float32 route, modelled on the CPU, against JAX's
+    float32 top-k at the flagship (D=256) and anchor (D=128) widths, V=4233,
+    N cut to 64 rows, k=5."""
+    v, k = 4233, 5
+    h, w, b = _rand(n, d, v, seed=d)
+    logits = matmul_tf32(torch.from_numpy(h), torch.from_numpy(w)) + torch.from_numpy(b)
+    vals, idx = port.topk_smallest_id(torch.log_softmax(logits, -1), k)
+    lse = torch.logsumexp(logits, -1)
+    ref_vals, ref_idx, ref_lse = project_logp_topk_xla(
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(b), k, with_lse=True)
+    wide, _ = project_logp_topk_xla(jnp.asarray(h), jnp.asarray(w), jnp.asarray(b), k + 1)
+    sep = untied(np.asarray(wide), k, 1e-4)
+    assert sep.sum() > 0.9 * sep.size
+    np.testing.assert_array_equal(idx.numpy()[sep], np.asarray(ref_idx)[sep])
+    np.testing.assert_allclose(vals.numpy(), np.asarray(ref_vals), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,d", [(64, 256), (64, 128)], ids=["flagship", "anchor"])
+def test_one_tf32_pass_is_not_enough(n, d):
+    """Plain TF32 moves the same log-probs by more than 1e-4."""
+    v, k = 4233, 5
+    h, w, b = _rand(n, d, v, seed=d)
+    logits = matmul_tf32(torch.from_numpy(h), torch.from_numpy(w), passes=1) + torch.from_numpy(b)
+    vals, _ = port.topk_smallest_id(torch.log_softmax(logits, -1), k)
+    ref_vals, _ = project_logp_topk_xla(jnp.asarray(h), jnp.asarray(w), jnp.asarray(b), k)
+    assert np.abs(vals.numpy() - np.asarray(ref_vals)).max() > 1e-4
+
+
+@pytest.mark.parametrize("name", ["project_topk", "project2_topk"])
+def test_kernels_multiply_on_tensor_cores(name):
+    """Both top-k kernels take their products on the tensor cores: bf16
+    through mma.sync with float32 accumulation, float32 as 3xTF32 (TF32
+    rounding to nearest, the split into hi and lo); no FMA tile product and
+    no library product is left on their path."""
+    import os
+
+    from opentransformer_tpu_torch.ops import cuda_build
+
+    text = ""
+    for fname in (name + ".cu", "topk_common.cuh"):
+        with open(os.path.join(cuda_build.CSRC_DIR, fname)) as f:
+            text += f.read()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
+    assert "cvt.rna.tf32.f32" in text and "split_tf32" in text
+    assert "fmaf(" not in text
+    for library in ("cublas", "cutlass", "cute::", "torch/"):
+        assert library not in text.lower()

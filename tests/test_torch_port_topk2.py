@@ -9,7 +9,11 @@ states against the float32 JAX result within 1e-2, as
 ``tests/test_project_topk.py`` allows for them.
 
 The CUDA kernel itself runs only on the card: ``test_torch_port_gpu.py``
-holds it against the plain version there.
+holds it against the plain version there. Its float32 arithmetic (3xTF32
+on the tensor cores, modelled by ``test_torch_port_topk.matmul_tf32``) is
+held here to JAX's float32 result at the flagship, anchor and LSTM-LM
+widths: values within 1e-4, ids equal wherever the top values stand more
+than 1e-4 apart; one TF32 pass does not stay within 1e-4.
 """
 
 import os
@@ -26,6 +30,7 @@ from opentransformer_tpu.ops.project_topk import (
 )
 from opentransformer_tpu_torch.ops import cuda_build
 from opentransformer_tpu_torch.ops import project_topk as port
+from test_torch_port_topk import matmul_tf32, untied
 
 
 def _rand2(n, d1, d2, v, seed=0):
@@ -89,6 +94,43 @@ def test_ties_go_to_smallest_id(lam):
     for ref_vals, ref_idx in _jax_both(args, lam, k):
         np.testing.assert_array_equal(idx, np.asarray(ref_idx))
         np.testing.assert_allclose(vals, np.asarray(ref_vals), rtol=1e-5, atol=1e-5)
+
+
+def _emulated(args, lam, k, passes):
+    h1, w1, b1, h2, w2, b2 = (torch.from_numpy(a) for a in args)
+    lp1 = torch.log_softmax(matmul_tf32(h1, w1, passes) + b1, -1)
+    lp2 = torch.log_softmax(matmul_tf32(h2, w2, passes) + b2, -1)
+    vals, idx = port.topk_smallest_id(lp1 + lam * lp2, k)
+    return vals.numpy(), idx.numpy()
+
+
+WIDTHS = pytest.mark.parametrize("n,d1,d2", [(64, 256, 256), (64, 128, 256), (64, 256, 1024)],
+                                 ids=["flagship", "anchor", "lstm_lm"])
+
+
+@WIDTHS
+def test_3xtf32_matches_jax(n, d1, d2):
+    """The kernel's float32 route, modelled on the CPU, against JAX's
+    float32 two-head top-k at V=4233, k=5, lm weight 0.1, N cut to 64."""
+    v, k, lam = 4233, 5, 0.1
+    args = _rand2(n, d1, d2, v, seed=d1 + d2)
+    vals, idx = _emulated(args, lam, k, passes=3)
+    jargs = [jnp.asarray(a) for a in args]
+    ref_vals, ref_idx = project2_logp_topk_xla(*jargs, lam, k)
+    wide, _ = project2_logp_topk_xla(*jargs, lam, k + 1)
+    sep = untied(np.asarray(wide), k, 1e-4)
+    assert sep.sum() > 0.9 * sep.size
+    np.testing.assert_array_equal(idx[sep], np.asarray(ref_idx)[sep])
+    np.testing.assert_allclose(vals, np.asarray(ref_vals), rtol=0, atol=1e-4)
+
+
+@WIDTHS
+def test_one_tf32_pass_is_not_enough(n, d1, d2):
+    v, k, lam = 4233, 5, 0.1
+    args = _rand2(n, d1, d2, v, seed=d1 + d2)
+    vals, _ = _emulated(args, lam, k, passes=1)
+    ref_vals, _ = project2_logp_topk_xla(*[jnp.asarray(a) for a in args], lam, k)
+    assert np.abs(vals - np.asarray(ref_vals)).max() > 1e-4
 
 
 def test_bf16_hidden_states():
