@@ -21,26 +21,30 @@ each of which raises on failure:
      among them), lm weights 0.1, 0 and -0.3, ties;
   2. decode the 500-utterance synthetic test split with the committed
      anchor weights through the eval CLI in float32 (fails above 0.75% CER;
-     the JAX package scored 0.65%) and in bfloat16, showing the decode went
-     through the kernel;
+     the JAX package scored 0.65%; fails when more than 5 utterances' 1-best
+     ids differ from the JAX package's, committed beside the weights as
+     ``anchor_synth_f16.jax_1best.json``) and in bfloat16, showing the
+     decode went through the kernel;
   3. drive the flagship geometry (d256, 12 encoder + 6 decoder blocks,
      V=4233) with seeded random weights: beam 5, bf16, 512 utterances x 500
      frames, 24 steps with EOS disabled, as bench.py's worst-case row;
   4. decode the anchor split through the eval CLI with a seeded random
      transformer LM handed over as an npz: at ``-lmw 0.0`` the fused score
      is the model's own, so the CER limit of phase 2 holds and every step
-     must have gone through the two-head kernel; ``-lmw 0.1`` and
+     must have gone through the two-head kernel, and the 1-best ids are
+     held to the JAX fixture as in phase 2; ``-lmw 0.1`` and
      ``-lm_resc 0.1`` are run and reported (the LM is untrained);
   5. the flagship geometry with LM shallow fusion: fused and unfused
      decodes agree on a small input for a transformer LM (ancestry-map
      caches) and an LSTM LM (gathered state), then the worst case of phase 3
      with bench.py's ``lm_fusion`` LM, one two-head launch per step, and
      what fusion costs: decodes without and with the LM timed in turns;
-  6. hold the ``spec_mel`` fbank kernel (DFT → power → mel → log) against
-     its plain version through ``fbank_batch`` at the on-device pipeline's
-     geometries, ragged rows and a silent row included, and time the
-     kernel, the plain version and the rfft composition at 16 utterances of
-     10 s;
+  6. hold the ``spec_mel`` fbank kernel (FFT → power → mel → log) against
+     its plain version and a float64 spectrum through ``fbank_batch`` at the
+     on-device pipeline's geometries, ragged rows and a silent row included,
+     and time the kernel, the plain version, the rfft composition and the
+     framing (``extract_frames``) at 16 utterances of 10 s, each call on one
+     of four separate frame buffers so that its input is cold in L2;
   7. train ``transformer_baseline`` (conf/transformer_baseline.json: d256,
      12 encoder + 6 decoder blocks, V=4233, batch 16, accum 4) from raw
      waveforms through the training CLI on a seeded corpus of 64 + 16 wavs:
@@ -79,15 +83,21 @@ PEAK_BYTES = 3.35e12
 NO_SPILL_SOURCES = ("project_topk", "project2_topk")
 ANCHOR = os.path.join(REPO, "egs", "synth_bench", "trained", "anchor_synth_f16")
 ANCHOR_CER_LIMIT = 0.75
+# the JAX package's 1-best ids of the anchor split (CPU, float32), written by
+# tools/torch_port_anchor_parity.py --write; phases 2 (f32) and 4 (-lmw 0.0)
+# fail when more utterances than this decode to other ids on the card
+ANCHOR_JAX_1BEST = ANCHOR + ".jax_1best.json"
+ANCHOR_ID_LIMIT = 5
 # phase 6: the device pipeline's geometries (tools/tpu_smoke.py:64-65) plus a
-# silent row; |Δ log-mel| on valid frames. Each side sums the same 400
-# float32 products per DFT bin, in another order, with a rounding error of
-# up to ~sqrt(400)·2^-24 of the sum of the products' magnitudes. Where a mel
-# energy is large that moves its log by ~1e-6; in a mel bin that holds only
-# a strong tone's side lobes the products cancel to ~1e-3 of their
-# magnitude, and either order can land ~1e-3 from the exact (float64)
-# log-mel. So the kernel is held to 1e-3 of the float64 result and to 2e-3
-# of the plain version, whose own error may fall on the other side.
+# silent row; |Δ log-mel| on valid frames. The plain version sums 400
+# float32 products per DFT bin, the kernel's FFT 9 radix-2 levels, each
+# with a rounding error relative to the sum of the magnitudes it combines.
+# Where a mel energy is large that moves its log by ~1e-6; in a mel bin that
+# holds only a strong tone's side lobes the terms cancel to ~1e-3 of their
+# magnitude, and either float32 route can land ~1e-3 from the exact
+# (float64) log-mel (the plain version 7e-4 at M = 80, the FFT 3e-4). So the
+# kernel is held to 1e-3 of the float64 result and to 2e-3 of the plain
+# version, whose own error may fall on the other side.
 FBANK_ATOL = 2e-3
 FBANK_EXACT_ATOL = 1e-3
 FBANK_CASES = [("B=4 N=16000 M=40", 4, 16000, 40, None),
@@ -166,14 +176,66 @@ def topk2_bound_ms(n: int, d1: int, d2: int, v: int, k: int,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def fbank_bound_ms(frames: int, mel: int, window: int = 400, freqs: int = 257) -> tuple[float, str]:
-    """Least time for the fbank spectrum stage: the dense DFT (two products),
-    the power and the mel product at the float32 rate, against the frames,
-    bases and output read or written once."""
-    flops = frames * (2.0 * 2 * window * freqs + 3 * freqs + 2.0 * freqs * mel)
-    nbytes = 4.0 * (frames * window + 2 * window * freqs + freqs * mel + frames * mel)
+def fbank_bound_ms(frames: int, mel: int, mel_nnz: int, window: int = 400,
+                   n_fft: int = 512) -> tuple[float, str]:
+    """Least time for the fbank spectrum stage as the function needs it: a
+    real FFT of ``n_fft`` points (2.5·n·log2 n flops), the power (3 a
+    frequency) and the mel step's ``mel_nnz`` nonzero weights (2 each) at
+    the float32 rate, against the frames, the mel matrix, the twiddle table,
+    the mel ranges and the output read or written once."""
+    freqs = n_fft // 2 + 1
+    flops = frames * (2.5 * n_fft * np.log2(n_fft) + 3 * freqs + 2.0 * mel_nnz)
+    nbytes = 4.0 * (frames * window + freqs * mel + 2 * n_fft + 3 * mel + frames * mel)
     t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32] * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fbank_dense_ops_ms(frames: int, mel: int, window: int = 400, freqs: int = 257) -> float:
+    """The operations of the TPU kernel's dense formulation (two DFT
+    products against the cos/sin bases, power, dense mel product) at the
+    float32 rate: the bound of the first, dense kernel, printed beside the
+    function's."""
+    flops = frames * (2.0 * 2 * window * freqs + 3 * freqs + 2.0 * freqs * mel)
+    return flops / PEAK_FLOPS[torch.float32] * 1e3
+
+
+def cuda_ms_cold(fn, inputs, iters: int = 48, warmup: int = 4) -> float:
+    """Mean time per call of ``fn(x)`` between CUDA events, with ``x`` taken
+    in turn from ``inputs``, separate buffers whose sum exceeds the 50 MB L2
+    cache, so that each call finds its input in device memory and not in
+    the cache. A call whose device work is shorter than its host work (a
+    few tens of microseconds of Python and launches) measures the host."""
+    for i in range(warmup):
+        fn(inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(inputs[i % len(inputs)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms_cold(fn, inputs, iters: int = 48, warmup: int = 4) -> float:
+    """Device time per call of ``fn(x)``, ``x`` in turn from ``inputs`` as in
+    ``cuda_ms_cold``: the summed durations of the device kernels and copies
+    the calls ran, from ``torch.profiler``, so that host time between
+    launches does not count. Raises if the profiler saw no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warmup):
+        fn(inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / 1e3 / iters
 
 
 def rate_note(flops: float, ms: float, bound: float) -> str:
@@ -434,9 +496,29 @@ def phase_kernel2():
 
 
 # ---------------------------------------------------------------- phase 2
+def ids_differing_from_jax(decode_dir: str, vocab_path: str) -> int:
+    """Utterances whose 1-best in ``predict.txt`` is not the JAX package's
+    (``ANCHOR_JAX_1BEST``, read with json); raises unless the decode holds
+    exactly the fixture's utterances."""
+    with open(ANCHOR_JAX_1BEST, encoding="utf-8") as f:
+        want = json.load(f)["utts"]
+    with open(vocab_path, encoding="utf-8") as f:
+        vocab = {unit: int(idx) for unit, idx in (line.split() for line in f if line.strip())}
+    got = {}
+    with open(os.path.join(decode_dir, "predict.txt"), encoding="utf-8") as f:
+        for line in f:
+            utt, *units = line.split()
+            got[utt] = [vocab[u] for u in units]
+    if got.keys() != want.keys():
+        raise AssertionError(f"{decode_dir}: decoded {len(got)} utterances, the JAX fixture "
+                             f"holds {len(want)} others")
+    return sum(got[utt] != ids for utt, ids in want.items())
+
+
 def anchor_decode(tag: str, data: str, out: str, dtype: str, extra=()):
     """The 500-utterance split through the eval CLI → (CER %, one-head
-    launches, two-head launches); logs the RESULT lines."""
+    launches, two-head launches, utterances whose 1-best ids differ from
+    the JAX package's); logs the RESULT lines."""
     from opentransformer_tpu_torch.cli import eval as eval_cli
     from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
 
@@ -452,12 +534,13 @@ def anchor_decode(tag: str, data: str, out: str, dtype: str, extra=()):
     one, two = project_logp_topk.launches, project2_logp_topk.launches
     with open(os.path.join(out, "RESULT")) as f:
         result = f.read().splitlines()
-    log(f"{tag}: {result[0]} | {result[1]} | {result[2]} | {result[3]} | "
-        f"kernel launches one-head {one} two-head {two} | wall {time.time() - t0:.1f} s "
-        f"[{card_line()}]")
     if rc != 0:
         raise AssertionError(f"{tag}: the eval CLI returned {rc}")
-    return float(result[0].split()[1].rstrip("%")), one, two
+    differ = ids_differing_from_jax(out, os.path.join(data, "vocab"))
+    log(f"{tag}: {result[0]} | {result[1]} | {result[2]} | {result[3]} | "
+        f"kernel launches one-head {one} two-head {two} | 1-best ids differ from the JAX "
+        f"package's on {differ} of 500 | wall {time.time() - t0:.1f} s [{card_line()}]")
+    return float(result[0].split()[1].rstrip("%")), one, two, differ
 
 
 def phase_anchor(workdir: str):
@@ -467,17 +550,22 @@ def phase_anchor(workdir: str):
     t0 = time.time()
     synth.write_corpus(data, splits=("test",))
     log(f"phase2 wrote the synthetic test split (500 utts) in {time.time() - t0:.1f} s")
-    cers = {}
+    cers, differ = {}, {}
     for dtype in ("float32", "bfloat16"):
-        cers[dtype], launches, _ = anchor_decode(
+        cers[dtype], launches, _, differ[dtype] = anchor_decode(
             f"phase2 anchor {dtype}", data, os.path.join(workdir, f"decode_{dtype}"), dtype)
         if launches == 0:
             raise AssertionError(f"anchor {dtype} decode did not run through the kernel")
     if cers["float32"] > ANCHOR_CER_LIMIT:
         raise AssertionError(f"anchor f32 CER {cers['float32']}% above {ANCHOR_CER_LIMIT}% "
                              "(JAX package: 0.65%, 58/8958)")
+    if differ["float32"] > ANCHOR_ID_LIMIT:
+        raise AssertionError(f"anchor f32: {differ['float32']} of 500 1-best ids differ from the "
+                             f"JAX package's, more than {ANCHOR_ID_LIMIT}")
     log(f"phase2 anchor f32 CER {cers['float32']}% <= {ANCHOR_CER_LIMIT}% ok "
-        f"(JAX package 0.65%); bf16 CER {cers['bfloat16']}%")
+        f"(JAX package 0.65%), 1-best ids differ from JAX's on {differ['float32']} <= "
+        f"{ANCHOR_ID_LIMIT} of 500 ok; bf16 CER {cers['bfloat16']}%, {differ['bfloat16']} differ "
+        f"(not gated)")
     return data
 
 
@@ -635,19 +723,23 @@ def phase_anchor_lm(workdir: str, data: str):
     lm_args = ("-lm", lm_npz, "--lm_cfg", lm_json)
 
     out = os.path.join(workdir, "decode_lmw0")
-    cer, one, two = anchor_decode("phase4 anchor f32 + random transformer LM, -lmw 0.0",
-                                  data, out, "float32", (*lm_args, "-lmw", "0.0"))
+    cer, one, two, differ = anchor_decode("phase4 anchor f32 + random transformer LM, -lmw 0.0",
+                                          data, out, "float32", (*lm_args, "-lmw", "0.0"))
     if two == 0 or one != 0:
         raise AssertionError("the LM-fusion decode must go through the two-head kernel only: "
                              f"one-head launches {one}, two-head launches {two}")
     if cer > ANCHOR_CER_LIMIT:
         raise AssertionError(f"anchor f32 CER {cer}% at lm weight 0 above {ANCHOR_CER_LIMIT}% "
                              "(the fused score is then the model's own)")
+    if differ > ANCHOR_ID_LIMIT:
+        raise AssertionError(f"anchor f32 at lm weight 0: {differ} of 500 1-best ids differ from "
+                             f"the JAX package's, more than {ANCHOR_ID_LIMIT}")
     log(f"phase4 anchor f32 at lm weight 0 through the two-head kernel: CER {cer}% <= "
-        f"{ANCHOR_CER_LIMIT}% ok, {two} two-head launches, 0 one-head launches")
+        f"{ANCHOR_CER_LIMIT}% ok, 1-best ids differ from JAX's on {differ} <= {ANCHOR_ID_LIMIT} "
+        f"of 500 ok, {two} two-head launches, 0 one-head launches")
 
     out = os.path.join(workdir, "decode_lmw01")
-    cer, one, two = anchor_decode("phase4 anchor f32 + random transformer LM, -lmw 0.1",
+    cer, _, _, _ = anchor_decode("phase4 anchor f32 + random transformer LM, -lmw 0.1",
                                   data, out, "float32", (*lm_args, "-lmw", "0.1"))
     log(f"phase4 -lmw 0.1: CER {cer}% (not gated: the LM is untrained)")
     out = os.path.join(workdir, "decode_resc")
@@ -711,8 +803,9 @@ def plain_fbank(waveforms, lengths, num_mel_bins: int):
 
     frames = fk.extract_frames(waveforms)
     b, t, ws = frames.shape
-    bases = fk.device_bases(num_mel_bins, 16000.0, frames.device)
-    feats = fk.spec_mel_plain(frames.reshape(b * t, ws), *bases).reshape(b, t, num_mel_bins)
+    tab = fk.device_bases(num_mel_bins, 16000.0, frames.device)
+    feats = fk.spec_mel_plain(frames.reshape(b * t, ws), tab.cos, tab.sin, tab.mel_t)
+    feats = feats.reshape(b, t, num_mel_bins)
     return feats, fk.wave_frame_lengths(lengths)
 
 
@@ -721,8 +814,8 @@ def exact_fbank(waveforms, num_mel_bins: int) -> torch.Tensor:
     from opentransformer_tpu_torch.ops import fbank_kernel as fk
 
     frames = fk.extract_frames(waveforms).double()
-    cos_b, sin_b, mel_t = (x.double() for x in fk.device_bases(num_mel_bins, 16000.0,
-                                                               frames.device))
+    tab = fk.device_bases(num_mel_bins, 16000.0, frames.device)
+    cos_b, sin_b, mel_t = tab.cos.double(), tab.sin.double(), tab.mel_t.double()
     power = (frames @ cos_b).square() + (frames @ sin_b).square()
     return torch.log(torch.clamp_min(power @ mel_t, fk.EPSILON)).float()
 
@@ -769,26 +862,46 @@ def phase_fbank():
             raise AssertionError(f"fbank kernel disagrees with its plain version: {label}")
         max_err = max(max_err, err)
 
+    # the timed batch, cold: four copies of the frames (4 x 25.5 MB) in turn
     b, n, bins = FBANK_TIMED
     w, _ = fbank_waves(b, n, seed=99)
-    frames = fk.extract_frames(w)
-    flat = frames.reshape(-1, frames.shape[-1])
-    cos_b, sin_b, mel_t = fk.device_bases(bins, 16000.0, flat.device)
-    kern = cuda_ms(lambda: fk.spec_mel(flat, cos_b, sin_b, mel_t))
-    plain = cuda_ms(lambda: fk.spec_mel_plain(flat, cos_b, sin_b, mel_t))
+    waves = [w.clone() for _ in range(4)]
+    flats = [fk.extract_frames(x).reshape(-1, 400) for x in waves]
+    flat = flats[0]
+    tab = fk.device_bases(bins, 16000.0, flat.device)
+    kernel_args = (tab.mel_t, tab.twiddles, tab.mel_ranges)
 
-    def composition():
-        spec = torch.fft.rfft(flat, n=512, dim=-1)
+    def composition(x):
+        spec = torch.fft.rfft(x, n=512, dim=-1)
         power = spec.real.square() + spec.imag.square()
-        return torch.log(torch.clamp_min(power @ mel_t, fk.EPSILON))
+        return torch.log(torch.clamp_min(power @ tab.mel_t, fk.EPSILON))
 
-    comp_err = (composition() - fk.spec_mel(flat, cos_b, sin_b, mel_t)).abs().max().item()
-    comp = cuda_ms(composition)
-    bound, bound_by = fbank_bound_ms(flat.shape[0], bins)
-    log(f"phase6 time B={b} x {n} samples = {flat.shape[0]} frames M={bins}: kernel {kern:.4f} ms, "
-        f"plain version {plain:.4f} ms, rfft + |.|^2 + mel matmul + log (a composition of calls, "
-        f"not a library call; max|d| vs kernel {comp_err:.2e}) {comp:.4f} ms, bound {bound:.4f} ms "
-        f"({bound_by}) [{card_line()}]")
+    comp_err = (composition(flat) - fk.spec_mel(flat, *kernel_args)).abs().max().item()
+    # device time (torch.profiler) in turns, kernel first and last; the kernel's
+    # time between CUDA events beside it, which counts the host's launch work
+    kernel = lambda x: fk.spec_mel(x, *kernel_args)  # noqa: E731
+    kern_runs = [device_ms_cold(kernel, flats)]
+    plain = device_ms_cold(lambda x: fk.spec_mel_plain(x, tab.cos, tab.sin, tab.mel_t), flats)
+    comp = device_ms_cold(composition, flats)
+    framing = device_ms_cold(fk.extract_frames, waves)
+    kern_runs.append(device_ms_cold(kernel, flats))
+    kern = min(kern_runs)
+    kern_events = cuda_ms_cold(kernel, flats)
+    mel_nnz = int((tab.mel_t != 0).sum())
+    bound, bound_by = fbank_bound_ms(flat.shape[0], bins, mel_nnz)
+    dense = fbank_dense_ops_ms(flat.shape[0], bins)
+    log(f"phase6 time B={b} x {n} samples = {flat.shape[0]} frames M={bins}, device time per call "
+        f"(torch.profiler), cold L2 (each call reads one of 4 separate frame buffers, 4 x "
+        f"{flat.numel() * 4 / 1e6:.1f} MB): kernel {kern:.4f} ms (runs "
+        f"{[round(x, 4) for x in kern_runs]}; {kern_events:.4f} ms a call between CUDA events, "
+        f"host launch work included), plain version {plain:.4f} ms, rfft + |.|^2 + mel matmul + "
+        f"log (a composition of calls, not a library call; max|d| vs kernel {comp_err:.2e}) "
+        f"{comp:.4f} ms; bound {bound:.4f} ms ({bound_by}: FFT, power and {mel_nnz} mel weights "
+        f"a frame), {100.0 * bound / kern:.1f}% of it reached (the TPU kernel's dense products "
+        f"alone would take {dense:.4f} ms at the float32 rate); framing (extract_frames, {b} x "
+        f"{n} samples, cold) {framing:.4f} ms"
+        f"{'' if kern < min(plain, comp) else ', SLOWER than the plain version or the composition'}"
+        f" [{card_line()}]")
     return max_err, (kern, plain, bound, bound_by)
 
 

@@ -1,18 +1,22 @@
-"""Batched kaldi log-fbank with a fused DFT → power → mel → log kernel
+"""Batched kaldi log-fbank with a fused FFT → power → mel → log kernel
 (counterpart of ``opentransformer_tpu/ops/fbank_pallas.py``).
 
-The operations of fbank live in the DFT and the mel projection. With the
-real DFT written as two products against cos/sin bases,
+The JAX package writes the real DFT of each windowed 400-sample frame as
+two products against cos/sin bases, the form the TPU's matrix unit runs:
 
     power = (frames · C)² + (frames · S)²      C, S: f32[400, 257]
     feats = log(max(power · melᵀ, EPSILON))
 
-``spec_mel`` computes the second line without writing the [F, 257] power
-spectrum to device memory: on a CUDA tensor it launches the hand-written
-kernel of ``csrc/fbank_spec_mel.cu`` (which replaces the Pallas
-``_spec_mel_kernel``), on a CPU tensor it runs ``spec_mel_plain``, the same
-function in plain PyTorch. There is no other switch and no fallback: a
-CUDA tensor the kernel does not take raises. ``spec_mel.launches`` counts
+``spec_mel`` computes the same function without writing the [F, 257]
+power spectrum to device memory. On a CUDA tensor it launches the
+hand-written kernel of ``csrc/fbank_spec_mel.cu`` (which replaces the
+Pallas ``_spec_mel_kernel``): a float32 512-point real FFT of each frame,
+its power, and each mel bin summed over its own nonzero range of
+``mel_t``. The kernel reads the frames, ``mel_t``, a float32 twiddle
+table (``twiddles``) and the mel ranges (``mel_ranges``). On a CPU tensor
+``spec_mel`` runs ``spec_mel_plain``, the dense products against the JAX
+bases in plain PyTorch. There is no other switch and no fallback: a CUDA
+tensor the kernel does not take raises. ``spec_mel.launches`` counts
 kernel launches.
 
 Framing, DC removal, preemphasis and the povey window stay outside the
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,8 +38,17 @@ import torch
 from . import cuda_build
 from .fbank import EPSILON, frame_params, mel_banks, num_frames, povey_window
 
-MAX_MEL = 128  # csrc/fbank_spec_mel.cu: mel bins tx + 16 j, j < 8
+MAX_MEL = 128  # csrc/fbank_spec_mel.cu: mel bins lane + 32 j, j < 4
+FFT_SIZE = 512  # csrc/fbank_spec_mel.cu: one 256-point complex FFT a frame
 PREEMPHASIS = 0.97
+
+
+@lru_cache(maxsize=4)
+def dft_bases(window: int, n_fft: int):
+    """(cos, sin) f32[window, n_fft // 2 + 1] in numpy: the real DFT bases of
+    an ``n_fft``-point transform of a ``window``-sample frame."""
+    ang = -2.0 * np.pi * np.arange(window)[:, None] * np.arange(n_fft // 2 + 1)[None, :] / n_fft
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
 @lru_cache(maxsize=4)
@@ -43,17 +57,56 @@ def bases(num_mel_bins: int, sample_freq: float = 16000.0):
     numpy: the real DFT bases of a ``padded``-point transform of the
     ``ws``-sample window (25 ms) and the kaldi mel matrix, transposed."""
     ws, _, padded = frame_params(sample_freq, 25.0, 10.0)
-    n_freq = padded // 2 + 1
-    ang = -2.0 * np.pi * np.arange(ws)[:, None] * np.arange(n_freq)[None, :] / padded
     mel_t = np.ascontiguousarray(mel_banks(num_mel_bins, padded, float(sample_freq)).T)
-    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32), mel_t
+    return (*dft_bases(ws, padded), mel_t)
+
+
+@lru_cache(maxsize=4)
+def twiddles(n_fft: int) -> np.ndarray:
+    """f32[n_fft, 2]: (cos, -sin) of 2πj / n_fft, i.e. e^{-2πij/n_fft},
+    taken in float64 and cast, as the bases are."""
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+def mel_ranges(mel_t: np.ndarray) -> np.ndarray:
+    """i32[M, 3]: for each mel bin m, (lo, hi, start) with [lo, hi) the rows
+    of ``mel_t`` where column m is nonzero (a kaldi triangle is one run) and
+    ``start`` the sum of the earlier bins' run lengths (where the kernel
+    packs the bin's weights). Raises if a column's nonzeros are not one run,
+    or if there are more than two weights a frequency in all."""
+    out = np.zeros((mel_t.shape[1], 3), np.int32)
+    start = 0
+    for m in range(mel_t.shape[1]):
+        nz = np.flatnonzero(mel_t[:, m])
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        if hi - lo != nz.size:
+            raise ValueError(f"mel bin {m}: its nonzero rows are not one range")
+        out[m] = (lo, hi, start)
+        start += hi - lo
+    if start > 2 * mel_t.shape[0]:
+        raise ValueError(f"{start} mel weights: the kernel packs at most two a frequency")
+    return out
+
+
+class SpecMelBases(NamedTuple):
+    """What the plain version (cos, sin, mel_t) and the kernel (mel_t,
+    twiddles, mel_ranges) read, as tensors on one device."""
+    cos: torch.Tensor
+    sin: torch.Tensor
+    mel_t: torch.Tensor
+    twiddles: torch.Tensor
+    mel_ranges: torch.Tensor
 
 
 @lru_cache(maxsize=8)
-def device_bases(num_mel_bins: int, sample_freq: float,
-                 device: torch.device) -> tuple[torch.Tensor, ...]:
-    """``bases`` as float32 tensors on ``device`` (made once per device)."""
-    return tuple(torch.from_numpy(b).to(device) for b in bases(num_mel_bins, sample_freq))
+def device_bases(num_mel_bins: int, sample_freq: float, device: torch.device) -> SpecMelBases:
+    """``bases``, the twiddle table and the mel ranges as tensors on
+    ``device`` (made once per device)."""
+    cos_b, sin_b, mel_t = bases(num_mel_bins, sample_freq)
+    _, _, padded = frame_params(sample_freq, 25.0, 10.0)
+    host = (cos_b, sin_b, mel_t, twiddles(padded), mel_ranges(mel_t))
+    return SpecMelBases(*(torch.from_numpy(x).to(device) for x in host))
 
 
 def wave_frame_lengths(lengths: torch.Tensor, sample_freq: float = 16000.0) -> torch.Tensor:
@@ -96,41 +149,52 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load("fbank_spec_mel")
     if lib.fbank_spec_mel_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fbank_spec_mel_launch.argtypes = [p, p, p, p, i, i, i, i, p, p]
+        lib.fbank_spec_mel_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
         lib.fbank_spec_mel_launch.restype = ctypes.c_int
         lib.fbank_spec_mel_error_string.argtypes = [i]
         lib.fbank_spec_mel_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _spec_mel_cuda(frames, cos_b, sin_b, mel_t):
-    if frames.dim() != 2 or cos_b.dim() != 2 or sin_b.dim() != 2 or mel_t.dim() != 2:
-        raise ValueError(f"expected frames [F, W], cos/sin [W, Q], mel_t [Q, M]; got "
-                         f"{tuple(frames.shape)}, {tuple(cos_b.shape)}, {tuple(sin_b.shape)}, "
-                         f"{tuple(mel_t.shape)}")
+def _spec_mel_cuda(frames, mel_t, twiddle, ranges):
+    if frames.dim() != 2 or mel_t.dim() != 2 or twiddle.dim() != 2 or ranges.dim() != 2:
+        raise ValueError(f"expected frames [F, W], mel_t [Q, M], twiddles [N, 2], "
+                         f"mel_ranges [M, 3]; got {tuple(frames.shape)}, {tuple(mel_t.shape)}, "
+                         f"{tuple(twiddle.shape)}, {tuple(ranges.shape)}")
     n_frames, window = frames.shape
     n_freq, n_mel = mel_t.shape
-    if cos_b.shape != (window, n_freq) or sin_b.shape != (window, n_freq):
-        raise ValueError(f"bases {tuple(cos_b.shape)}, {tuple(sin_b.shape)} do not match "
-                         f"frames of {window} samples and {n_freq} frequencies")
+    n_fft = twiddle.shape[0]
+    if n_fft != FFT_SIZE or twiddle.shape[1] != 2:
+        raise ValueError(f"the fbank kernel takes a {FFT_SIZE}-point transform, got a twiddle "
+                         f"table of shape {tuple(twiddle.shape)}")
+    if n_freq != n_fft // 2 + 1 or not 0 < window <= n_fft or window % 4:
+        raise ValueError(f"frames of {window} samples (a multiple of 4, at most {n_fft}) and "
+                         f"{n_fft // 2 + 1} mel_t rows expected, got {window} and {n_freq}")
     if not 1 <= n_mel <= MAX_MEL:
         raise ValueError(f"the fbank kernel takes 1 to {MAX_MEL} mel bins, got {n_mel}")
-    for name, t in (("frames", frames), ("cos", cos_b), ("sin", sin_b), ("mel_t", mel_t)):
-        if t.dtype != torch.float32:
+    if ranges.shape != (n_mel, 3) or ranges.dtype != torch.int32:
+        raise ValueError(f"mel_ranges must be int32 [{n_mel}, 3], got {ranges.dtype} "
+                         f"{tuple(ranges.shape)}")
+    for name, t in (("frames", frames), ("mel_t", mel_t), ("twiddles", twiddle),
+                    ("mel_ranges", ranges)):
+        if name != "mel_ranges" and t.dtype != torch.float32:
             raise TypeError(f"the fbank kernel takes float32 {name}, got {t.dtype}")
         if t.device != frames.device:
-            raise ValueError("frames, bases and mel matrix must be on the same device")
+            raise ValueError("frames, mel matrix, twiddles and mel ranges must be on one device")
         if not t.is_contiguous():
             raise ValueError(f"the fbank kernel needs a contiguous {name}")
+    if frames.data_ptr() % 16:
+        raise ValueError("the fbank kernel reads frames in 16-byte pieces: their storage "
+                         "must start on 16 bytes")
     out = torch.empty((n_frames, n_mel), dtype=torch.float32, device=frames.device)
     if n_frames == 0:
         return out
     lib = _library()
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        err = lib.fbank_spec_mel_launch(frames.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
-                                        mel_t.data_ptr(), n_frames, window, n_freq, n_mel,
-                                        out.data_ptr(), stream)
+        err = lib.fbank_spec_mel_launch(frames.data_ptr(), mel_t.data_ptr(), twiddle.data_ptr(),
+                                        ranges.data_ptr(), n_frames, window, n_fft, n_freq,
+                                        n_mel, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fbank_spec_mel kernel launch failed: "
                            f"{lib.fbank_spec_mel_error_string(err).decode()} ({err})")
@@ -138,15 +202,19 @@ def _spec_mel_cuda(frames, cos_b, sin_b, mel_t):
     return out
 
 
-def spec_mel(frames, cos_b, sin_b, mel_t):
-    """log(max((frames·C)² + (frames·S)²) · mel_t, EPSILON)) → f32[F, M].
+def spec_mel(frames, mel_t, twiddle, ranges):
+    """log(max(|rfft(frames, n)|² · mel_t, EPSILON)) → f32[F, M], with
+    n = ``twiddle.shape[0]`` and ``twiddle``, ``ranges`` as
+    ``device_bases`` makes them.
 
-    CPU tensor → the plain version; CUDA tensor → the kernel, or an error."""
+    CPU tensor → the plain version (dense products against the bases of an
+    n-point transform); CUDA tensor → the kernel, or an error."""
     if frames.device.type == "cpu":
+        cos_b, sin_b = (torch.from_numpy(b) for b in dft_bases(frames.shape[-1], twiddle.shape[0]))
         return spec_mel_plain(frames, cos_b, sin_b, mel_t)
     if frames.device.type != "cuda":
         raise ValueError(f"spec_mel: unsupported device {frames.device}")
-    return _spec_mel_cuda(frames, cos_b, sin_b, mel_t)
+    return _spec_mel_cuda(frames, mel_t, twiddle, ranges)
 
 
 spec_mel.launches = 0
@@ -159,7 +227,7 @@ def fbank_batch(waveforms: torch.Tensor, lengths: torch.Tensor, num_mel_bins: in
     Frames past a row's frame length are garbage and must be masked."""
     frames = extract_frames(waveforms, sample_freq)
     b, t, ws = frames.shape
-    cos_b, sin_b, mel_t = device_bases(num_mel_bins, float(sample_freq), frames.device)
-    feats = spec_mel(frames.reshape(b * t, ws), cos_b, sin_b, mel_t)
+    tables = device_bases(num_mel_bins, float(sample_freq), frames.device)
+    feats = spec_mel(frames.reshape(b * t, ws), tables.mel_t, tables.twiddles, tables.mel_ranges)
     return feats.reshape(b, t, num_mel_bins), wave_frame_lengths(lengths.to(frames.device),
                                                                  sample_freq)

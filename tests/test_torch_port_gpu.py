@@ -229,12 +229,12 @@ def _waves(b, n, seed=0, silent_row=None):
     (4, 16000, 40, None), (2, 65536, 40, None), (4, 48000, 80, None), (8, 160000, 40, None),
     (3, 32000, 40, 2)])
 def test_fbank_kernel_matches_plain_on_card(cuda, b, n, bins, silent):
-    """The fused DFT → power → mel → log kernel against its plain version and
+    """The fused FFT → power → mel → log kernel against its plain version and
     a float64 spectrum on the same windowed frames: on valid frames within
-    1e-3 of the float64 log-mel and 2e-3 of the plain version (each float32
-    order of the 400-term DFT sums lands up to ~1e-3 from the exact result in
-    mel bins that hold only a tone's side lobes; chip_smoke.py, FBANK_ATOL),
-    the silent row exactly log(EPSILON)."""
+    1e-3 of the float64 log-mel and 2e-3 of the plain version (a float32 FFT
+    and the float32 400-term DFT sums each land up to ~1e-3 from the exact
+    result in mel bins that hold only a tone's side lobes; chip_smoke.py,
+    FBANK_ATOL), the silent row exactly log(EPSILON)."""
     from opentransformer_tpu_torch.ops import fbank_kernel as fk
     from opentransformer_tpu_torch.utils import disable_tf32
 
@@ -243,13 +243,13 @@ def test_fbank_kernel_matches_plain_on_card(cuda, b, n, bins, silent):
     frames = fk.extract_frames(w.to(cuda))
     t = frames.shape[1]
     flat_frames = frames.reshape(b * t, -1)
-    bases = fk.device_bases(bins, 16000.0, cuda)
+    tab = fk.device_bases(bins, 16000.0, cuda)
     before = fk.spec_mel.launches
-    got = fk.spec_mel(flat_frames, *bases)
+    got = fk.spec_mel(flat_frames, tab.mel_t, tab.twiddles, tab.mel_ranges)
     assert fk.spec_mel.launches == before + 1
-    ref = fk.spec_mel_plain(flat_frames, *bases)
+    ref = fk.spec_mel_plain(flat_frames, tab.cos, tab.sin, tab.mel_t)
     f64 = flat_frames.double()
-    cos_b, sin_b, mel_t = (x.double() for x in bases)
+    cos_b, sin_b, mel_t = tab.cos.double(), tab.sin.double(), tab.mel_t.double()
     exact = torch.log(torch.clamp_min(((f64 @ cos_b).square() + (f64 @ sin_b).square()) @ mel_t,
                                       fk.EPSILON)).float()
     torch.cuda.synchronize()
@@ -267,16 +267,23 @@ def test_fbank_kernel_matches_plain_on_card(cuda, b, n, bins, silent):
 def test_fbank_kernel_rejects_what_it_does_not_take(cuda):
     from opentransformer_tpu_torch.ops import fbank_kernel as fk
 
-    cos_b, sin_b, mel_t = fk.device_bases(40, 16000.0, cuda)
+    tab = fk.device_bases(40, 16000.0, cuda)
+    tables = (tab.mel_t, tab.twiddles, tab.mel_ranges)
     frames = torch.randn(10, 400, device=cuda)
     with pytest.raises(TypeError):
-        fk.spec_mel(frames.double(), cos_b, sin_b, mel_t)
+        fk.spec_mel(frames.double(), *tables)
     with pytest.raises(ValueError):  # not contiguous
-        fk.spec_mel(torch.randn(400, 10, device=cuda).t(), cos_b, sin_b, mel_t)
-    with pytest.raises(ValueError):  # window and bases disagree
-        fk.spec_mel(frames[:, :300].contiguous(), cos_b, sin_b, mel_t)
+        fk.spec_mel(torch.randn(400, 10, device=cuda).t(), *tables)
+    with pytest.raises(ValueError):  # a window that is not whole 16-byte pieces
+        fk.spec_mel(frames[:, :298].contiguous(), *tables)
+    with pytest.raises(ValueError):  # a transform size other than 512
+        fk.spec_mel(frames[:, :200].contiguous(), tab.mel_t[:129], tab.twiddles[::2].contiguous(),
+                    tab.mel_ranges)
     with pytest.raises(ValueError):  # more mel bins than the kernel holds
-        fk.spec_mel(frames, cos_b, sin_b, torch.zeros(257, 129, device=cuda))
+        fk.spec_mel(frames, torch.zeros(257, 129, device=cuda), tab.twiddles,
+                    torch.zeros(129, 3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):  # frames that do not start on 16 bytes
+        fk.spec_mel(torch.randn(10 * 400 + 1, device=cuda)[1:].view(10, 400), *tables)
 
 
 @pytest.mark.gpu
