@@ -15,7 +15,9 @@ each of which raises on failure:
      version on the card at the decode shapes, the tile edges (N=65,
      N=2561, D=40, D=56, V=131, rows not on 16 bytes) and ties, and time the
      kernel, the plain version and the unfused three-call composition, with
-     the achieved rate and the share of the bound;
+     the achieved rate and the share of the bound, at the beam step's shapes
+     and at the anchor's CTC shapes (N = 100 utterances x 239 frames, k=1
+     and k=32 with lse);
   1b. the same for the two-head ``project2_logp_topk`` kernel of LM shallow
      fusion: flagship, LSTM-LM and anchor widths, the tile edges (D2=1024
      among them), lm weights 0.1, 0 and -0.3, ties;
@@ -52,7 +54,19 @@ each of which raises on failure:
      finite losses, no skipped update, a checkpoint that reloads into the
      same decode; the kernel against the plain spectrum on one micro-batch
      (features and loss); seconds per update and peak memory; and a
-     width-64 model that must halve its loss in 40 updates on 8 utterances.
+     width-64 model that must halve its loss in 40 updates on 8 utterances;
+  8. CTC decoding of the anchor split through the eval CLI in float32,
+     each decode held to the JAX package's CPU ids in
+     ``anchor_synth_f16.jax_ctc.json`` (``tools/torch_port_ctc_parity.py``;
+     at most 5 of 500 may differ): (a) the anchor's frontend, encoder and
+     CTC head as a ``ctc`` model, greedy, one top-1 launch of kernel 1 per
+     batch, CER at most 0.10 points above the fixture's; (b) the same at
+     prefix beam 5 over each frame's top 32 (kernel 1 with lse, one launch
+     per batch, then the native decoder), CER within 0.10 points; (c) the
+     speech2text anchor at beam 5 with joint CTC/attention rescoring at
+     ``-ctcw 0.3`` (CER at most 0.75%, n-best scores sorted); (d) the hybrid
+     loss of one anchor batch with seeded targets on the card against the
+     CPU, CTC and attention parts each to 1e-4 relative.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -88,6 +102,16 @@ ANCHOR_CER_LIMIT = 0.75
 # fail when more utterances than this decode to other ids on the card
 ANCHOR_JAX_1BEST = ANCHOR + ".jax_1best.json"
 ANCHOR_ID_LIMIT = 5
+# phase 8: the JAX package's CTC decodes of the split (greedy, prefix beam,
+# -ctcw rescoring), written by tools/torch_port_ctc_parity.py --write; the
+# card's CER may sit 0.10 points off the fixture's
+ANCHOR_JAX_CTC = ANCHOR + ".jax_ctc.json"
+CTC_CER_MARGIN = 0.10
+# phase 8d: the card's hybrid-loss parts against the CPU's, relative
+HYBRID_LOSS_RTOL = 1e-4
+# kernel 1 at the anchor's CTC shapes: 100 utterances of up to 960 frames,
+# 239 encoder frames each after the 4x subsampling
+CTC_ROWS = 100 * 239
 # phase 6: the device pipeline's geometries (tools/tpu_smoke.py:64-65) plus a
 # silent row; |Δ log-mel| on valid frames. The plain version sums 400
 # float32 products per DFT bin, the kernel's FFT 9 radix-2 levels, each
@@ -342,6 +366,10 @@ def phase_kernel():
         ("anchor beam step N=500 D=128 V=4233 k=5 f32", 500, 128, 4233, 5, torch.float32),
         ("greedy k=1 N=512 D=256 V=4233 bf16", 512, 256, 4233, 1, torch.bfloat16),
         ("CTC sparse beam k=32+lse N=4096 D=256 V=4233 f32", 4096, 256, 4233, 32, torch.float32),
+        (f"anchor CTC greedy k=1 N={CTC_ROWS} D=128 V=4233 f32", CTC_ROWS, 128, 4233, 1,
+         torch.float32),
+        (f"anchor CTC sparse beam k=32+lse N={CTC_ROWS} D=128 V=4233 f32", CTC_ROWS, 128, 4233,
+         32, torch.float32),
         ("ragged N=7 D=256 V=4233 k=5 bf16", 7, 256, 4233, 5, torch.bfloat16),
         ("widest k=128 N=33 D=40 V=131 f32", 33, 40, 131, 128, torch.float32),
         # tile edges: 64-row blocks, 128-byte depth slices, 128-column tiles
@@ -383,6 +411,31 @@ def phase_kernel():
             f"(a composition of three calls, not a library call) {unfused:.4f} ms, "
             f"bound {bound:.4f} ms ({bound_by}); {rate_note(2.0 * n * d * 4233, kern, bound)}"
             f"{'' if kern < unfused else ', SLOWER than the composition'} [{card}]")
+    # the CTC head's calls: top-1 for greedy, top-32 with lse for the prefix beam
+    h, w, b = _inputs(CTC_ROWS, 128, 4233, torch.float32, seed=98)
+    for label, k in (("anchor CTC greedy f32", 1), ("anchor CTC sparse beam f32", 32)):
+        lse = k > 1
+        if lse:
+            def composition():
+                logits = h @ w.T + b
+                return (torch.topk(torch.log_softmax(logits, dim=-1), k),
+                        torch.logsumexp(logits, dim=-1))
+            what = "matmul + log_softmax + topk, and logsumexp"
+        else:
+            def composition():
+                return torch.max(torch.log_softmax(h @ w.T + b, dim=-1), dim=-1)
+            what = "matmul + log_softmax + max"
+        kern = cuda_ms(lambda: project_logp_topk(h, w, b, k, with_lse=lse), iters=20)
+        plain = cuda_ms(lambda: project_logp_topk_plain(h, w, b, k, with_lse=lse), iters=20)
+        unfused = cuda_ms(composition, iters=20)
+        bound, bound_by = topk_bound_ms(CTC_ROWS, 128, 4233, k, torch.float32)
+        timings[label] = (kern, plain, bound, bound_by)
+        log(f"phase1 time {label} N={CTC_ROWS} D=128 V=4233 k={k}{' + lse' if lse else ''}: "
+            f"kernel {kern:.4f} ms, plain version {plain:.4f} ms, unfused {what} (a composition "
+            f"of calls, not a library call) {unfused:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
+            f"{rate_note(2.0 * CTC_ROWS * 128 * 4233, kern, bound)}"
+            f"{'' if kern < unfused else f', SLOWER than the composition by {kern / unfused:.2f}x'}"
+            f" [{card}]")
     return max_err, timings
 
 
@@ -496,12 +549,13 @@ def phase_kernel2():
 
 
 # ---------------------------------------------------------------- phase 2
-def ids_differing_from_jax(decode_dir: str, vocab_path: str) -> int:
+def ids_differing_from_jax(decode_dir: str, vocab_path: str, want=None) -> int:
     """Utterances whose 1-best in ``predict.txt`` is not the JAX package's
-    (``ANCHOR_JAX_1BEST``, read with json); raises unless the decode holds
-    exactly the fixture's utterances."""
-    with open(ANCHOR_JAX_1BEST, encoding="utf-8") as f:
-        want = json.load(f)["utts"]
+    (``want``: {utt: ids}; by default ``ANCHOR_JAX_1BEST``'s, read with
+    json); raises unless the decode holds exactly the fixture's utterances."""
+    if want is None:
+        with open(ANCHOR_JAX_1BEST, encoding="utf-8") as f:
+            want = json.load(f)["utts"]
     with open(vocab_path, encoding="utf-8") as f:
         vocab = {unit: int(idx) for unit, idx in (line.split() for line in f if line.strip())}
     got = {}
@@ -515,17 +569,20 @@ def ids_differing_from_jax(decode_dir: str, vocab_path: str) -> int:
     return sum(got[utt] != ids for utt, ids in want.items())
 
 
-def anchor_decode(tag: str, data: str, out: str, dtype: str, extra=()):
+def anchor_decode(tag: str, data: str, out: str, dtype: str, extra=(),
+                  model_cfg: str = ANCHOR + ".manifest.json", want=None):
     """The 500-utterance split through the eval CLI → (CER %, one-head
     launches, two-head launches, utterances whose 1-best ids differ from
-    the JAX package's); logs the RESULT lines."""
+    the JAX package's: ``want``, or the beam-5 fixture's); logs the RESULT
+    lines. ``extra`` flags follow (and override) beam 5, penalty 0.6,
+    max_len 32."""
     from opentransformer_tpu_torch.cli import eval as eval_cli
     from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
 
     project_logp_topk.launches = project2_logp_topk.launches = 0
     t0 = time.time()
     rc = eval_cli.main([
-        "--npz", ANCHOR + ".npz", "--model_cfg", ANCHOR + ".manifest.json",
+        "--npz", ANCHOR + ".npz", "--model_cfg", model_cfg,
         "--feats", os.path.join(data, "test", "feats.scp"),
         "--text", os.path.join(data, "test", "text"),
         "--vocab", os.path.join(data, "vocab"),
@@ -536,10 +593,11 @@ def anchor_decode(tag: str, data: str, out: str, dtype: str, extra=()):
         result = f.read().splitlines()
     if rc != 0:
         raise AssertionError(f"{tag}: the eval CLI returned {rc}")
-    differ = ids_differing_from_jax(out, os.path.join(data, "vocab"))
+    differ = ids_differing_from_jax(out, os.path.join(data, "vocab"), want)
     log(f"{tag}: {result[0]} | {result[1]} | {result[2]} | {result[3]} | "
         f"kernel launches one-head {one} two-head {two} | 1-best ids differ from the JAX "
-        f"package's on {differ} of 500 | wall {time.time() - t0:.1f} s [{card_line()}]")
+        f"package's on {differ} of 500 | wall {time.time() - t0:.1f} s "
+        f"[{card_line() if torch.cuda.is_available() else 'cpu'}]")
     return float(result[0].split()[1].rstrip("%")), one, two, differ
 
 
@@ -1112,11 +1170,115 @@ def phase_train(workdir: str, device: str = "cuda", model_cfg=None):
     return launches
 
 
-def kernel_record(name, source, replaces, launches, max_err, timing):
+# ---------------------------------------------------------------- phase 8
+def ctc_model_cfg(cfg: dict) -> dict:
+    """The anchor's frontend, encoder and CTC head as a ``ctc`` model (as
+    ``tools/torch_port_ctc_parity.py`` builds it)."""
+    return {"type": "ctc", "frontend_type": cfg.get("frontend_type", "conv"),
+            "frontend": cfg["frontend"], "encoder_type": cfg.get("encoder_type", "transformer"),
+            "encoder": cfg["encoder"], "vocab_size": cfg["decoder"]["vocab_size"]}
+
+
+def hybrid_batch(data: str, n: int = 100, seed: int = 8):
+    """The split's first ``n`` utterances, collated as the eval CLI does,
+    with seeded targets (BOS ⧺ 8-28 units ⧺ EOS ⧺ PAD…) → numpy arrays."""
+    from opentransformer_tpu_torch.cli.eval import collate
+    from opentransformer_tpu_torch.data import BOS, EOS
+    from opentransformer_tpu_torch.data.kaldi_io import load_mat, read_scp
+
+    scp = list(read_scp(os.path.join(data, "test", "feats.scp")).values())[:n]
+    x, mask, _ = collate([load_mat(rx) for rx in scp])
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(8, 29, size=n)
+    targets = np.zeros((n, int(lens.max()) + 2), np.int64)
+    targets[:, 0] = BOS
+    for i, u in enumerate(lens):
+        targets[i, 1 : 1 + u] = rng.integers(3, 4233, size=u)
+        targets[i, 1 + u] = EOS
+    return x, mask, targets, lens + 1
+
+
+def phase_anchor_ctc(workdir: str, data: str, device: str = "cuda"):
+    """Phase 8 (module docstring). ``device="cpu"`` rehearses it on the CPU,
+    where kernel 1 is never launched and (d) compares the CPU with itself.
+    Returns {decode: kernel 1 launches}."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    cuda = device == "cuda"
+    with open(ANCHOR_JAX_CTC, encoding="utf-8") as f:
+        fixture = json.load(f)["decodes"]
+    with open(ANCHOR + ".manifest.json", encoding="utf-8") as f:
+        cfg = json.load(f)["model_cfg"]
+    ctc_json = os.path.join(workdir, "anchor_ctc.json")
+    with open(ctc_json, "w") as f:
+        json.dump(ctc_model_cfg(cfg), f)
+    dev_args = () if cuda else ("--device", "cpu")
+    batches = -(-500 // 100)
+    runs = {
+        "greedy": ("phase8a anchor CTC greedy f32", ctc_json, ("-md", "greedy")),
+        "beam": ("phase8b anchor CTC prefix beam 5, prune 32, f32", ctc_json,
+                 ("-bw", "5", "-prune", "32")),
+        "ctcw": ("phase8c anchor beam 5 + CTC rescoring -ctcw 0.3 f32",
+                 ANCHOR + ".manifest.json", ("-ctcw", "0.3")),
+    }
+    launches = {}
+    for name, (tag, model_cfg, flags) in runs.items():
+        want = fixture[name]
+        out = os.path.join(workdir, f"decode_ctc_{name}")
+        cer, one, two, differ = anchor_decode(tag, data, out, "float32", (*flags, *dev_args),
+                                              model_cfg=model_cfg, want=want["utts"])
+        launches[name] = one
+        want_cer = float(want["cer"].split()[0].rstrip("%"))
+        if name == "ctcw":
+            n_sorted = nbest_scores_sorted(out)
+            ok = cer <= ANCHOR_CER_LIMIT and (one > 0) == cuda
+            gate = (f"CER {cer}% <= {ANCHOR_CER_LIMIT}% (JAX {want['cer']}), n-best scores "
+                    f"sorted for {n_sorted} utterances, {one} one-head launches (beam steps)")
+        else:
+            margin_ok = (cer <= want_cer + CTC_CER_MARGIN if name == "greedy"
+                         else abs(cer - want_cer) <= CTC_CER_MARGIN)
+            ok = margin_ok and one == (batches if cuda else 0)
+            gate = (f"CER {cer}% {'<=' if name == 'greedy' else 'within'} {CTC_CER_MARGIN} "
+                    f"points of the JAX package's {want['cer']}, kernel 1 launches {one} "
+                    f"(one per batch: {batches})")
+        ok = ok and differ <= ANCHOR_ID_LIMIT and two == 0
+        log(f"{tag}: {gate}, 1-best ids differ from JAX's on {differ} <= {ANCHOR_ID_LIMIT} "
+            f"of 500, two-head launches {two} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: a gate failed (see above)")
+
+    # (d) the hybrid loss of one batch on the device against the CPU
+    tree = compat.load_npz(ANCHOR + ".npz")
+    x, mask, targets, tlen = hybrid_batch(data)
+    parts = {}
+    for where in ("cpu", device):
+        model = compat.load_into(build_model(cfg, device=where), tree)
+        args = [torch.from_numpy(a).to(where) for a in (x, mask, targets, tlen)]
+        with torch.no_grad():
+            loss, aux = model(*args)
+        parts[where] = {"loss": loss.item(), "ctc_loss": aux["ctc_loss"].item(),
+                        "att_loss": aux["att_loss"].item()}
+    rel = {key: abs(parts[device][key] - val) / abs(val) for key, val in parts["cpu"].items()}
+    ok = all(np.isfinite(list(parts[device].values()))) and max(rel.values()) <= HYBRID_LOSS_RTOL
+    log(f"phase8d hybrid loss of {x.shape[0]} anchor utterances ({x.shape[1]} frames) with "
+        f"seeded targets, {device} against cpu: "
+        + ", ".join(f"{key} {parts[device][key]:.6f} vs {parts['cpu'][key]:.6f} (relative "
+                    f"{rel[key]:.2e})" for key in parts["cpu"])
+        + f", limit {HYBRID_LOSS_RTOL:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase8d: the card's hybrid loss disagrees with the CPU's")
+    return launches
+
+
+def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
+    """The kernel's entry of the JSON line: ``launches`` on its first main
+    path, ``launches_by_path`` on each path that launches it."""
     kern, plain, bound, bound_by = timing
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": kern, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "launches_by_path": by_path}
 
 
 def main() -> int:
@@ -1126,6 +1288,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import opentransformer_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    t0 = time.time()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phase_build()
@@ -1135,24 +1298,32 @@ def main() -> int:
         data = phase_anchor(workdir)
         launches = phase_flagship()
         phase_anchor_lm(workdir, data)
+        ctc_launches = phase_anchor_ctc(workdir, data)
     launches2 = phase_flagship_lm()
     max_err3, timing3 = phase_fbank()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         launches3 = phase_train(workdir)
 
-    # launches: each kernel's count on its own main path (phase 3 without an
-    # LM, phase 5 with one, phase 7's training run); times at the flagship
-    # bf16 beam-step shape and at the 16 x 10 s training batch
+    # launches: each kernel's count on its own main paths (phase 3 without an
+    # LM and phase 8's CTC decodes, phase 5 with an LM, phase 7's training
+    # run); times at the flagship bf16 beam-step shape and at the 16 x 10 s
+    # training batch
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:96", launches, max_err,
-                      timings["flagship bf16"]),
+                      timings["flagship bf16"],
+                      {"phase3 flagship decode": launches,
+                       "phase8a anchor CTC greedy (k=1)": ctc_launches["greedy"],
+                       "phase8b anchor CTC prefix beam (k=32 + lse)": ctc_launches["beam"],
+                       "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"]}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
-                      timings2["flagship bf16"]),
+                      timings2["flagship bf16"], {"phase5 flagship decode + LM": launches2}),
         kernel_record("fbank_spec_mel", "opentransformer_tpu_torch/csrc/fbank_spec_mel.cu",
-                      "opentransformer_tpu/ops/fbank_pallas.py:60", launches3, max_err3, timing3),
+                      "opentransformer_tpu/ops/fbank_pallas.py:60", launches3, max_err3, timing3,
+                      {"phase7 training": launches3}),
     ]}
+    log(f"chip_smoke ran every phase in {time.time() - t0:.1f} s")
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

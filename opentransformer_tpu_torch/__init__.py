@@ -9,10 +9,13 @@ JAX, flax, yaml, and nothing from the JAX package.
 Ported so far: the speech2text decode side (conv frontend, transformer
 encoder, KV-cached decoder, batched beam and greedy search), the transformer
 and LSTM language models with shallow fusion and n-best rescoring, the eval
-CLI, and training speech2text from raw waveforms (the online dataset and
+CLI, training speech2text from raw waveforms (the online dataset and
 loader, the device feature stage, label smoothing, Adam/SGD with the seven
-schedules, per-epoch checkpoints, ``cli/run.py`` on JSON configs). The CTC
-loss and models, the Conformer and transducer models, the other datasets,
+schedules, per-epoch checkpoints, ``cli/run.py`` on JSON configs), and CTC:
+the loss (optax's recursion), the CTC head with its look-ahead conv, the
+hybrid loss, the ``ctc`` model, greedy and native prefix-beam CTC decoding
+with n-gram fusion, and joint CTC/attention rescoring. CLI training with a
+CTC loss, the Conformer and transducer models, the other datasets,
 streaming and serving are still to port (``ROADMAP.md``).
 
 The Pallas kernels of the JAX package become hand-written CUDA kernels

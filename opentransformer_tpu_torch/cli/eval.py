@@ -8,7 +8,14 @@ writes the JAX CLI's artifacts into ``--decode_dir``: ``predict.txt``
 oracle CER, RTF). With ``-lm LM.npz --lm_cfg LM.json`` an external language
 model (``transformer_lm`` or ``rnn_lm``, same npz format) joins the beam by
 shallow fusion at weight ``-lmw``; ``-lm_resc W`` also rescores the n-best
-list by the LM's mean token log-prob.
+list by the LM's mean token log-prob; ``-ctcw W`` rescores it jointly with
+the model's CTC head (a hybrid-trained model such as the anchor).
+
+A ``ctc`` model config decodes with the CTC head alone: greedy at ``-bw 1``
+or ``-md greedy``, else the native prefix beam of width ``-bw`` over each
+frame's top ``-prune`` candidates, with ``-nb`` n-best and optional n-gram
+fusion (``-ngram ARPA -alpha A -beta B``). Its weights may be a speech2text
+npz (the anchor's): the decoder's arrays are then left out.
 
     python -m opentransformer_tpu_torch.cli.eval \\
         --npz egs/synth_bench/trained/anchor_synth_f16.npz \\
@@ -18,6 +25,12 @@ list by the LM's mean token log-prob.
 
     # with LM shallow fusion
     python -m opentransformer_tpu_torch.cli.eval ... -lm LM.npz --lm_cfg LM.json -lmw 0.1
+    # joint CTC/attention rescoring
+    python -m opentransformer_tpu_torch.cli.eval ... -ctcw 0.3
+    # the anchor's CTC head as a ctc model (CTC.json: type ctc, the anchor's
+    # frontend and encoder sections, vocab_size 4233), greedy or prefix beam 5
+    python -m opentransformer_tpu_torch.cli.eval --model_cfg CTC.json ... -md greedy
+    python -m opentransformer_tpu_torch.cli.eval --model_cfg CTC.json ... -bw 5 -prune 32
 
 It runs on the CUDA card unless ``--device cpu`` is given.
 """
@@ -33,12 +46,12 @@ import time
 import numpy as np
 import torch
 
-from ..compat import load_into, load_npz
+from ..compat import load_ctc_from_speech2text, load_into, load_npz
 from ..data import UNK, load_idx2unit_map, load_vocab
 from ..data.kaldi_io import load_mat, read_scp
 from ..models.registry import build_model
 from ..ops.levenshtein import ErrorRateAccumulator, edit_distances
-from ..recognize.base import SpeechToTextRecognizer, lm_rescore
+from ..recognize.base import build_recognizer, lm_rescore
 from ..utils import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -60,9 +73,27 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--vocab", required=True, help="'unit idx' vocab file")
     p.add_argument("--decode_dir", required=True, help="output directory")
     p.add_argument("-b", "--batch_size", type=int, default=16)
-    p.add_argument("-bw", "--beam_width", type=int, default=5)
+    p.add_argument("-bw", "--beam_width", type=int, default=5,
+                   help="attention beam width; for a ctc model the prefix-beam width "
+                        "(1: greedy)")
+    p.add_argument("-nb", "--nbest", type=int, default=1,
+                   help="n-best size of the CTC prefix beam")
     p.add_argument("-pn", "--penalty", type=float, default=0.6)
     p.add_argument("-ml", "--max_len", type=int, default=100)
+    p.add_argument("-md", "--mode", default="beam", choices=["beam", "greedy"],
+                   help="'greedy' sets the beam width to 1")
+    p.add_argument("-ctcw", "-cw", "--ctc_weight", type=float, default=0.0,
+                   help="joint CTC/attention n-best rescoring weight (the model needs a CTC "
+                        "head: trained with ctc_weight > 0)")
+    p.add_argument("-ngram", "--ngram_lm", default=None,
+                   help="n-gram LM for the CTC prefix beam (ARPA text, .otbin cache or "
+                        "KenLM probing binary)")
+    p.add_argument("-alpha", "--alpha", type=float, default=0.1,
+                   help="n-gram LM weight (CTC prefix beam)")
+    p.add_argument("-beta", "--beta", type=float, default=0.0,
+                   help="insertion bonus (CTC prefix beam)")
+    p.add_argument("-prune", "--prune_k", type=int, default=32,
+                   help="candidates per frame for the CTC prefix beam, taken on the device")
     p.add_argument("-lm", "--load_language_model", default=None,
                    help="flattened float16 npz of an LM's JAX params (needs --lm_cfg)")
     p.add_argument("--lm_cfg", default=None,
@@ -118,9 +149,17 @@ def main(argv=None) -> int:
                         format="%(asctime)s - %(levelname)s - %(message)s")
     if args.load_language_model and not args.lm_cfg:
         raise SystemExit("error: -lm needs --lm_cfg (the LM's JSON config)")
+    if args.mode == "greedy":
+        args.beam_width = 1
     dev = resolve_device(args.device)
-    model = build_model(load_model_cfg(args.model_cfg), dtype=DTYPES[args.dtype], device=dev)
-    load_into(model, load_npz(args.npz))
+    model_cfg = load_model_cfg(args.model_cfg)
+    model_type = model_cfg["type"]
+    model = build_model(model_cfg, dtype=DTYPES[args.dtype], device=dev)
+    tree = load_npz(args.npz)
+    if model_type == "ctc" and "decoder" in tree.get("params", tree):
+        load_ctc_from_speech2text(model, tree)
+    else:
+        load_into(model, tree)
     lm = None
     if args.load_language_model:
         lm = build_model(load_model_cfg(args.lm_cfg), dtype=DTYPES[args.dtype], device=dev)
@@ -128,9 +167,7 @@ def main(argv=None) -> int:
 
     unit2idx = load_vocab(args.vocab)
     idx2unit = load_idx2unit_map(args.vocab)
-    recognizer = SpeechToTextRecognizer(
-        model, lm=lm, beam_width=args.beam_width, max_len=args.max_len,
-        penalty=args.penalty, lm_weight=args.lm_weight, idx2unit=idx2unit)
+    recognizer = build_recognizer(model_type, model, lm=lm, args=vars(args), idx2unit=idx2unit)
     scp = list(read_scp(args.feats).items())
     refs = read_text(args.text)
     os.makedirs(args.decode_dir, exist_ok=True)
@@ -144,7 +181,7 @@ def main(argv=None) -> int:
             x, mask, lens = collate([load_mat(rx) for _, rx in chunk])
             t0 = time.time()
             feats, feat_mask = torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev)
-            if args.lm_rescore_weight > 0.0 and lm is not None:
+            if args.lm_rescore_weight > 0.0 and lm is not None and model_type == "speech2text":
                 hyp = lm_rescore(lm, recognizer.recognize_arrays(feats, feat_mask),
                                  args.lm_rescore_weight)
                 texts = recognizer.nbest_translate(hyp.tokens[:, :, 1:].cpu().numpy())

@@ -123,6 +123,10 @@ def run(argv=None) -> Trainer:
         raise NotImplementedError(
             f"training model type {model_cfg.get('type')!r} is not ported to "
             "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1 item 5)")
+    if float(model_cfg.get("ctc_weight", 0.0)) > 0.0:
+        raise NotImplementedError(
+            "training with the hybrid CTC loss (model.ctc_weight > 0) through the CLI is not "
+            "ported to opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: training)")
     if not data_cfg.get("extract_on_device", False):
         raise NotImplementedError(
             "training from host features is not ported to opentransformer_tpu_torch yet "

@@ -8,7 +8,9 @@ the port's modules, whose names mirror the flax module paths:
     (a bare flax ``nn.Dense``, as in the LSTM cell, is a ``modules.Dense``
     and has no such level);
   * Dense ``kernel`` [in, out] → ``weight`` [out, in];
-  * Conv ``kernel`` HWIO [kt, kf, in, out] → ``weight`` OIHW;
+  * Conv ``kernel`` HWIO [kt, kf, in, out] → ``weight`` OIHW, and a 1-d
+    Conv ``kernel`` [K, in/groups, out] (the CTC look-ahead conv) →
+    ``Conv1d`` ``weight`` [out, in/groups, K];
   * LayerNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
   * Embed ``embedding`` → ``weight``; other leaves keep their name.
 
@@ -18,6 +20,11 @@ gives back the same state dict. ``load_npz`` reads the ``"//"``-joined npz
 export of ``tools/export_trained_synth.py`` (float16 on disk) with numpy
 alone, and ``save_npz`` writes that format, in float16 or, for training
 checkpoints, float32.
+
+``load_into`` is strict: every parameter present and no extra one.
+``load_ctc_from_speech2text`` loads a ``ctc`` model from a hybrid
+speech2text tree (the anchor's): it drops the ``decoder`` scope, and
+nothing else.
 """
 
 from __future__ import annotations
@@ -52,6 +59,8 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
         if leaf_name == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 3:
+                arr = arr.transpose(2, 1, 0)
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             else:
@@ -85,6 +94,9 @@ def params_to_jax(model: nn.Module) -> dict:
             elif isinstance(mod, nn.Conv2d):
                 put(prefix + ["kernel" if p_name == "weight" else p_name],
                     arr.transpose(2, 3, 1, 0) if p_name == "weight" else arr)
+            elif isinstance(mod, nn.Conv1d):
+                put(prefix + ["kernel" if p_name == "weight" else p_name],
+                    arr.transpose(2, 1, 0) if p_name == "weight" else arr)
             elif isinstance(mod, nn.LayerNorm):
                 put(prefix + ["scale" if p_name == "weight" else p_name], arr)
             elif isinstance(mod, nn.Embedding):
@@ -121,3 +133,15 @@ def load_into(model: nn.Module, tree) -> nn.Module:
     parameter must be present and no extra one)."""
     model.load_state_dict(params_from_jax(tree), strict=True)
     return model
+
+
+def load_ctc_from_speech2text(model: nn.Module, tree) -> nn.Module:
+    """Load a hybrid speech2text tree (frontend, encoder, decoder, ctc) into
+    a ``ctc`` model: the ``decoder`` scope is dropped, and every other array
+    must match the model's parameters one to one (strict, as ``load_into``)."""
+    if set(tree.keys()) == {"params"}:
+        tree = tree["params"]
+    if "decoder" not in tree:
+        raise KeyError("not a speech2text tree: it has no decoder scope to drop "
+                       f"(scopes {sorted(tree)})")
+    return load_into(model, {k: v for k, v in tree.items() if k != "decoder"})

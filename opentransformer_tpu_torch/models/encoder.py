@@ -54,6 +54,7 @@ class TransformerEncoder(nn.Module):
                  pos_dropout: float = 0.0, slf_attn_dropout: float = 0.0,
                  ffn_dropout: float = 0.0, residual_dropout: float = 0.1):
         super().__init__()
+        self.d_model = d_model
         self.normalize_before = normalize_before
         self.pos_enc = PositionalEncoding(d_model, pos_dropout)
         self.layers = []

@@ -2,9 +2,9 @@
 
 Builds a model from the ``model`` section of a config, as a dict (read from
 JSON: the anchor manifest's ``model_cfg`` is one). The port covers
-``speech2text`` with a conv frontend and an absolute-position transformer
-encoder, and the language models ``transformer_lm`` and ``rnn_lm``;
-anything else raises and names the ROADMAP queue.
+``speech2text`` and ``ctc`` with a conv frontend and an absolute-position
+transformer encoder, and the language models ``transformer_lm`` and
+``rnn_lm``; anything else raises and names the ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from torch import nn
 
 from ..utils import disable_tf32, resolve_device
 from .lm import RecurrentLanguageModel, TransformerLanguageModel
-from .speech2text import SpeechToText
+from .speech2text import CTCModel, SpeechToText
 
 LM_TYPES = {"transformer_lm": TransformerLanguageModel, "rnn_lm": RecurrentLanguageModel}
 
@@ -63,21 +63,30 @@ def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
     if mtype in LM_TYPES:
         cls = LM_TYPES[mtype]
         return cls(**_lm_kwargs(model_cfg, cls)).to(device=dev, dtype=dtype).eval()
-    if mtype != "speech2text":
+    if mtype not in ("speech2text", "ctc"):
         raise _not_ported(f"model type {mtype!r}")
     if model_cfg.get("frontend_type", "conv") != "conv":
         raise _not_ported(f"frontend_type {model_cfg['frontend_type']!r}")
-    for part in ("encoder", "decoder"):
+    parts = ("encoder", "decoder") if mtype == "speech2text" else ("encoder",)
+    for part in parts:
         kind = model_cfg.get(f"{part}_type", "transformer")
         if kind != "transformer":
             raise _not_ported(f"{part}_type {kind!r}")
-    if int(model_cfg.get("lookahead_steps", 0)):
-        raise _not_ported("the CTC look-ahead conv (lookahead_steps > 0)")
     for section, options in _NOT_PORTED.items():
         for key, off in options.items():
-            if model_cfg[section].get(key, off) != off:
+            if section in model_cfg and model_cfg[section].get(key, off) != off:
                 raise _not_ported(f"{section} option {key}={model_cfg[section][key]!r}")
-    model = SpeechToText(model_cfg["frontend"], model_cfg["encoder"], model_cfg["decoder"],
-                         ctc_weight=float(model_cfg.get("ctc_weight", 0.0)),
-                         smoothing=float(model_cfg.get("smoothing", 0.1)))
+    lookahead = int(model_cfg.get("lookahead_steps", 0))
+    if mtype == "ctc":
+        model = CTCModel(model_cfg["frontend"], model_cfg["encoder"],
+                         int(model_cfg["vocab_size"]), lookahead_steps=lookahead)
+    else:
+        ctc_weight = float(model_cfg.get("ctc_weight", 0.0))
+        if lookahead and ctc_weight <= 0.0:
+            raise ValueError("lookahead_steps > 0 belongs to the CTC head: a speech2text model "
+                             "has one only with ctc_weight > 0")
+        model = SpeechToText(model_cfg["frontend"], model_cfg["encoder"], model_cfg["decoder"],
+                             ctc_weight=ctc_weight,
+                             smoothing=float(model_cfg.get("smoothing", 0.1)),
+                             lookahead_steps=lookahead)
     return model.to(device=dev, dtype=dtype).eval()

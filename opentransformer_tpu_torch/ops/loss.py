@@ -1,10 +1,18 @@
-"""Label-smoothing loss (counterpart of ``label_smoothing_loss`` in
-``opentransformer_tpu/ops/loss.py``).
+"""Losses (counterpart of ``opentransformer_tpu/ops/loss.py``): label
+smoothing and CTC.
 
-KL(smoothed one-hot ‖ softmax(logits)): the target keeps 1 − ε, every other
-class gets ε/(V − 1), positions whose target is PAD are dropped, and the
-sum is divided by the number of non-PAD targets. The CTC loss of the hybrid
-head is not ported yet (``ctc_weight > 0`` raises in ``SpeechToText``).
+Label smoothing: KL(smoothed one-hot ‖ softmax(logits)); the target keeps
+1 − ε, every other class gets ε/(V − 1), positions whose target is PAD are
+dropped, and the sum is divided by the number of non-PAD targets.
+
+CTC: the JAX package calls ``optax.ctc_loss``; ``ctc_neg_log_likelihood``
+is the port's own copy of that recursion, so that it gives optax's numbers
+where ``torch.nn.functional.ctc_loss`` does not. optax writes log(0) as
+``log_epsilon = -1e5``, so a label sequence that no alignment fits (more
+labels than frames) costs a large *finite* value (~1e5 per missing
+frame), where ``F.ctc_loss`` gives ``inf``. The JAX package's
+``isfinite`` guards therefore never fire, and the port keeps them for the
+same (never taken) case.
 """
 
 from __future__ import annotations
@@ -12,6 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..data import PAD
+
+LOG_EPSILON = -1e5  # optax's numerically stable log(+0)
 
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor, smoothing: float = 0.1,
@@ -30,3 +40,77 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor, smoothing:
     if normalize_length:
         return total / torch.clamp_min(token_mask.sum(), 1.0)
     return total / logits.shape[0]
+
+
+def _add_to_phi(phi: torch.Tensor, added: torch.Tensor) -> torch.Tensor:
+    """``phi[:, 1:] ⊕= added`` in log space (optax's ``update_phi_score``)."""
+    return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], added)], dim=-1)
+
+
+def ctc_nll_from_logprobs(logp_emit: torch.Tensor, logp_blank: torch.Tensor,
+                          logit_pad: torch.Tensor, labels: torch.Tensor,
+                          label_pad: torch.Tensor) -> torch.Tensor:
+    """Per-sequence CTC negative log-likelihood f32[B] from the log-probs
+    already gathered at the label columns: ``logp_emit`` f[B, T, N] (frame t,
+    label n), ``logp_blank`` f[B, T]; ``logit_pad`` [B, T] and ``label_pad``
+    [B, N] are 1 (or True) on padding; labels are right-padded.
+
+    optax's recursion over frames, vectorised over batch and labels: the
+    states are "after label n, in blank" (phi, N + 1 of them) and "emitting
+    label n" (emit, N); a padded frame carries the state unchanged, and the
+    last frame ends with an emit→phi epsilon transition."""
+    b, t, n = logp_emit.shape
+    dev = logp_emit.device
+    logp_emit = logp_emit.float()
+    logp_blank = logp_blank.float()
+    pad = logit_pad.bool()
+    label_lens = n - label_pad.float().sum(dim=1).long()
+    repeat = torch.zeros((b, n), dtype=torch.float32, device=dev)
+    if n > 1:
+        repeat[:, :-1] = (labels[:, :-1] == labels[:, 1:]).float()
+    phi = torch.full((b, n + 1), LOG_EPSILON, dtype=torch.float32, device=dev)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), LOG_EPSILON, dtype=torch.float32, device=dev)
+    to_phi_eps = LOG_EPSILON * repeat  # emit→phi epsilon, barred before a repeat
+    to_phi_blank = LOG_EPSILON * (1.0 - repeat)  # emit→phi by a blank, only before one
+    for i in range(t):
+        lp_emit, lp_blank, pad_i = logp_emit[:, i], logp_blank[:, i, None], pad[:, i, None]
+        prev_phi = _add_to_phi(phi, emit + to_phi_eps)
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + lp_emit, emit + lp_emit)
+        next_phi = _add_to_phi(prev_phi + lp_blank, emit + lp_blank + to_phi_blank)
+        emit = torch.where(pad_i, emit, next_emit)
+        phi = torch.where(pad_i, phi, next_phi)
+    last = _add_to_phi(phi, emit)
+    return -last.gather(1, label_lens[:, None])[:, 0]
+
+
+def gather_label_logprobs(logp: torch.Tensor, labels: torch.Tensor, blank_id: int = 0):
+    """(log-probs f[B, T, N] at the label columns, blank log-probs f[B, T])
+    of frame log-probs ``logp`` f[B, T, V] and labels int[B, N]."""
+    b, t, _ = logp.shape
+    cols = labels.long()[:, None, :].expand(b, t, labels.shape[1])
+    return torch.gather(logp, 2, cols), logp[:, :, blank_id]
+
+
+def ctc_neg_log_likelihood(logits: torch.Tensor, logit_pad: torch.Tensor, labels: torch.Tensor,
+                           label_pad: torch.Tensor, blank_id: int = 0) -> torch.Tensor:
+    """``optax.ctc_loss``: per-sequence f32[B] of logits f[B, T, V]."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    emit, blank = gather_label_logprobs(logp, labels, blank_id)
+    return ctc_nll_from_logprobs(emit, blank, logit_pad, labels, label_pad)
+
+
+def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor, labels: torch.Tensor,
+             label_lengths: torch.Tensor, blank_id: int = 0) -> torch.Tensor:
+    """Mean over the batch of each sequence's CTC loss divided by its label
+    length (torch's 'mean' reduction). logits f[B, T, V], labels int[B, U]
+    PAD-padded, lengths int[B]."""
+    t, u = logits.shape[1], labels.shape[1]
+    dev = logits.device
+    logit_pad = torch.arange(t, device=dev)[None, :] >= logit_lengths[:, None]
+    label_pad = torch.arange(u, device=dev)[None, :] >= label_lengths[:, None]
+    per_seq = ctc_neg_log_likelihood(logits, logit_pad, labels, label_pad, blank_id)
+    # the JAX package's zero_infinity guard; optax's values are always finite
+    per_seq = torch.where(torch.isfinite(per_seq), per_seq, torch.zeros_like(per_seq))
+    per_seq = per_seq / torch.clamp_min(label_lengths.float(), 1.0)
+    return per_seq.mean()

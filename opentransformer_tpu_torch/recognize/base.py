@@ -1,21 +1,26 @@
 """Recognizers: model + optional LM → n-best transcripts
 (counterpart of ``opentransformer_tpu/recognize/base.py``): the speech2text
-recognizer with LM shallow fusion (transformer or LSTM LM) and n-best LM
-rescoring. CTC rescoring and the CTC/transducer recognizers are not ported
-yet (ROADMAP Queue 1).
+recognizer with LM shallow fusion (transformer or LSTM LM), joint
+CTC/attention rescoring and n-best LM rescoring; the CTC recognizer (greedy
+on the device, or the native sparse prefix beam with optional n-gram
+fusion); ``build_recognizer`` by model type. The transducer recognizer is
+not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from ..data import EOS, PAD
+from ..data import BLK, EOS, PAD
 from ..models.lm import RecurrentLanguageModel, TransformerLanguageModel
+from ..ops.loss import ctc_nll_from_logprobs, gather_label_logprobs
+from ..ops.masks import mask_to_length
 from ..ops.project_topk import MAX_K, project2_logp_topk
 from .beam import BeamHypotheses, beam_search, greedy_search
+from .ctc_decode import ctc_collapse_ids
 
 
 def make_lm_adapter(lm, max_len: int):
@@ -54,10 +59,13 @@ class Recognizer:
 
 def make_memory_search(model, beam_width: int, max_len: int, penalty: float = 0.6,
                        lamda: float = 5.0, lm=None, lm_weight: float = 0.1,
-                       eos_id: Optional[int] = None, fused_topk: bool = True):
+                       eos_id: Optional[int] = None, force_beam: bool = False,
+                       fused_topk: bool = True):
     """``(memory, memory_mask) -> BeamHypotheses`` over a precomputed encoder
-    memory: the KV-cached beam (beam 1 without an LM: greedy), with LM
-    shallow fusion when ``lm`` is given. ``eos_id`` overrides the end token.
+    memory: the KV-cached beam (beam 1 without an LM and without
+    ``force_beam``: greedy), with LM shallow fusion when ``lm`` is given.
+    ``eos_id`` overrides the end token; ``force_beam`` keeps beam 1 on the
+    beam path, whose scores are length-penalised (CTC rescoring adds them).
 
     The beam consumes only the per-step top-k of the (LM-fused) next-token
     distribution, so the fused projection→log-softmax→top-k step is used
@@ -91,7 +99,7 @@ def make_memory_search(model, beam_width: int, max_len: int, penalty: float = 0.
     @torch.inference_mode()
     def search(memory, memory_mask) -> BeamHypotheses:
         decode_topk = model.decode_step_topk if has_topk else None
-        if beam_width == 1 and lm is None:
+        if beam_width == 1 and lm is None and not force_beam:
             return greedy_search(model.decode_step, model.init_cache, memory, memory_mask,
                                  max_len, eos_id=eos, decode_topk=decode_topk)
         return beam_search(model.decode_step, model.init_cache, memory, memory_mask,
@@ -105,26 +113,127 @@ def make_memory_search(model, beam_width: int, max_len: int, penalty: float = 0.
 
 
 class SpeechToTextRecognizer(Recognizer):
-    """Encoder + batched beam search with KV cache + optional LM fusion."""
+    """Encoder + batched beam search with KV cache + optional LM fusion,
+    then joint CTC/attention rescoring when ``ctc_weight`` > 0 (the model
+    needs a CTC head: trained with ``ctc_weight`` > 0)."""
 
     def __init__(self, model, lm=None, beam_width: int = 5, max_len: int = 100,
                  penalty: float = 0.6, lamda: float = 5.0, lm_weight: float = 0.1,
-                 idx2unit: Optional[dict] = None, eos_id: Optional[int] = None):
+                 ctc_weight: float = 0.0, idx2unit: Optional[dict] = None,
+                 eos_id: Optional[int] = None):
         super().__init__(model, idx2unit)
+        self.ctc_weight = float(ctc_weight)
+        if self.ctc_weight > 0.0 and not hasattr(model, "ctc"):
+            raise ValueError("CTC rescoring (ctc_weight > 0) needs a model with a CTC head, "
+                             "one trained with ctc_weight > 0")
         self.search = make_memory_search(model, int(beam_width), int(max_len),
                                          float(penalty), float(lamda), lm=lm,
-                                         lm_weight=float(lm_weight), eos_id=eos_id)
+                                         lm_weight=float(lm_weight), eos_id=eos_id,
+                                         force_beam=self.ctc_weight > 0.0)
 
     @torch.inference_mode()
     def recognize_arrays(self, feats, feat_mask) -> BeamHypotheses:
         memory, memory_mask = self.model.encode(feats, feat_mask)
-        return self.search(memory, memory_mask)
+        hyp = self.search(memory, memory_mask)
+        if self.ctc_weight > 0.0:
+            hyp = ctc_rescore_scores(self.model.ctc_logits(memory), memory_mask, hyp,
+                                     self.ctc_weight)
+        return hyp
 
     def recognize(self, feats, feat_mask):
         """Returns (nbest texts [B][K], scores f32[B, K] numpy)."""
         hyp = self.recognize_arrays(feats, feat_mask)
         tokens = hyp.tokens[:, :, 1:].cpu().numpy()  # strip BOS
         return self.nbest_translate(tokens), hyp.scores.float().cpu().numpy()
+
+
+class CTCRecognizer(Recognizer):
+    """CTC decoding: greedy (``beam_width`` ≤ 1) through the fused top-1 and
+    the collapse on the device; otherwise the per-frame top ``prune_k``
+    candidates and the blank's log-prob through the fused top-k with lse,
+    then the native prefix beam on the host, with optional ARPA n-gram
+    fusion at weights ``alpha`` (LM) and ``beta`` (insertion bonus)."""
+
+    def __init__(self, model, idx2unit: Optional[dict] = None, beam_width: int = 1,
+                 nbest: int = 1, lm_path: Optional[str] = None, alpha: float = 0.0,
+                 beta: float = 0.0, prune_k: int = 32):
+        super().__init__(model, idx2unit)
+        self.beam_width = int(beam_width)
+        self.nbest = int(nbest)
+        self.alpha, self.beta = float(alpha), float(beta)
+        self.lm = None
+        if lm_path:
+            from .native_ctc import NgramLM
+
+            units = ([self.idx2unit.get(i, f"<{i}>") for i in range(max(self.idx2unit) + 1)]
+                     if self.idx2unit else [])
+            self.lm = NgramLM(lm_path, units)
+        # clamped to the vocabulary and to the fused kernel's largest k
+        self.prune_k = min(int(prune_k), int(model.vocab_size), MAX_K)
+
+    @torch.inference_mode()
+    def recognize(self, feats, feat_mask):
+        """Returns (n-best texts [B][nbest], scores f32[B, nbest] numpy;
+        greedy: one text, score 0)."""
+        if self.beam_width <= 1:
+            ids, mask = self.model.recognize_argmax(feats, feat_mask)
+            tokens, lengths = ctc_collapse_ids(ids, mask)
+            tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+            texts = [[self.translate(tokens[i, : lengths[i]])] for i in range(tokens.shape[0])]
+            return texts, np.zeros((tokens.shape[0], 1), np.float32)
+
+        from .native_ctc import ctc_beam_decode_sparse
+
+        vals, ids, blank_lp, mask = self.model.recognize_topk(feats, feat_mask, self.prune_k)
+        tokens, lens, scores = ctc_beam_decode_sparse(
+            vals.cpu().numpy(), ids.cpu().numpy(), blank_lp.cpu().numpy(),
+            mask_to_length(mask).int().cpu().numpy(), beam_width=self.beam_width,
+            blank=BLK, alpha=self.alpha, beta=self.beta, lm=self.lm, nbest=self.nbest)
+        texts = [[self.translate(tokens[i, j, : lens[i, j]]) for j in range(self.nbest)]
+                 for i in range(tokens.shape[0])]
+        return texts, scores
+
+
+def ctc_rescore_scores(logits, memory_mask, hyp: BeamHypotheses, weight: float) -> BeamHypotheses:
+    """Joint CTC/attention n-best rescoring: ``(1 − w)·att + w·ctc``, where
+    ctc is the hypothesis' CTC log-likelihood (y + EOS, as the hybrid head
+    was trained) under the frame logits f[B, T, V] of the CTC head; the
+    n-best list is sorted again (stable). The log-probs of the label
+    columns are gathered per hypothesis, so the [B·K, T, V] distribution is
+    never repeated K times."""
+    b, k, u = hyp.tokens.shape
+    t = logits.shape[1]
+    dev = logits.device
+    # labels: BOS stripped, EOS kept; hyp.lengths counts BOS + y = len(y + EOS)
+    labels = hyp.tokens[:, :, 1:]
+    label_lens = hyp.lengths.reshape(b * k)
+    pos = torch.arange(u - 1, device=dev)
+    labels = torch.where(pos < hyp.lengths[:, :, None], labels, 0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    emit, blank = gather_label_logprobs(logp, labels.reshape(b, k * (u - 1)), BLK)
+    emit = emit.reshape(b, t, k, u - 1).permute(0, 2, 1, 3).reshape(b * k, t, u - 1)
+    blank = blank.repeat_interleave(k, dim=0)
+    frame_pad = (torch.arange(t, device=dev)[None, :]
+                 >= mask_to_length(memory_mask).repeat_interleave(k)[:, None])
+    label_pad = pos[None, :] >= label_lens[:, None]
+    neg_logp = ctc_nll_from_logprobs(emit, blank, frame_pad, labels.reshape(b * k, u - 1),
+                                     label_pad)
+    # the JAX package's guard; the recursion's values are always finite
+    ctc_scores = torch.where(torch.isfinite(neg_logp), -neg_logp,
+                             torch.full_like(neg_logp, -1e9)).reshape(b, k)
+    scores, order = torch.sort((1.0 - weight) * hyp.scores + weight * ctc_scores, dim=1,
+                               descending=True, stable=True)
+    return BeamHypotheses(
+        tokens=torch.gather(hyp.tokens, 1, order[:, :, None].expand_as(hyp.tokens)),
+        scores=scores, lengths=torch.gather(hyp.lengths, 1, order))
+
+
+@torch.inference_mode()
+def ctc_rescore(model, feats, feat_mask, hyp: BeamHypotheses, weight: float = 0.3):
+    """CTC rescoring of ``hyp`` on its own (encodes again; the recognizer
+    rescores with the memory it searched)."""
+    memory, memory_mask = model.encode(feats, feat_mask)
+    return ctc_rescore_scores(model.ctc_logits(memory), memory_mask, hyp, weight)
 
 
 @torch.inference_mode()
@@ -143,3 +252,25 @@ def lm_rescore(lm, hyp: BeamHypotheses, weight: float = 0.1) -> BeamHypotheses:
     return BeamHypotheses(
         tokens=torch.gather(hyp.tokens, 1, order[:, :, None].expand_as(hyp.tokens)),
         scores=scores, lengths=torch.gather(hyp.lengths, 1, order))
+
+
+def build_recognizer(model_type: str, model, lm=None, args: Any = None, idx2unit=None):
+    """The recognizer of a model type, configured from ``args`` (a dict or
+    an argparse namespace with the eval CLI's names)."""
+    args = args or {}
+    get = args.get if hasattr(args, "get") else lambda key, d=None: getattr(args, key, d)
+    if model_type == "speech2text":
+        return SpeechToTextRecognizer(
+            model, lm=lm, beam_width=get("beam_width", 5), max_len=get("max_len", 100),
+            penalty=get("penalty", 0.6), lamda=get("lamda", 5.0),
+            lm_weight=get("lm_weight", 0.1), ctc_weight=get("ctc_weight", 0.0),
+            idx2unit=idx2unit)
+    if model_type == "ctc":
+        return CTCRecognizer(
+            model, idx2unit=idx2unit, beam_width=get("ctc_beam_width", get("beam_width", 1)),
+            nbest=get("nbest", 1), lm_path=get("ngram_lm", None), alpha=get("alpha", 0.0),
+            beta=get("beta", 0.0), prune_k=get("prune_k", 32) or 32)
+    if model_type == "transducer":
+        raise NotImplementedError("the transducer recognizer is not ported to "
+                                  "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1)")
+    raise KeyError(f"unknown model type for recognition: {model_type!r}")

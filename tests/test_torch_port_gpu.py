@@ -313,3 +313,77 @@ def test_training_micro_batch_runs_through_fbank_kernel(cuda):
     rec = trainer.update()
     assert fk.spec_mel.launches == before + 1
     assert torch.isfinite(loss) and rec["applied"] and np.isfinite(rec["gnorm"])
+
+
+CTC_CFG = {
+    "type": "ctc", "vocab_size": 300, "lookahead_steps": 2,
+    "frontend": {"input_size": 20, "output_size": 32, "mid_channel": 4, "out_channel": 8},
+    "encoder": {"d_model": 32, "n_heads": 4, "d_ff": 48, "n_blocks": 2, "activation": "glu"}}
+
+
+@pytest.mark.gpu
+def test_ctc_model_runs_through_kernel(cuda):
+    """A small random CTC model (look-ahead conv) on the card and the same
+    weights on the CPU: greedy ids and the prefix beam's candidates come
+    from one kernel launch each and agree with the CPU's plain version
+    (ids on untied slots, values and the blank's log-prob within 1e-4)."""
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    torch.manual_seed(0)
+    model = build_model(CTC_CFG, device=cuda)
+    cpu = build_model(CTC_CFG, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    feats = torch.randn(3, 120, 20)
+    mask = torch.arange(120)[None] < torch.tensor([120, 90, 61])[:, None]
+    with torch.inference_mode():
+        port.project_logp_topk.launches = 0
+        ids, _ = model.recognize_argmax(feats.to(cuda), mask.to(cuda))
+        vals, top, blank, _ = model.recognize_topk(feats.to(cuda), mask.to(cuda), 32)
+        assert port.project_logp_topk.launches == 2
+        lp, _ = cpu.recognize_logits(feats, mask)
+        ref_vals, ref_top, ref_blank, _ = cpu.recognize_topk(feats, mask, 32)
+    b, t, v = lp.shape
+    flat_lp = lp.reshape(b * t, v)
+    wide = torch.sort(flat_lp, dim=-1, descending=True, stable=True)[0][:, :33]
+    scale = float(flat_lp.abs().max())
+    assert_ids_match(top.reshape(b * t, 32).cpu(), ref_top.reshape(b * t, 32), wide, 32, scale,
+                     vals.reshape(b * t, 32).cpu(), flat_lp)
+    assert_ids_match(ids.reshape(b * t, 1).cpu(), ref_top.reshape(b * t, 32)[:, :1],
+                     wide[:, :2], 1, scale, vals.reshape(b * t, 32)[:, :1].cpu(), flat_lp)
+    torch.testing.assert_close(blank.cpu(), ref_blank, rtol=0, atol=1e-4)
+    torch.testing.assert_close(vals.cpu(), ref_vals, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ctc_loss_and_rescoring_on_card_match_cpu(cuda):
+    """The CTC recursion (loss, gradient, joint rescoring) on the card
+    equals the CPU's to 1e-5 relative (the same float32 operations; the
+    loss's rows are feasible, the rescored list holds an infeasible
+    hypothesis, whose score is optax's finite ~1e5)."""
+    from opentransformer_tpu_torch.ops.loss import ctc_loss
+    from opentransformer_tpu_torch.recognize.base import ctc_rescore_scores
+    from opentransformer_tpu_torch.recognize.beam import BeamHypotheses
+
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy((2 * rng.normal(size=(4, 30, 50))).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(1, 50, size=(4, 8)))
+    args = (torch.tensor([30, 24, 17, 5]), labels, torch.tensor([8, 5, 3, 2]))
+    grads = []
+    for dev in ("cpu", cuda):
+        x = logits.to(dev, copy=True).requires_grad_()
+        loss = ctc_loss(x, *(a.to(dev) for a in args))
+        loss.backward()
+        grads.append((loss.item(), x.grad.cpu()))
+    assert abs(grads[1][0] - grads[0][0]) <= 1e-5 * abs(grads[0][0])
+    torch.testing.assert_close(grads[1][1], grads[0][1], rtol=0,
+                               atol=1e-5 * float(grads[0][1].abs().max()))
+    tokens = torch.ones(4, 3, 10, dtype=torch.long)
+    tokens[:, :, 1:7] = torch.from_numpy(rng.integers(2, 50, size=(4, 3, 6)))
+    hyp = BeamHypotheses(tokens, torch.tensor([[-1.0, -2.0, -3.0]] * 4),
+                         torch.tensor([[7, 5, 3]] * 4))
+    mask = torch.arange(30)[None] < args[0][:, None]
+    out = [ctc_rescore_scores(logits.to(dev), mask.to(dev),
+                              BeamHypotheses(*(h.to(dev) for h in hyp)), 0.3)
+           for dev in ("cpu", cuda)]
+    assert torch.equal(out[1].tokens.cpu(), out[0].tokens)
+    torch.testing.assert_close(out[1].scores.cpu(), out[0].scores, rtol=1e-5, atol=0)

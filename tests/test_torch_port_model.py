@@ -230,7 +230,7 @@ def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model({"type": "ctc"}, device="cpu")
+        build_model({"type": "transducer"}, device="cpu")
 
 
 def test_entry_points_default_to_the_card():
