@@ -12,12 +12,12 @@ each of which raises on failure:
      register, shared-memory and spill lines; the top-k kernels must not
      spill;
   1. hold the ``project_logp_topk`` kernel against its plain PyTorch
-     version on the card at the decode shapes, the tile edges (N=65,
-     N=2561, D=40, D=56, V=131, rows not on 16 bytes) and ties, and time the
-     kernel, the plain version and the unfused three-call composition, with
-     the achieved rate and the share of the bound, at the beam step's shapes
-     and at the anchor's CTC shapes (N = 100 utterances x 239 frames, k=1
-     and k=32 with lse);
+     version on the card at the decode shapes (the conformer's D=384
+     among them), the tile edges (N=65, N=2561, D=40, D=56, V=131, rows not
+     on 16 bytes) and ties, and time the kernel, the plain version and the
+     unfused three-call composition, with the achieved rate and the share of
+     the bound, at the beam step's shapes and at the anchor's CTC shapes
+     (N = 100 utterances x 239 frames, k=1 and k=32 with lse);
   1b. the same for the two-head ``project2_logp_topk`` kernel of LM shallow
      fusion: flagship, LSTM-LM and anchor widths, the tile edges (D2=1024
      among them), lm weights 0.1, 0 and -0.3, ties;
@@ -66,7 +66,18 @@ each of which raises on failure:
      speech2text anchor at beam 5 with joint CTC/attention rescoring at
      ``-ctcw 0.3`` (CER at most 0.75%, n-best scores sorted); (d) the hybrid
      loss of one anchor batch with seeded targets on the card against the
-     CPU, CTC and attention parts each to 1e-4 relative.
+     CPU, CTC and attention parts each to 1e-4 relative;
+  9. the conformer configs (``conf/conformer_baseline.json`` and
+     ``conformer_streaming.json``, encoded offline) at full width with
+     seeded weights: (a) in float32 against the JAX package's CPU numbers
+     of the same weights and 16 seeded utterances,
+     ``conformer_seeded.jax.json`` (``tools/torch_port_conformer_parity.py``):
+     the encoder memory projected on a seeded unit vector, teacher-forced
+     log-probs, beam-5 1-best ids over 24 forced steps (limits below), one
+     kernel-1 launch a step; (b) fused and unfused decodes agree on a small
+     input; (c) the worst case of phase 3 at 80 mel in bf16, and the encode
+     alone; (d) ``conformer_baseline`` trained through the CLI on phase 7's
+     corpus, with phase 7's checks.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -130,7 +141,8 @@ FBANK_CASES = [("B=4 N=16000 M=40", 4, 16000, 40, None),
                ("B=8 N=160000 M=40", 8, 160000, 40, None),
                ("B=3 N=32000 M=40 with a silent row", 3, 32000, 40, 2)]
 FBANK_TIMED = (16, 160000, 40)  # the training batch: 16 utterances of 10 s
-TRAIN_CONF = os.path.join(REPO, "opentransformer_tpu_torch", "conf", "transformer_baseline.json")
+CONF_DIR = os.path.join(REPO, "opentransformer_tpu_torch", "conf")
+TRAIN_CONF = os.path.join(CONF_DIR, "transformer_baseline.json")
 TRAIN_CORPUS = dict(train=64, dev=16, min_s=2.0, max_s=10.0, min_units=8, max_units=28)
 OVERFIT = dict(d_model=64, enc_blocks=2, dec_blocks=1, d_ff=256, utts=8, updates=40, lr=1e-3)
 FLAGSHIP_CFG = {
@@ -150,6 +162,20 @@ LSTM_LM_CFG = {"type": "rnn_lm", "vocab_size": 4233, "num_layers": 2, "hidden_si
 # anchor-sized LM for the CLI phase: the flagship LM's widths, depth cut to 2
 ANCHOR_LM_CFG = dict(FLAGSHIP_LM_CFG, num_blocks=2)
 WORST_CASE = dict(batch=512, frames=500, max_len=24, beam=5)
+# phase 9: the committed conformer configs, held on the card to the JAX
+# package's CPU run of the same seeded weights and inputs
+# (tools/torch_port_conformer_parity.py --write): the encoder memory
+# projected on a seeded unit vector within CONFORMER_MEMORY_ATOL,
+# teacher-forced log-probs within CONFORMER_LOGP_ATOL, and at most
+# CONFORMER_ID_LIMIT of the 16 utterances' beam-5 1-best ids over 24 forced
+# steps differing
+CONFORMERS = ("conformer_baseline", "conformer_streaming")
+CONFORMER_FIXTURE = os.path.join(REPO, "egs", "synth_bench", "trained", "conformer_seeded.jax.json")
+CONFORMER_INPUTS = dict(weights_seed=0, inputs_seed=5, probe_seed=9, utts=16, frames=500,
+                        min_frames=300, min_units=8, max_units=24, mel=80, steps=24, beam=5)
+CONFORMER_MEMORY_ATOL = 2e-4
+CONFORMER_LOGP_ATOL = 3e-3
+CONFORMER_ID_LIMIT = 2
 
 
 def log(msg: str) -> None:
@@ -363,6 +389,8 @@ def phase_kernel():
     cases = [
         ("flagship beam step N=2560 D=256 V=4233 k=5 bf16", 2560, 256, 4233, 5, torch.bfloat16),
         ("flagship beam step N=2560 D=256 V=4233 k=5 f32", 2560, 256, 4233, 5, torch.float32),
+        ("conformer beam step N=2560 D=384 V=4233 k=5 bf16", 2560, 384, 4233, 5, torch.bfloat16),
+        ("conformer beam step N=2560 D=384 V=4233 k=5 f32", 2560, 384, 4233, 5, torch.float32),
         ("anchor beam step N=500 D=128 V=4233 k=5 f32", 500, 128, 4233, 5, torch.float32),
         ("greedy k=1 N=512 D=256 V=4233 bf16", 512, 256, 4233, 1, torch.bfloat16),
         ("CTC sparse beam k=32+lse N=4096 D=256 V=4233 f32", 4096, 256, 4233, 32, torch.float32),
@@ -398,6 +426,8 @@ def phase_kernel():
     timings = {}
     for label, n, d, k, dtype in (("flagship bf16", 2560, 256, 5, torch.bfloat16),
                                   ("flagship f32", 2560, 256, 5, torch.float32),
+                                  ("conformer bf16", 2560, 384, 5, torch.bfloat16),
+                                  ("conformer f32", 2560, 384, 5, torch.float32),
                                   ("anchor f32", 500, 128, 5, torch.float32)):
         h, w, b = _inputs(n, d, 4233, dtype, seed=99)
         kern = cuda_ms(lambda: project_logp_topk(h, w, b, k))
@@ -630,7 +660,8 @@ def phase_anchor(workdir: str):
 # ---------------------------------------------------------------- phase 3
 def seeded_params(model, seed: int, embedding_std: float = 1.0) -> dict:
     """Seeded random weights for ``model`` in the JAX package's layout
-    (numpy generator; shapes taken from the model's own parameters)."""
+    (numpy generator; shapes taken from the model's own parameters, and
+    BatchNorm running variances of one)."""
     from opentransformer_tpu_torch import compat
 
     rng = np.random.default_rng(seed)
@@ -640,7 +671,7 @@ def seeded_params(model, seed: int, embedding_std: float = 1.0) -> dict:
         for key, val in tree.items():
             if isinstance(val, dict):
                 out[key] = fill(val)
-            elif key == "scale":
+            elif key in ("scale", "var"):
                 out[key] = np.ones_like(val)
             elif key == "embedding":
                 out[key] = (embedding_std * rng.normal(size=val.shape)).astype(np.float32)
@@ -663,12 +694,12 @@ def seeded_model(cfg: dict, dtype, seed: int):
     return compat.load_into(model, seeded_params(model, seed))
 
 
-def small_input_check(tag: str, model32, lm=None):
+def small_input_check(tag: str, model32, lm=None, feat_dim: int = 40):
     """Fused and unfused decodes of a small float32 input give the same ids."""
     from opentransformer_tpu_torch.recognize.base import make_memory_search
 
     g = torch.Generator().manual_seed(1)
-    x = torch.randn(2, 200, 40, generator=g).cuda()
+    x = torch.randn(2, 200, feat_dim, generator=g).cuda()
     m = torch.ones(2, 200, dtype=torch.bool, device="cuda")
     with torch.inference_mode():
         mem, mm = model32.encode(x, m)
@@ -680,21 +711,22 @@ def small_input_check(tag: str, model32, lm=None):
     log(f"{tag} small input: fused-kernel decode == unfused decode ok")
 
 
-def worst_case_run(model, lm=None):
+def worst_case_run(model, lm=None, feat_dim: int = 40, encode_only: bool = False):
     """The flagship worst case as a closure: encode + beam search, bf16
-    model, beam 5, B=512 x 500 seeded random frames, 24 forced steps."""
+    model, beam 5, B=512 x 500 seeded random frames, 24 forced steps (or
+    the encode alone)."""
     from opentransformer_tpu_torch.recognize.base import make_memory_search
 
     batch, frames, max_len, beam = (WORST_CASE[k] for k in ("batch", "frames", "max_len", "beam"))
     search = make_memory_search(model, beam, max_len, lm=lm, eos_id=-1)
     g = torch.Generator().manual_seed(2)
-    feats = torch.randn(batch, frames, 40, generator=g).cuda()
+    feats = torch.randn(batch, frames, feat_dim, generator=g).cuda()
     mask = torch.ones(batch, frames, dtype=torch.bool, device="cuda")
 
     def run():
         with torch.inference_mode():
             memory, memory_mask = model.encode(feats, mask)
-            return search(memory, memory_mask)
+            return memory if encode_only else search(memory, memory_mask)
 
     return run
 
@@ -707,14 +739,14 @@ def host_seconds(run) -> float:
     return time.time() - t0
 
 
-def worst_case_decode(tag: str, model, lm=None):
+def worst_case_decode(tag: str, model, lm=None, feat_dim: int = 40):
     """One warm-up of the flagship worst case, one counted run (launch
     counts, peak memory, output checks), then the median of three timed
-    runs. Returns (one-head launches, two-head launches)."""
+    runs. Returns (one-head launches, two-head launches, median seconds)."""
     from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
 
     batch, frames, max_len, beam = (WORST_CASE[k] for k in ("batch", "frames", "max_len", "beam"))
-    run = worst_case_run(model, lm)
+    run = worst_case_run(model, lm, feat_dim)
     run()  # warm-up: cuBLAS/cuDNN plans, kernel library load
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -736,13 +768,13 @@ def worst_case_decode(tag: str, model, lm=None):
     if not (shape_ok and finite and full):
         raise AssertionError(f"{tag}: decode output wrong: shape {tuple(hyp.tokens.shape)}, "
                              f"finite {finite}, all full-length {full}")
-    return one, two
+    return one, two, secs
 
 
 def phase_flagship():
     small_input_check("phase3 flagship f32", seeded_model(FLAGSHIP_CFG, torch.float32, seed=0))
-    one, two = worst_case_decode("phase3 flagship",
-                                 seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0))
+    one, two, _ = worst_case_decode("phase3 flagship",
+                                    seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0))
     max_len = WORST_CASE["max_len"]
     if one != max_len or two != 0:
         raise AssertionError(f"expected one one-head kernel launch per decode step ({max_len}) "
@@ -817,7 +849,7 @@ def phase_flagship_lm():
     del model32
     model = seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0)
     lm = seeded_model(FLAGSHIP_LM_CFG, torch.bfloat16, seed=1)
-    one, two = worst_case_decode("phase5 flagship + transformer LM shallow fusion", model, lm)
+    one, two, _ = worst_case_decode("phase5 flagship + transformer LM shallow fusion", model, lm)
     max_len = WORST_CASE["max_len"]
     if two != max_len or one != 0:
         raise AssertionError(f"expected one two-head kernel launch per decode step ({max_len}) "
@@ -1000,9 +1032,10 @@ def write_train_corpus(root: str, seed: int = 7) -> dict:
     return paths
 
 
-def train_config(paths: dict, epochs: int = 2, model_cfg=None) -> dict:
-    """The committed baseline config pointed at the seeded corpus."""
-    with open(TRAIN_CONF) as f:
+def train_config(paths: dict, epochs: int = 2, model_cfg=None, conf: str = TRAIN_CONF) -> dict:
+    """A committed training config (the baseline by default) pointed at the
+    seeded corpus."""
+    with open(conf) as f:
         cfg = json.load(f)
     cfg["data"]["vocab"] = paths["vocab"]
     for split in ("train", "dev"):
@@ -1032,11 +1065,15 @@ def reset_launch_counts():
     spec_mel.launches = project_logp_topk.launches = project2_logp_topk.launches = 0
 
 
-def phase_train(workdir: str, device: str = "cuda", model_cfg=None):
-    """Train through the CLI, then the checks of the module docstring.
-    ``device="cpu"`` with a cut ``model_cfg`` rehearses the phase on the CPU
-    (where the fbank count stays 0); the card run uses the baseline as
-    committed."""
+def cli_train(tag: str, workdir: str, paths: dict, device: str = "cuda", model_cfg=None,
+              conf: str = TRAIN_CONF):
+    """Train ``conf`` (cut to ``model_cfg`` if given) on the seeded corpus
+    through the training CLI for 2 epochs, then check the run: one fbank
+    launch per training micro-batch (none on the CPU), no top-k launch,
+    finite losses, no NaN skip, both checkpoints, and the newest one
+    reloaded into a fresh model decoding a dev batch to the same ids; last,
+    the steady-state seconds per update. Returns (trainer, config, fbank
+    launches)."""
     from opentransformer_tpu_torch import compat
     from opentransformer_tpu_torch.cli import run as run_cli
     from opentransformer_tpu_torch.data.loader import FeatureLoader
@@ -1045,24 +1082,22 @@ def phase_train(workdir: str, device: str = "cuda", model_cfg=None):
     from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
     from opentransformer_tpu_torch.recognize.base import make_memory_search
     from opentransformer_tpu_torch.train.checkpoint import Checkpointer
-    from opentransformer_tpu_torch.train.trainer import Trainer, feature_args
+    from opentransformer_tpu_torch.train.trainer import feature_args
 
     cuda = device == "cuda"
-    t0 = time.time()
-    paths = write_train_corpus(os.path.join(workdir, "corpus"))
-    cfg = train_config(paths, model_cfg=model_cfg)
-    conf = os.path.join(workdir, "train.json")
-    with open(conf, "w") as f:
+    cfg = train_config(paths, model_cfg=model_cfg, conf=conf)
+    name = os.path.splitext(os.path.basename(conf))[0]
+    conf_path = os.path.join(workdir, f"train_{name}.json")
+    with open(conf_path, "w") as f:
         json.dump(cfg, f)
-    expdir = os.path.join(workdir, "exp")
-    log(f"phase7 wrote the corpus and {conf} in {time.time() - t0:.1f} s")
+    expdir = os.path.join(workdir, f"exp_{name}")
 
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.time()
-    trainer = run_cli.run(["-c", conf, "--expdir", expdir, "--log_interval", "1", "-s", "7",
+    trainer = run_cli.run(["-c", conf_path, "--expdir", expdir, "--log_interval", "1", "-s", "7",
                            *([] if cuda else ["--device", device])])
     if cuda:
         torch.cuda.synchronize()
@@ -1076,7 +1111,9 @@ def phase_train(workdir: str, device: str = "cuda", model_cfg=None):
     finite = all(np.isfinite(losses)) and all(np.isfinite(trainer.dev_losses))
     ck = Checkpointer(expdir)
     gaps = [b["time"] - a["time"] for a, b in zip(trainer.history, trainer.history[1:])]
-    log(f"phase7 trained {cfg['train']['epochs']} epochs in {wall:.1f} s: {len(losses)} "
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"{tag} trained {name} ({n_params} parameters) {cfg['train']['epochs']} epochs in "
+        f"{wall:.1f} s: {len(losses)} "
         f"micro-batches, {len(trainer.history)} updates (lr {[r['lr'] for r in trainer.history]}, "
         f"grad norms {[round(r['gnorm'], 3) for r in trainer.history]}), losses "
         f"{[round(x, 4) for x in losses]}, dev losses {[round(x, 4) for x in trainer.dev_losses]}, "
@@ -1088,7 +1125,7 @@ def phase_train(workdir: str, device: str = "cuda", model_cfg=None):
     if not (launches == (micro if cuda else 0) and micro == len(losses) and topk_launches == 0
             and finite and trainer.nan_skips == 0 and ck.list_epochs() == [0, 1]
             and len(trainer.history) == updates):
-        raise AssertionError("phase7: the training run is not what was asked for (see above)")
+        raise AssertionError(f"{tag}: the training run is not what was asked for (see above)")
 
     # the newest checkpoint, reloaded into a fresh model, decodes one dev
     # batch to the same ids as the trained model
@@ -1096,39 +1133,16 @@ def phase_train(workdir: str, device: str = "cuda", model_cfg=None):
     fresh = compat.load_into(build_model(cfg["model"], device=device),
                              ck.load_params(ck.epoch_path(1)))
     batch = next(iter(FeatureLoader(cfg, "dev", is_eval=True)))
-    feats, mask, targets, tlen = feature_args(batch, device)
+    feats, mask, _, _ = feature_args(batch, device)
     ids = []
     for m in (model, fresh):
         with torch.inference_mode():
             memory, memory_mask = m.encode(feats, mask)
         ids.append(make_memory_search(m, 5, 16)(memory, memory_mask).tokens)
     if not torch.equal(ids[0], ids[1]):
-        raise AssertionError("phase7: the reloaded checkpoint decodes differently")
-    log(f"phase7 model.epoch.1 reloaded into a fresh model: beam-5 decode of a dev batch of "
+        raise AssertionError(f"{tag}: the reloaded checkpoint decodes differently")
+    log(f"{tag} model.epoch.1 reloaded into a fresh model: beam-5 decode of a dev batch of "
         f"{feats.shape[0]} gives identical ids {tuple(ids[0].shape)} ok")
-
-    # one micro-batch with the kernel and with the plain spectrum, called directly
-    train_batch = next(iter(FeatureLoader(cfg, "train", seed=7)))
-    _, inputs, tg = train_batch
-    w = torch.as_tensor(inputs["waveforms"]).to(device)
-    wl = torch.as_tensor(inputs["wave_lengths"]).to(device)
-    frontend = trainer.frontend
-    feats_k, mask_k = frontend.finish(*fk.fbank_batch(w, wl, frontend.num_mel_bins), train=False)
-    feats_p, mask_p = frontend.finish(*plain_fbank(w, wl, frontend.num_mel_bins), train=False)
-    feat_err = valid_max_err(feats_k, feats_p, mask_k.sum(1))
-    targets = torch.as_tensor(tg["targets"]).long().to(device)
-    tlen = torch.as_tensor(tg["targets_length"]).long().to(device)
-    with torch.no_grad():
-        loss_k = model(feats_k, mask_k, targets, tlen)[0].item()
-        loss_p = model(feats_p, mask_p, targets, tlen)[0].item()
-    rel = abs(loss_k - loss_p) / abs(loss_p)
-    ok = torch.equal(mask_k, mask_p) and feat_err <= FBANK_ATOL and rel <= 1e-4
-    log(f"phase7 one micro-batch ({w.shape[0]} x {w.shape[1]} samples) through the kernel and "
-        f"through the plain spectrum: max|dfeats| {feat_err:.3e} (atol {FBANK_ATOL:.0e}), "
-        f"loss {loss_k:.6f} vs {loss_p:.6f}, relative {rel:.2e} (limit 1e-4) "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("phase7: kernel and plain spectrum disagree on a training batch")
 
     # steady-state seconds per update: full windows of this epoch's batches
     model.train()
@@ -1142,10 +1156,52 @@ def phase_train(workdir: str, device: str = "cuda", model_cfg=None):
         if cuda:
             torch.cuda.synchronize()
         secs.append(time.time() - start)
-    log(f"phase7 seconds per update ({len(window)} micro-batches of "
+    log(f"{tag} seconds per update ({len(window)} micro-batches of "
         f"{cfg['data']['batch_size']} each, host clock, after the first): "
         f"{[round(x, 3) for x in secs[1:]]}, median {sorted(secs[1:])[1]:.3f} s "
         f"(first {secs[0]:.3f} s) [{card_line() if cuda else device}]")
+    return trainer, cfg, launches
+
+
+def phase_train(workdir: str, device: str = "cuda", model_cfg=None):
+    """Train through the CLI, then the checks of the module docstring.
+    ``device="cpu"`` with a cut ``model_cfg`` rehearses the phase on the CPU
+    (where the fbank count stays 0); the card run uses the baseline as
+    committed. Returns (fbank launches, the corpus's paths)."""
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+    from opentransformer_tpu_torch.train.trainer import Trainer
+
+    t0 = time.time()
+    paths = write_train_corpus(os.path.join(workdir, "corpus"))
+    log(f"phase7 wrote the corpus in {time.time() - t0:.1f} s")
+    trainer, cfg, launches = cli_train("phase7", workdir, paths, device, model_cfg)
+    model = trainer.model
+
+    # one micro-batch with the kernel and with the plain spectrum, called directly
+    train_batch = next(iter(FeatureLoader(cfg, "train", seed=7)))
+    _, inputs, tg = train_batch
+    w = torch.as_tensor(inputs["waveforms"]).to(device)
+    wl = torch.as_tensor(inputs["wave_lengths"]).to(device)
+    frontend = trainer.frontend
+    feats_k, mask_k = frontend.finish(*fk.fbank_batch(w, wl, frontend.num_mel_bins), train=False)
+    feats_p, mask_p = frontend.finish(*plain_fbank(w, wl, frontend.num_mel_bins), train=False)
+    feat_err = valid_max_err(feats_k, feats_p, mask_k.sum(1))
+    targets = torch.as_tensor(tg["targets"]).long().to(device)
+    tlen = torch.as_tensor(tg["targets_length"]).long().to(device)
+    model.eval()
+    with torch.no_grad():
+        loss_k = model(feats_k, mask_k, targets, tlen)[0].item()
+        loss_p = model(feats_p, mask_p, targets, tlen)[0].item()
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = torch.equal(mask_k, mask_p) and feat_err <= FBANK_ATOL and rel <= 1e-4
+    log(f"phase7 one micro-batch ({w.shape[0]} x {w.shape[1]} samples) through the kernel and "
+        f"through the plain spectrum: max|dfeats| {feat_err:.3e} (atol {FBANK_ATOL:.0e}), "
+        f"loss {loss_k:.6f} vs {loss_p:.6f}, relative {rel:.2e} (limit 1e-4) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase7: kernel and plain spectrum disagree on a training batch")
 
     # overfit: width 64, 2 + 1 blocks, constant lr, one batch of 8 utterances
     o = OVERFIT
@@ -1167,7 +1223,7 @@ def phase_train(workdir: str, device: str = "cuda", model_cfg=None):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("phase7: the width-64 model did not halve its loss in 40 updates")
-    return launches
+    return launches, paths
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1271,6 +1327,194 @@ def phase_anchor_ctc(workdir: str, data: str, device: str = "cuda"):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+def conformer_model_cfg(name: str) -> dict:
+    """The ``model`` section of a committed conformer config."""
+    with open(os.path.join(CONF_DIR, f"{name}.json"), encoding="utf-8") as f:
+        return json.load(f)["model"]
+
+
+def conformer_inputs(seed: int, utts: int, frames: int, min_frames: int, min_units: int,
+                     max_units: int, mel: int, vocab: int = 4233):
+    """Seeded features f32[utts, frames, mel] (the first utterance full
+    length, the others ``min_frames``-``frames`` long, zero past their
+    end), their masks, and targets BOS ⧺ ``min_units``-``max_units`` units
+    ⧺ EOS ⧺ PAD… as numpy arrays."""
+    from opentransformer_tpu_torch.data import BOS, EOS
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(min_frames, frames + 1, size=utts)
+    lens[0] = frames
+    mask = np.arange(frames)[None] < lens[:, None]
+    feats = rng.normal(size=(utts, frames, mel)).astype(np.float32) * mask[..., None]
+    units = rng.integers(min_units, max_units + 1, size=utts)
+    targets = np.zeros((utts, int(units.max()) + 2), np.int64)
+    targets[:, 0] = BOS
+    for i, u in enumerate(units):
+        targets[i, 1 : 1 + u] = rng.integers(3, vocab, size=u)
+        targets[i, 1 + u] = EOS
+    return feats, mask, targets
+
+
+def checksum(arrays) -> float:
+    """Sum of |x| over numpy arrays (or a nested dict of them), in float64:
+    tells a changed random stream from a disagreeing model."""
+    from opentransformer_tpu_torch import compat
+
+    if hasattr(arrays, "items"):
+        arrays = [leaf for _, leaf in compat._flatten(arrays)]
+    return float(sum(np.abs(np.asarray(a, np.float64)).sum() for a in arrays))
+
+
+def memory_probe(d_model: int, seed: int) -> np.ndarray:
+    """A seeded unit vector f32[d_model] that the encoder memory is
+    projected onto: one number a frame that moves with any of its channels."""
+    u = np.random.default_rng(seed).normal(size=d_model)
+    return (u / np.linalg.norm(u)).astype(np.float32)
+
+
+def conformer_outputs(model, feats, mask, targets, steps: int, beam: int, probe_seed: int):
+    """On the model's device: the encoder memory projected onto
+    ``memory_probe`` (f32[B, T']) with its mask, the teacher-forced
+    log-probs of ``targets`` (f32[B, U+1]; ``targets[:, :-1]`` in,
+    ``targets[:, 1:]`` scored) and the beam-``beam`` 1-best ids over
+    ``steps`` forced steps (EOS disabled, int[B, steps]), as numpy."""
+    from opentransformer_tpu_torch.recognize.base import make_memory_search
+
+    dev = next(model.parameters()).device
+    x, m, tg = (torch.from_numpy(a).to(dev) for a in (feats, mask, targets))
+    with torch.inference_mode():
+        memory, memory_mask = model.encode(x, m)
+        probe = torch.from_numpy(memory_probe(memory.shape[-1], probe_seed)).to(dev)
+        proj = memory.float() @ probe
+        logits = model.decode_full(tg[:, :-1], memory, memory_mask)
+        logp = torch.log_softmax(logits.float(), dim=-1).gather(-1, tg[:, 1:, None])[..., 0]
+    hyp = make_memory_search(model, beam, steps, eos_id=-1)(memory, memory_mask)
+    return {"memory": proj.cpu().numpy(), "memory_mask": memory_mask.cpu().numpy(),
+            "logp": logp.cpu().numpy(), "ids": hyp.tokens[:, 0, 1:].cpu().numpy()}
+
+
+def conformer_parity(out: dict, want: dict, rows: int | None = None) -> dict:
+    """Against a fixture entry, over its first ``rows`` utterances (or all):
+    the largest |Δ| of the memory projection over each utterance's frames
+    (``memory``), of the log-probs over its target positions (``logp``),
+    and the utterances whose 1-best ids differ (``ids_differ``), or whose
+    encoder frame count does (``frames_differ``)."""
+    got = {"memory": 0.0, "logp": 0.0, "ids_differ": 0, "frames_differ": 0}
+    n = len(want["ids"]) if rows is None else rows
+    for i in range(n):
+        frames = int(out["memory_mask"][i].sum())
+        mem = np.asarray(want["memory"][i], np.float32)
+        got["frames_differ"] += int(frames != len(mem))
+        got["memory"] = max(got["memory"], float(np.abs(out["memory"][i, : len(mem)] - mem).max()))
+        lp = np.asarray(want["logp"][i], np.float32)
+        got["logp"] = max(got["logp"], float(np.abs(out["logp"][i, : len(lp)] - lp).max()))
+        got["ids_differ"] += int(out["ids"][i].tolist() != want["ids"][i])
+    return got
+
+
+def conformer_parity_ok(got: dict) -> bool:
+    return (got["memory"] <= CONFORMER_MEMORY_ATOL and got["logp"] <= CONFORMER_LOGP_ATOL
+            and got["ids_differ"] <= CONFORMER_ID_LIMIT and got["frames_differ"] == 0)
+
+
+def load_conformer_fixture() -> dict:
+    with open(CONFORMER_FIXTURE, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def seeded_conformer(name: str, fixture: dict, device="cuda"):
+    """The committed ``name`` config in float32 on ``device`` with the
+    fixture's seeded weights; raises if the config or the weights' checksum
+    differs from the fixture's."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    cfg = conformer_model_cfg(name)
+    if cfg != fixture["configs"][name]:
+        raise AssertionError(f"{name}: the committed config is not the fixture's")
+    model = build_model(cfg, dtype=torch.float32, device=device)
+    params = seeded_params(model, fixture["inputs"]["weights_seed"])
+    got, want = checksum(params), fixture["checksums"]["weights"]
+    if abs(got - want) > 1e-9 * want:
+        raise AssertionError(f"{name}: the seeded weights' checksum {got!r} is not the "
+                             f"fixture's {want!r} (numpy's random stream changed?)")
+    return compat.load_into(model, params)
+
+
+def fixture_inputs(fixture: dict):
+    """The fixture's seeded features, masks and targets, checksum-checked."""
+    c = fixture["inputs"]
+    feats, mask, targets = conformer_inputs(
+        c["inputs_seed"], c["utts"], c["frames"], c["min_frames"], c["min_units"],
+        c["max_units"], c["mel"])
+    got, want = checksum([feats]), fixture["checksums"]["feats"]
+    if abs(got - want) > 1e-9 * want or checksum([targets]) != fixture["checksums"]["targets"]:
+        raise AssertionError("the seeded inputs are not the fixture's (numpy's random stream "
+                             "changed?)")
+    return feats, mask, targets
+
+
+def phase_conformer():
+    """Phases 9a-9c (module docstring). Returns {path: kernel 1 launches}."""
+    from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
+
+    fixture = load_conformer_fixture()
+    c = fixture["inputs"]
+    feats, mask, targets = fixture_inputs(fixture)
+    launches = {}
+    for name in CONFORMERS:
+        model = seeded_conformer(name, fixture)
+        project_logp_topk.launches = project2_logp_topk.launches = 0
+        t0 = time.time()
+        out = conformer_outputs(model, feats, mask, targets, c["steps"], c["beam"],
+                                c["probe_seed"])
+        one, two = project_logp_topk.launches, project2_logp_topk.launches
+        got = conformer_parity(out, fixture["results"][name])
+        ok = (conformer_parity_ok(got) and one == c["steps"] and two == 0
+              and bool(np.isfinite(out["logp"]).all() and np.isfinite(out["memory"]).all()))
+        log(f"phase9a {name} f32, seeded weights, {c['utts']} utterances of up to {c['frames']} "
+            f"frames x {c['mel']} mel, against JAX: encoder memory (projected) max|d| "
+            f"{got['memory']:.3e} (atol {CONFORMER_MEMORY_ATOL:.0e}; encoder frame counts differ "
+            f"on {got['frames_differ']}), teacher-forced log-probs max|d| {got['logp']:.3e} (atol "
+            f"{CONFORMER_LOGP_ATOL:.0e}), beam {c['beam']} 1-best ids over {c['steps']} forced "
+            f"steps differ on {got['ids_differ']} <= {CONFORMER_ID_LIMIT} of {c['utts']}, kernel 1 "
+            f"launches {one}, two-head {two}, wall {time.time() - t0:.1f} s "
+            f"{'ok' if ok else 'FAIL'} [{card_line()}]")
+        if not ok:
+            raise AssertionError(f"phase9a {name}: a gate failed (see above)")
+        launches[f"phase9a {name} decode"] = one
+        if name == CONFORMERS[0]:
+            small_input_check(f"phase9b {name} f32", model, feat_dim=c["mel"])
+        del model
+
+    model = seeded_model(conformer_model_cfg(CONFORMERS[0]), torch.bfloat16,
+                         seed=c["weights_seed"])
+    one, two, secs = worst_case_decode(f"phase9c {CONFORMERS[0]}", model, feat_dim=c["mel"])
+    if one != WORST_CASE["max_len"] or two != 0:
+        raise AssertionError(f"phase9c: expected one one-head kernel launch per decode step "
+                             f"({WORST_CASE['max_len']}) and no two-head launch, counted {one} "
+                             f"and {two}")
+    encode = worst_case_run(model, feat_dim=c["mel"], encode_only=True)
+    encode()
+    times = [host_seconds(encode) for _ in range(3)]
+    enc = sorted(times)[1]
+    log(f"phase9c {CONFORMERS[0]} encode alone (bf16, B={WORST_CASE['batch']} x "
+        f"{WORST_CASE['frames']} frames): median {enc:.3f} s of {[round(t, 3) for t in times]}, "
+        f"{100.0 * enc / secs:.1f}% of the decode's median {secs:.3f} s; the search "
+        f"{secs - enc:.3f} s [{card_line()}]")
+    launches[f"phase9c {CONFORMERS[0]} worst case"] = one
+    return launches
+
+
+def phase_conformer_train(workdir: str, paths: dict):
+    """Phase 9d: ``conformer_baseline`` trained through the CLI on phase 7's
+    corpus (``cli_train``). Returns the fbank launches."""
+    _, _, launches = cli_train("phase9d", workdir, paths,
+                               conf=os.path.join(CONF_DIR, "conformer_baseline.json"))
+    return launches
+
+
 def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
     """The kernel's entry of the JSON line: ``launches`` on its first main
     path, ``launches_by_path`` on each path that launches it."""
@@ -1302,12 +1546,14 @@ def main() -> int:
     launches2 = phase_flagship_lm()
     max_err3, timing3 = phase_fbank()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
-        launches3 = phase_train(workdir)
+        launches3, corpus = phase_train(workdir)
+        conformer_train_launches = phase_conformer_train(workdir, corpus)
+    conformer_launches = phase_conformer()
 
     # launches: each kernel's count on its own main paths (phase 3 without an
-    # LM and phase 8's CTC decodes, phase 5 with an LM, phase 7's training
-    # run); times at the flagship bf16 beam-step shape and at the 16 x 10 s
-    # training batch
+    # LM, phase 8's CTC decodes and phase 9's conformer decodes, phase 5 with
+    # an LM, phases 7 and 9d's training runs); times at the flagship bf16
+    # beam-step shape and at the 16 x 10 s training batch
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:96", launches, max_err,
@@ -1315,13 +1561,15 @@ def main() -> int:
                       {"phase3 flagship decode": launches,
                        "phase8a anchor CTC greedy (k=1)": ctc_launches["greedy"],
                        "phase8b anchor CTC prefix beam (k=32 + lse)": ctc_launches["beam"],
-                       "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"]}),
+                       "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"],
+                       **conformer_launches}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
                       timings2["flagship bf16"], {"phase5 flagship decode + LM": launches2}),
         kernel_record("fbank_spec_mel", "opentransformer_tpu_torch/csrc/fbank_spec_mel.cu",
                       "opentransformer_tpu/ops/fbank_pallas.py:60", launches3, max_err3, timing3,
-                      {"phase7 training": launches3}),
+                      {"phase7 training": launches3,
+                       "phase9d conformer_baseline training": conformer_train_launches}),
     ]}
     log(f"chip_smoke ran every phase in {time.time() - t0:.1f} s")
     print(json.dumps(record))

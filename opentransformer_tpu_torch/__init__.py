@@ -14,8 +14,11 @@ loader, the device feature stage, label smoothing, Adam/SGD with the seven
 schedules, per-epoch checkpoints, ``cli/run.py`` on JSON configs), and CTC:
 the loss (optax's recursion), the CTC head with its look-ahead conv, the
 hybrid loss, the ``ctc`` model, greedy and native prefix-beam CTC decoding
-with n-gram fusion, and joint CTC/attention rescoring. CLI training with a
-CTC loss, the Conformer and transducer models, the other datasets,
+with n-gram fusion, and joint CTC/attention rescoring; and the Conformer
+family (rel-pos attention, the conv module, conformer blocks and encoders,
+chunked attention encoded offline, the concat frontend, BatchNorm conv
+modules for inference). CLI training with a CTC loss, BatchNorm training,
+the streamed encode, MoE, the transducer models, the other datasets,
 streaming and serving are still to port (``ROADMAP.md``).
 
 The Pallas kernels of the JAX package become hand-written CUDA kernels

@@ -11,8 +11,12 @@ the port's modules, whose names mirror the flax module paths:
   * Conv ``kernel`` HWIO [kt, kf, in, out] → ``weight`` OIHW, and a 1-d
     Conv ``kernel`` [K, in/groups, out] (the CTC look-ahead conv) →
     ``Conv1d`` ``weight`` [out, in/groups, K];
-  * LayerNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
-  * Embed ``embedding`` → ``weight``; other leaves keep their name.
+  * LayerNorm and BatchNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
+  * Embed ``embedding`` → ``weight``; other leaves (rel-pos ``posu`` /
+    ``posv``) keep their name;
+  * a tree that also holds the ``batch_stats`` collection (a conformer with
+    BatchNorm conv modules) carries it into buffers: ``mean`` / ``var`` →
+    ``running_mean`` / ``running_var``.
 
 ``params_to_jax`` is the inverse (used to make seeded random weights in the
 JAX layout and to write training checkpoints); a round trip through both
@@ -21,7 +25,7 @@ export of ``tools/export_trained_synth.py`` (float16 on disk) with numpy
 alone, and ``save_npz`` writes that format, in float16 or, for training
 checkpoints, float32.
 
-``load_into`` is strict: every parameter present and no extra one.
+``load_into`` is strict: every parameter and buffer present and no extra one.
 ``load_ctc_from_speech2text`` loads a ``ctc`` model from a hybrid
 speech2text tree (the anchor's): it drops the ``decoder`` scope, and
 nothing else.
@@ -33,9 +37,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.modules import Dense
+from .models.modules import BatchNorm, Dense
 
 SEP = "//"
+# the JAX package's batch_stats leaves ↔ the port's buffers
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree, prefix=()):
@@ -46,12 +52,22 @@ def _flatten(tree, prefix=()):
             yield prefix + (str(key),), val
 
 
+def _collections(tree) -> tuple[dict, dict]:
+    """(params, batch_stats) of a variables tree ``{"params"[, "batch_stats"]}``
+    or of a bare params tree."""
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        return tree["params"], tree.get("batch_stats", {})
+    return tree, {}
+
+
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """JAX nested params (optionally under a top-level ``params`` key) →
-    the port's float32 state dict."""
-    if set(tree.keys()) == {"params"}:
-        tree = tree["params"]
+    """JAX nested params (optionally under a top-level ``params`` key, with
+    ``batch_stats`` beside it) → the port's float32 state dict."""
+    tree, stats = _collections(tree)
     out = {}
+    for path, leaf in _flatten(stats):
+        out[".".join(path[:-1] + (_STATS[path[-1]],))] = torch.from_numpy(
+            np.array(leaf, dtype=np.float32))
     for path, leaf in _flatten(tree):
         arr = np.array(leaf, dtype=np.float32)  # a writable copy
         segs = [s for s in path if s != "dense"]
@@ -74,7 +90,8 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
 
 def params_to_jax(model: nn.Module) -> dict:
     """The port's parameters in the JAX package's nested layout (numpy
-    float32, under a top-level ``params`` key)."""
+    float32, under a top-level ``params`` key; BatchNorm running averages
+    under ``batch_stats``)."""
     tree: dict = {}
 
     def put(path, arr):
@@ -97,12 +114,16 @@ def params_to_jax(model: nn.Module) -> dict:
             elif isinstance(mod, nn.Conv1d):
                 put(prefix + ["kernel" if p_name == "weight" else p_name],
                     arr.transpose(2, 1, 0) if p_name == "weight" else arr)
-            elif isinstance(mod, nn.LayerNorm):
+            elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
                 put(prefix + ["scale" if p_name == "weight" else p_name], arr)
             elif isinstance(mod, nn.Embedding):
                 put(prefix + ["embedding"], arr)
             else:
                 put(prefix + [p_name], arr)
+        stat_names = {v: k for k, v in _STATS.items()}
+        for b_name, buf in mod.named_buffers(recurse=False):
+            put(["batch_stats"] + prefix[1:] + [stat_names[b_name]],
+                buf.detach().float().cpu().numpy())
     return tree
 
 
@@ -129,8 +150,9 @@ def save_npz(path: str, tree, dtype=np.float16) -> None:
 
 
 def load_into(model: nn.Module, tree) -> nn.Module:
-    """Load a JAX-layout parameter tree into ``model`` (strict: every
-    parameter must be present and no extra one)."""
+    """Load a JAX-layout parameter tree (``batch_stats`` included) into
+    ``model`` (strict: every parameter and buffer must be present and no
+    extra one)."""
     model.load_state_dict(params_from_jax(tree), strict=True)
     return model
 
@@ -139,9 +161,9 @@ def load_ctc_from_speech2text(model: nn.Module, tree) -> nn.Module:
     """Load a hybrid speech2text tree (frontend, encoder, decoder, ctc) into
     a ``ctc`` model: the ``decoder`` scope is dropped, and every other array
     must match the model's parameters one to one (strict, as ``load_into``)."""
-    if set(tree.keys()) == {"params"}:
-        tree = tree["params"]
-    if "decoder" not in tree:
+    params, stats = _collections(tree)
+    if "decoder" not in params:
         raise KeyError("not a speech2text tree: it has no decoder scope to drop "
-                       f"(scopes {sorted(tree)})")
-    return load_into(model, {k: v for k, v in tree.items() if k != "decoder"})
+                       f"(scopes {sorted(params)})")
+    return load_into(model, {"params": {k: v for k, v in params.items() if k != "decoder"},
+                             "batch_stats": stats})

@@ -2,9 +2,10 @@
 
 A config has the JAX package's three sections, ``data``, ``model`` and
 ``train``, with the same keys, but the port reads it from JSON: the
-machine with the card has no ``pyyaml``. ``conf/transformer_baseline.json``
-is ``egs/aishell/conf/transformer_baseline.yaml`` with
-``data.extract_on_device: true`` added.
+machine with the card has no ``pyyaml``. ``conf/transformer_baseline.json``,
+``conformer_baseline.json`` and ``conformer_streaming.json`` are the
+``egs/aishell/conf/`` YAMLs of those names with ``data.extract_on_device:
+true`` added.
 """
 
 from __future__ import annotations

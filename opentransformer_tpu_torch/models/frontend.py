@@ -1,14 +1,16 @@
-"""Conv frontend (counterpart of ``opentransformer_tpu/models/frontend.py``).
+"""Frontends (counterpart of ``opentransformer_tpu/models/frontend.py``).
 
-Two Conv2d subsampling layers with the reference's geometry — time padding
-0, frequency padding k//2, mask rule ``mask[:, k//2::stride][:, :T']``,
-dropout after each activation in training — then a channel-major flatten
-to [B, T', C·F'] and a projection. The JAX package convolves NHWC (H =
+``ConvFrontEnd``: two Conv2d subsampling layers with the reference's
+geometry — time padding 0, frequency padding k//2, mask rule
+``mask[:, k//2::stride][:, :T']``, dropout after each activation in
+training — then a channel-major flatten to [B, T', C·F'] and a projection. The JAX package convolves NHWC (H =
 time, W = frequency); PyTorch convolves NCHW over the same axes, and
 ``compat`` turns the HWIO kernels into OIHW.
 
 Float32 convolutions run in TF32 under cuDNN by default; the port's entry
 points switch that off for float32 models (``utils.disable_tf32``).
+
+``ConcatFrontEnd``: frame stacking, then an optional projection.
 """
 
 from __future__ import annotations
@@ -67,3 +69,31 @@ class ConvFrontEnd(nn.Module):
         h, mask = self.conv2(h, mask)
         b, c, t, f = h.shape
         return self.output_layer(h.permute(0, 2, 1, 3).reshape(b, t, c * f)), mask
+
+
+class ConcatFrontEnd(nn.Module):
+    """Stack ``left_frames + 1 + right_frames`` frames every
+    ``frame_rate // 10`` frames, as torch's Unfold (only full windows:
+    ``T' = (T − ctx)//stride + 1``); mask ``mask[:, left::stride][:, :T']``;
+    then, with ``with_linear``, a projection and dropout."""
+
+    def __init__(self, input_size: int, output_size: int, left_frames: int = 3,
+                 right_frames: int = 0, frame_rate: int = 30, with_linear: bool = True,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.left_frames = left_frames
+        self.ctx = left_frames + right_frames + 1
+        self.stride = max(frame_rate // 10, 1)
+        self.output_layer = nn.Linear(self.ctx * input_size, output_size) if with_linear else None
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x, mask):
+        """x: [B, T, F]; mask: bool[B, T] → ([B, T', D], bool[B, T'])."""
+        b, _, f = x.shape
+        h = x.unfold(1, self.ctx, self.stride)  # [B, T', F, ctx]
+        t_out = h.shape[1]
+        h = h.transpose(2, 3).reshape(b, t_out, self.ctx * f)
+        mask = mask[:, self.left_frames :: self.stride][:, :t_out]
+        if self.output_layer is not None:
+            h = self.dropout(self.output_layer(h))
+        return h, mask

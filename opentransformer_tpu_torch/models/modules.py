@@ -8,7 +8,8 @@ Numerics kept from the reference:
   * attention scores and softmax are computed in float32 whatever the
     model dtype; the softmax weights are rounded to the model dtype before
     the context product, which accumulates in float32;
-  * masks are an additive ``NEG_INF`` inside the softmax;
+  * masks are an additive ``NEG_INF`` inside the softmax
+    (``ops.masks.apply_attn_mask``);
   * LayerNorm eps is 1e-6 (flax's default; torch's is 1e-5);
   * dropout sits where the JAX package has it and acts only in training
     mode, drawing from the generator the trainer hands out
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.masks import NEG_INF
+from ..ops.masks import apply_attn_mask
 
 LN_EPS = 1e-6
 
@@ -118,9 +119,7 @@ def attention_context(q, k, v, mask):
     """Scaled dot-product attention over [B, H, T, Dh]; ``mask`` is bool,
     broadcastable to [B, H, Tq, Tk], True = may attend."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    if mask is not None:
-        scores = scores.masked_fill(~mask, NEG_INF)
-    weights = torch.softmax(scores, dim=-1).to(q.dtype)
+    weights = torch.softmax(apply_attn_mask(scores, mask), dim=-1).to(q.dtype)
     return torch.matmul(weights.float(), v.float()).to(q.dtype)
 
 
@@ -225,10 +224,82 @@ class MultiHeadCrossAttention(nn.Module):
         q = q.reshape(b, beams, self.n_heads, dk).float()
         scores = torch.einsum("bkhd,bhtd->bkht", q, k.float()) / math.sqrt(dk)
         if key_pad_mask is not None:
-            scores = scores.masked_fill(~key_pad_mask[:, None, None, :], NEG_INF)
+            scores = apply_attn_mask(scores, key_pad_mask[:, None, None, :])
         weights = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = torch.einsum("bkht,bhtd->bkhd", weights.float(), v.float()).to(x.dtype)
         return self.out_proj(ctx.reshape(bk, 1, self.n_heads * dk))
+
+
+def rel_pos_embedding(t: int, dim: int, dtype, device=None) -> torch.Tensor:
+    """Sinusoid embeddings of the relative positions −(T−1) … T−1: [1, 2T−1, D]."""
+    pos = torch.arange(-(t - 1), t, device=device)
+    return sinusoid_position_encoding(pos, dim)[None].to(dtype)
+
+
+def relative_shift(bd: torch.Tensor) -> torch.Tensor:
+    """Skew [B, H, T, 2T−1] → [B, H, T, T] with out[q, k] = bd[q, k − q + T − 1],
+    as the JAX package does it: pad one column, flatten, slice (views after
+    the pad, no gather)."""
+    b, h, t, _ = bd.shape
+    x = F.pad(bd, (0, 1)).reshape(b, h, 2 * t * t)
+    return x.narrow(2, t - 1, t * (2 * t - 1)).reshape(b, h, t, 2 * t - 1)[..., :t]
+
+
+class RelPosSelfAttention(nn.Module):
+    """Transformer-XL relative-position self-attention: a fused QKV
+    projection, a bias-free projection ``pos_proj`` of the sinusoid
+    embeddings of positions −(T−1) … T−1, and per-head content and position
+    biases ``posu`` / ``posv`` [1, H, 1, Dh]. Scores are
+    ``((q + u)·k + relative_shift((q + v)·r)) / √Dh`` in float32.
+
+    ``use_out_proj=False`` returns the head concat unprojected (the
+    reference's trained forward, ``ref_compat``); ``share_qvk_proj`` uses one
+    D-wide projection for q, k and v; ``skip_term_b`` drops q from the
+    position term, which becomes ``v·r`` for every query. (The JAX package
+    shifts that term before broadcasting it over the queries, which works
+    only at T = 1; here it is broadcast first, which gives the same numbers
+    at T = 1 and the term's meaning at any T.)"""
+
+    def __init__(self, n_heads: int, d_model: int, dropout_rate: float = 0.0,
+                 share_qvk_proj: bool = False, skip_term_b: bool = False,
+                 use_out_proj: bool = True):
+        super().__init__()
+        self.n_heads = n_heads
+        self.d_model = d_model
+        self.share_qvk_proj = share_qvk_proj
+        self.skip_term_b = skip_term_b
+        self.qkv_proj = nn.Linear(d_model, d_model if share_qvk_proj else 3 * d_model)
+        self.pos_proj = nn.Linear(d_model, d_model, bias=False)
+        self.out_proj = nn.Linear(d_model, d_model) if use_out_proj else None
+        # flax's xavier_normal over (1, H, 1, Dh): fan_in H, fan_out H·Dh
+        d_k = d_model // n_heads
+        std = math.sqrt(2.0 / (n_heads * (1 + d_k)))
+        self.posu = nn.Parameter(torch.randn(1, n_heads, 1, d_k) * std)
+        self.posv = nn.Parameter(torch.randn(1, n_heads, 1, d_k) * std)
+        self.attn_dropout = Dropout(dropout_rate)
+
+    def forward(self, x, mask=None, pos_emb=None):
+        """x: [B, T, D]; pos_emb: [1, 2T−1, D] (``rel_pos_embedding``; made
+        here when None) → [B, T, D]."""
+        b, t, _ = x.shape
+        if pos_emb is None:
+            pos_emb = rel_pos_embedding(t, self.d_model, x.dtype, x.device)
+        y = self.qkv_proj(x)
+        q, k, v = (y, y, y) if self.share_qvk_proj else y.split(self.d_model, dim=-1)
+        q, k, v = (split_heads(a, self.n_heads) for a in (q, k, v))
+        r = split_heads(self.pos_proj(pos_emb), self.n_heads)  # [1, H, 2T−1, Dh]
+        posu, posv = self.posu.to(x.dtype), self.posv.to(x.dtype)
+        ac = torch.matmul((q + posu).float(), k.float().transpose(-1, -2))
+        content = posv if self.skip_term_b else q + posv
+        bd = torch.matmul(content.float(), r.float().transpose(-1, -2))
+        if self.skip_term_b:
+            bd = bd.expand(b, self.n_heads, t, 2 * t - 1)
+        scores = (ac + relative_shift(bd)) / math.sqrt(q.shape[-1])
+        weights = torch.softmax(apply_attn_mask(scores, mask), dim=-1).to(x.dtype)
+        out = merge_heads(torch.matmul(weights.float(), v.float()).to(x.dtype))
+        if self.out_proj is not None:
+            out = self.out_proj(out)
+        return self.attn_dropout(out)
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -253,3 +324,71 @@ class PositionwiseFeedForward(nn.Module):
         else:
             h = ACTIVATIONS[self.activation](h)
         return self.w2(self.dropout(h))
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis, for inference only:
+    ``(x − mean) · rsqrt(var + 1e-5) · scale + bias`` with the running
+    averages of the JAX ``batch_stats`` collection (``running_mean`` /
+    ``running_var`` buffers here). Training raises: flax keeps
+    ``ra = 0.99·ra + 0.01·batch`` with the biased variance, torch's
+    ``BatchNorm1d`` momentum 0.1 and the unbiased one."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "training a conformer with conv_norm_type 'batch' is not ported to "
+                "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: BatchNorm training); "
+                "use conv_norm_type 'layer'")
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean.to(x.dtype)) * mul.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class ConformerConvModule(nn.Module):
+    """pw1 → GLU → zero the pads → pad → depthwise conv → norm → swish →
+    pw2 → dropout → zero the pads. The padding is (k − 1, 0) when
+    ``causal``, else ((k − 1)//2, k//2) (XLA's SAME); the depthwise conv is a
+    grouped ``Conv1d`` (flax kernel [k, 1, D] ↔ weight [D, 1, k]), which the
+    JAX package computes outside any kernel as a shift-multiply.
+    ``norm_type`` is ``layer`` or ``batch`` (inference only, ``BatchNorm``)."""
+
+    def __init__(self, d_model: int, kernel_size: int = 15, norm_type: str = "layer",
+                 dropout_rate: float = 0.0, causal: bool = False):
+        super().__init__()
+        if norm_type not in ("layer", "batch"):
+            raise ValueError(f"unknown conv norm_type {norm_type!r}")
+        self.kernel_size = kernel_size
+        self.causal = causal
+        self.pw1 = nn.Linear(d_model, 2 * d_model)
+        self.dw_conv = nn.Conv1d(d_model, d_model, kernel_size, groups=d_model)
+        self.norm_type = norm_type
+        if norm_type == "batch":
+            self.bn = BatchNorm(d_model)
+        else:
+            self.ln = layer_norm(d_model)
+        self.pw2 = nn.Linear(d_model, d_model)
+        self.drop = Dropout(dropout_rate)
+
+    def forward(self, x, pad_mask=None):
+        """x: [B, T, D]; pad_mask: bool[B, T] → [B, T, D]."""
+        a, g = self.pw1(x).chunk(2, dim=-1)
+        h = a * torch.sigmoid(g)
+        # zero the pads after the GLU, so that they feed zeros (not GLU(bias))
+        # to the conv window
+        keep = None if pad_mask is None else pad_mask[..., None].to(h.dtype)
+        if keep is not None:
+            h = h * keep
+        k = self.kernel_size
+        pad = (k - 1, 0) if self.causal else ((k - 1) // 2, k // 2)
+        h = self.dw_conv(F.pad(h.transpose(1, 2), pad)).transpose(1, 2)
+        h = self.bn(h) if self.norm_type == "batch" else self.ln(h)
+        h = self.drop(self.pw2(swish(h)))
+        return h if keep is None else h * keep

@@ -2,9 +2,10 @@
 
 Builds a model from the ``model`` section of a config, as a dict (read from
 JSON: the anchor manifest's ``model_cfg`` is one). The port covers
-``speech2text`` and ``ctc`` with a conv frontend and an absolute-position
-transformer encoder, and the language models ``transformer_lm`` and
-``rnn_lm``; anything else raises and names the ROADMAP queue.
+``speech2text`` and ``ctc`` with a conv or concat frontend and a
+transformer or conformer encoder (absolute or relative positions, chunked
+attention), and the language models ``transformer_lm`` and ``rnn_lm``;
+anything else raises and names the ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -17,14 +18,13 @@ from torch import nn
 
 from ..utils import disable_tf32, resolve_device
 from .lm import RecurrentLanguageModel, TransformerLanguageModel
-from .speech2text import CTCModel, SpeechToText
+from .speech2text import ENCODERS, FRONTENDS, CTCModel, SpeechToText
 
 LM_TYPES = {"transformer_lm": TransformerLanguageModel, "rnn_lm": RecurrentLanguageModel}
 
 # options the port does not implement yet, with the value that means "off"
 _NOT_PORTED = {
-    "encoder": {"relative_positional": False, "chunk_size": 0, "moe_experts": 0,
-                "concat_after": False, "scan_layers": False},
+    "encoder": {"moe_experts": 0, "concat_after": False, "scan_layers": False},
     "decoder": {"concat_after": False, "scan_layers": False},
     "frontend": {"front_end_layer_norm": False},
 }
@@ -65,21 +65,23 @@ def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
         return cls(**_lm_kwargs(model_cfg, cls)).to(device=dev, dtype=dtype).eval()
     if mtype not in ("speech2text", "ctc"):
         raise _not_ported(f"model type {mtype!r}")
-    if model_cfg.get("frontend_type", "conv") != "conv":
-        raise _not_ported(f"frontend_type {model_cfg['frontend_type']!r}")
-    parts = ("encoder", "decoder") if mtype == "speech2text" else ("encoder",)
-    for part in parts:
-        kind = model_cfg.get(f"{part}_type", "transformer")
-        if kind != "transformer":
-            raise _not_ported(f"{part}_type {kind!r}")
+    frontend_type = model_cfg.get("frontend_type", "conv")
+    encoder_type = model_cfg.get("encoder_type", "transformer")
+    if frontend_type not in FRONTENDS:
+        raise _not_ported(f"frontend_type {frontend_type!r}")
+    if encoder_type not in ENCODERS:
+        raise _not_ported(f"encoder_type {encoder_type!r}")
+    if mtype == "speech2text" and model_cfg.get("decoder_type", "transformer") != "transformer":
+        raise _not_ported(f"decoder_type {model_cfg['decoder_type']!r}")
     for section, options in _NOT_PORTED.items():
         for key, off in options.items():
             if section in model_cfg and model_cfg[section].get(key, off) != off:
                 raise _not_ported(f"{section} option {key}={model_cfg[section][key]!r}")
     lookahead = int(model_cfg.get("lookahead_steps", 0))
+    types = {"frontend_type": frontend_type, "encoder_type": encoder_type}
     if mtype == "ctc":
         model = CTCModel(model_cfg["frontend"], model_cfg["encoder"],
-                         int(model_cfg["vocab_size"]), lookahead_steps=lookahead)
+                         int(model_cfg["vocab_size"]), lookahead_steps=lookahead, **types)
     else:
         ctc_weight = float(model_cfg.get("ctc_weight", 0.0))
         if lookahead and ctc_weight <= 0.0:
@@ -88,5 +90,5 @@ def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
         model = SpeechToText(model_cfg["frontend"], model_cfg["encoder"], model_cfg["decoder"],
                              ctc_weight=ctc_weight,
                              smoothing=float(model_cfg.get("smoothing", 0.1)),
-                             lookahead_steps=lookahead)
+                             lookahead_steps=lookahead, **types)
     return model.to(device=dev, dtype=dtype).eval()

@@ -1,7 +1,8 @@
 """End-to-end models (counterpart of ``opentransformer_tpu/models/speech2text.py``):
 the attention-based ``SpeechToText`` and the pure-CTC ``CTCModel``.
 
-``SpeechToText``: frontend → encoder → KV-cached decoder for decoding;
+``SpeechToText``: frontend (``conv`` or ``concat``) → encoder
+(``transformer`` or ``conformer``) → KV-cached decoder for decoding;
 ``forward`` is the teacher-forced training loss (label smoothing), plus the
 hybrid ``(1 − w)·att + w·ctc`` with a CTC head on the encoder memory when
 ``ctc_weight`` w > 0. ``CTCModel``: frontend → encoder → CTC head, with the
@@ -24,8 +25,11 @@ from ..ops.loss import ctc_loss, label_smoothing_loss
 from ..ops.masks import mask_to_length
 from ..ops.project_topk import project_logp_topk
 from .decoder import TransformerDecoder
-from .encoder import TransformerEncoder
-from .frontend import ConvFrontEnd
+from .encoder import ConformerEncoder, TransformerEncoder
+from .frontend import ConcatFrontEnd, ConvFrontEnd
+
+FRONTENDS = {"conv": ConvFrontEnd, "concat": ConcatFrontEnd}
+ENCODERS = {"transformer": TransformerEncoder, "conformer": ConformerEncoder}
 
 
 def _build(cls, cfg: dict, **extra):
@@ -86,12 +90,13 @@ class CTCAssistor(nn.Module):
 
 class SpeechToText(nn.Module):
     def __init__(self, frontend_cfg: dict, encoder_cfg: dict, decoder_cfg: dict,
-                 ctc_weight: float = 0.0, smoothing: float = 0.1, lookahead_steps: int = 0):
+                 ctc_weight: float = 0.0, smoothing: float = 0.1, lookahead_steps: int = 0,
+                 frontend_type: str = "conv", encoder_type: str = "transformer"):
         super().__init__()
         self.ctc_weight = ctc_weight
         self.smoothing = smoothing
-        self.frontend = _build(ConvFrontEnd, frontend_cfg)
-        self.encoder = _build(TransformerEncoder, encoder_cfg)
+        self.frontend = _build(FRONTENDS[frontend_type], frontend_cfg)
+        self.encoder = _build(ENCODERS[encoder_type], encoder_cfg)
         self.decoder = _build(TransformerDecoder, decoder_cfg)
         if ctc_weight > 0.0:
             self.ctc = CTCAssistor(self.encoder.d_model, self.decoder.vocab_size,
@@ -153,11 +158,12 @@ class CTCModel(nn.Module):
     """frontend → encoder → CTC head (the JAX package's ``CTCModel``)."""
 
     def __init__(self, frontend_cfg: dict, encoder_cfg: dict, vocab_size: int,
-                 lookahead_steps: int = 0):
+                 lookahead_steps: int = 0, frontend_type: str = "conv",
+                 encoder_type: str = "transformer"):
         super().__init__()
         self.vocab_size = int(vocab_size)
-        self.frontend = _build(ConvFrontEnd, frontend_cfg)
-        self.encoder = _build(TransformerEncoder, encoder_cfg)
+        self.frontend = _build(FRONTENDS[frontend_type], frontend_cfg)
+        self.encoder = _build(ENCODERS[encoder_type], encoder_cfg)
         self.ctc = CTCAssistor(self.encoder.d_model, self.vocab_size, lookahead_steps)
 
     @property

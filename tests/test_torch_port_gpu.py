@@ -69,6 +69,9 @@ def cuda():
 @pytest.mark.parametrize("n,d,v,k,dtype", [
     (2560, 256, 4233, 5, torch.bfloat16),
     (2560, 256, 4233, 5, torch.float32),
+    # the conformer's beam step: D = 384
+    (2560, 384, 4233, 5, torch.bfloat16),
+    (2560, 384, 4233, 5, torch.float32),
     (500, 128, 4233, 5, torch.float32),
     (7, 64, 700, 32, torch.float32),
     (33, 40, 131, 128, torch.float32),
@@ -208,6 +211,42 @@ def test_decode_runs_through_kernel(cuda):
     plain = make_memory_search(model, 4, 10, eos_id=-1, fused_topk=False)(memory, memory_mask)
     assert torch.equal(fused.tokens, plain.tokens)
     torch.testing.assert_close(fused.scores, plain.scores, rtol=0, atol=1e-4)
+
+
+CONFORMER_CFG = {
+    "type": "speech2text", "encoder_type": "conformer",
+    "frontend": {"input_size": 20, "output_size": 32, "mid_channel": 4, "out_channel": 8},
+    "encoder": {"d_model": 32, "n_heads": 4, "d_ff": 48, "nblocks": 2, "cov_kernel_size": 5,
+                "chunk_size": 4, "left_chunks": 1, "conv_causal": True,
+                "conv_norm_type": "batch"},
+    "decoder": {"vocab_size": 300, "d_model": 32, "n_heads": 4, "d_ff": 48, "memory_dim": 32,
+                "n_blocks": 2, "activation": "glu", "share_embedding": False}}
+
+
+@pytest.mark.gpu
+def test_conformer_encodes_as_the_cpu_and_decodes_through_kernel(cuda):
+    """A small chunked, causal, batch-norm conformer on the card and the same
+    weights on the CPU: the memories agree within 1e-4, and the card's beam
+    search launches the kernel once per step and gives the unfused ids."""
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.recognize.base import make_memory_search
+
+    torch.manual_seed(0)
+    model = build_model(CONFORMER_CFG, device=cuda)
+    cpu = build_model(CONFORMER_CFG, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    feats = torch.randn(3, 90, 20)
+    mask = torch.arange(90)[None] < torch.tensor([90, 70, 41])[:, None]
+    with torch.inference_mode():
+        memory, memory_mask = model.encode(feats.to(cuda), mask.to(cuda))
+        ref, ref_mask = cpu.encode(feats, mask)
+    assert torch.equal(memory_mask.cpu(), ref_mask)
+    torch.testing.assert_close(memory.cpu(), ref, rtol=0, atol=1e-4)
+    port.project_logp_topk.launches = 0
+    fused = make_memory_search(model, 4, 10, eos_id=-1)(memory, memory_mask)
+    assert port.project_logp_topk.launches == 10
+    plain = make_memory_search(model, 4, 10, eos_id=-1, fused_topk=False)(memory, memory_mask)
+    assert torch.equal(fused.tokens, plain.tokens)
 
 
 def _waves(b, n, seed=0, silent_row=None):

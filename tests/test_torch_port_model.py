@@ -226,11 +226,18 @@ def test_edit_distance_matches_jax(ref, hyp):
 
 def test_unported_configs_raise():
     cfg = small_cfg()
-    cfg["encoder"]["relative_positional"] = True
+    cfg["encoder"]["moe_experts"] = 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model({"type": "transducer"}, device="cpu")
+    # relative positions and the conformer encoder are ported
+    cfg = small_cfg()
+    cfg["encoder"]["relative_positional"] = True
+    assert build_model(cfg, device="cpu").encoder.relative_positional
+    cfg["encoder_type"] = "conformer"
+    cfg["encoder"]["nblocks"] = 1
+    assert type(build_model(cfg, device="cpu").encoder).__name__ == "ConformerEncoder"
 
 
 def test_entry_points_default_to_the_card():
