@@ -16,8 +16,9 @@ each of which raises on failure:
      among them), the tile edges (N=65, N=2561, D=40, D=56, V=131, rows not
      on 16 bytes) and ties, and time the kernel, the plain version and the
      unfused three-call composition, with the achieved rate and the share of
-     the bound, at the beam step's shapes and at the anchor's CTC shapes
-     (N = 100 utterances x 239 frames, k=1 and k=32 with lse);
+     the bound, at the beam step's shapes, at the anchor's CTC shapes
+     (N = 100 utterances x 239 frames, k=1 and k=32 with lse) and at the
+     streamed CTC tick (N = 32 slots x 16 frames, D=384, k=1);
   1b. the same for the two-head ``project2_logp_topk`` kernel of LM shallow
      fusion: flagship, LSTM-LM and anchor widths, the tile edges (D2=1024
      among them), lm weights 0.1, 0 and -0.3, ties;
@@ -77,7 +78,28 @@ each of which raises on failure:
      kernel-1 launch a step; (b) fused and unfused decodes agree on a small
      input; (c) the worst case of phase 3 at 80 mel in bf16, and the encode
      alone; (d) ``conformer_baseline`` trained through the CLI on phase 7's
-     corpus, with phase 7's checks.
+     corpus, with phase 7's checks;
+  10. streaming and serving (``conformer_streaming`` at full width, seeded
+     weights, float32 unless said): (a) the 16 utterances of phase 9 streamed
+     in 64-frame feeds through ``StreamingEncoderSession`` and through
+     ``MultiStreamAttention`` with 16 slots opened on 16 ticks, the memory
+     projection held to the JAX package's streamed numbers in
+     ``conformer_streaming.jax_stream.json`` (``tools/torch_port_stream_parity.py``)
+     and the memory to the port's offline chunk-masked encode; (b) a ``ctc``
+     model of that encoder through ``MultiStreamCTC``, ids held to JAX's
+     and to the port's offline greedy, one kernel-1 launch a tick (N = 16 x
+     16 rows); (c) ``LongFormRecognizer`` on two 2,500-3,000-frame
+     utterances, the windowed memory against JAX's, 24 kernel-1 launches in
+     a forced beam-5 decode; (d) the anchor's 500 utterances through the
+     serve CLI's ``DynamicBatcher`` (8 rows, buckets 200-1600), CER and ids
+     as phase 2, then with phase 4's LM at weight 0 through the two-head
+     kernel; (e) the serve CLI with ``--streaming --streams 4`` on a free
+     port, 8 concurrent PCM clients sending phase 7's wavs in 100 ms frames,
+     each FINAL equal to an in-process ``run_stream`` over the same
+     ``StreamingFbank`` features, every slot free afterwards; (f) 32 slots
+     of 20 s through ``MultiStreamCTC`` and ``MultiStreamAttention`` (beam
+     5, 32 forced steps, a re-decode every tick) in bf16: tick times, RTFx,
+     peak memory, launches a tick and the encoder step's share.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -91,6 +113,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -123,6 +146,8 @@ HYBRID_LOSS_RTOL = 1e-4
 # kernel 1 at the anchor's CTC shapes: 100 utterances of up to 960 frames,
 # 239 encoder frames each after the 4x subsampling
 CTC_ROWS = 100 * 239
+# kernel 1 in a streamed CTC tick: 32 slots x a chunk of 16 encoder frames
+STREAM_ROWS = 32 * 16
 # phase 6: the device pipeline's geometries (tools/tpu_smoke.py:64-65) plus a
 # silent row; |Δ log-mel| on valid frames. The plain version sums 400
 # float32 products per DFT bin, the kernel's FFT 9 radix-2 levels, each
@@ -176,6 +201,30 @@ CONFORMER_INPUTS = dict(weights_seed=0, inputs_seed=5, probe_seed=9, utts=16, fr
 CONFORMER_MEMORY_ATOL = 2e-4
 CONFORMER_LOGP_ATOL = 3e-3
 CONFORMER_ID_LIMIT = 2
+# phase 10: conformer_streaming streamed, held to the JAX package's CPU
+# numbers of the same seeded weights and utterances
+# (tools/torch_port_stream_parity.py --write): the streamed memory
+# projection within STREAM_MEMORY_ATOL (9a's limit) with equal frame
+# counts, and within STREAM_OFFLINE_ATOL of the port's own offline
+# chunk-masked encode of each utterance at its length; at most
+# STREAM_CTC_ID_LIMIT of the 16 greedy CTC id sequences differing
+STREAM_FIXTURE = os.path.join(REPO, "egs", "synth_bench", "trained",
+                              "conformer_streaming.jax_stream.json")
+STREAM_NAME = "conformer_streaming"
+STREAM_CHUNK_FRAMES = 64  # raw frames a feed: chunk 16 x the frontend's hop 4
+STREAM_CTC_SEED = 3       # the ctc head's seeded weights
+STREAM_MEMORY_ATOL = 2e-4
+STREAM_OFFLINE_ATOL = 1e-4
+STREAM_CTC_ID_LIMIT = 1
+# 10a's multi-stream server decodes each stream's FINAL only, 4 forced steps
+STREAM_SEARCH = dict(beam_width=5, max_len=4, partial_every=10 ** 6, eos_id=-1)
+LONG_FORM = dict(seed=6, utts=2, frames=3000, min_frames=2500, window=1200, context=200,
+                 steps=24, beam=5)
+# 10d: the anchor's 500 test utterances through the dynamic batcher
+BATCHER = dict(max_batch=8, buckets=(200, 400, 800, 1600), timeout_ms=30.0)
+# 10e: PCM clients over TCP; 10f: streaming throughput at full width
+PCM = dict(streams=4, clients=8, frame_ms=100, timeout_s=300.0)
+STREAM_LOAD = dict(slots=32, seconds=20.0, seed=12, beam=5, max_len=32, partial_every=1)
 
 
 def log(msg: str) -> None:
@@ -393,6 +442,10 @@ def phase_kernel():
         ("conformer beam step N=2560 D=384 V=4233 k=5 f32", 2560, 384, 4233, 5, torch.float32),
         ("anchor beam step N=500 D=128 V=4233 k=5 f32", 500, 128, 4233, 5, torch.float32),
         ("greedy k=1 N=512 D=256 V=4233 bf16", 512, 256, 4233, 1, torch.bfloat16),
+        (f"streamed CTC tick k=1 N={STREAM_ROWS} D=384 V=4233 bf16", STREAM_ROWS, 384, 4233, 1,
+         torch.bfloat16),
+        (f"streamed CTC tick k=1 N={STREAM_ROWS} D=384 V=4233 f32", STREAM_ROWS, 384, 4233, 1,
+         torch.float32),
         ("CTC sparse beam k=32+lse N=4096 D=256 V=4233 f32", 4096, 256, 4233, 32, torch.float32),
         (f"anchor CTC greedy k=1 N={CTC_ROWS} D=128 V=4233 f32", CTC_ROWS, 128, 4233, 1,
          torch.float32),
@@ -407,6 +460,15 @@ def phase_kernel():
         ("depth edge D=56 N=130 V=4233 k=5 f32", 130, 56, 4233, 5, torch.float32),
         ("vocab edge V=131 N=65 D=256 k=5 bf16", 65, 256, 131, 5, torch.bfloat16),
         ("rows off 16 bytes D=50 N=70 V=300 k=8 bf16", 70, 50, 300, 8, torch.bfloat16),
+        # phase 10's serving shapes: streamed CTC ticks (16 and 4 slots), the
+        # beams of 10a (16 streams), 10c (2 utterances), 10d (8 rows) and 10f
+        ("10b streamed CTC tick k=1 N=256 D=384 V=4233 f32", 256, 384, 4233, 1, torch.float32),
+        ("10e PCM CTC tick k=1 N=64 D=384 V=4233 f32", 64, 384, 4233, 1, torch.float32),
+        ("10a multi-stream FINAL beam N=80 D=384 V=4233 k=5 f32", 80, 384, 4233, 5,
+         torch.float32),
+        ("10c long-form beam N=10 D=384 V=4233 k=5 f32", 10, 384, 4233, 5, torch.float32),
+        ("10d batcher beam N=40 D=128 V=4233 k=5 f32", 40, 128, 4233, 5, torch.float32),
+        ("10f multi-stream beam N=160 D=384 V=4233 k=5 bf16", 160, 384, 4233, 5, torch.bfloat16),
     ]
     max_err = 0.0
     for i, (label, n, d, v, k, dtype) in enumerate(cases):
@@ -441,9 +503,13 @@ def phase_kernel():
             f"(a composition of three calls, not a library call) {unfused:.4f} ms, "
             f"bound {bound:.4f} ms ({bound_by}); {rate_note(2.0 * n * d * 4233, kern, bound)}"
             f"{'' if kern < unfused else ', SLOWER than the composition'} [{card}]")
-    # the CTC head's calls: top-1 for greedy, top-32 with lse for the prefix beam
-    h, w, b = _inputs(CTC_ROWS, 128, 4233, torch.float32, seed=98)
-    for label, k in (("anchor CTC greedy f32", 1), ("anchor CTC sparse beam f32", 32)):
+    # the CTC head's calls: top-1 for greedy and for the streamed tick, top-32
+    # with lse for the prefix beam
+    for label, n, d, k, dtype in (("anchor CTC greedy f32", CTC_ROWS, 128, 1, torch.float32),
+                                  ("anchor CTC sparse beam f32", CTC_ROWS, 128, 32, torch.float32),
+                                  ("streamed CTC tick bf16", STREAM_ROWS, 384, 1, torch.bfloat16),
+                                  ("streamed CTC tick f32", STREAM_ROWS, 384, 1, torch.float32)):
+        h, w, b = _inputs(n, d, 4233, dtype, seed=98)
         lse = k > 1
         if lse:
             def composition():
@@ -453,17 +519,18 @@ def phase_kernel():
             what = "matmul + log_softmax + topk, and logsumexp"
         else:
             def composition():
-                return torch.max(torch.log_softmax(h @ w.T + b, dim=-1), dim=-1)
+                return torch.max(torch.log_softmax((h @ w.T).float() + b, dim=-1), dim=-1)
             what = "matmul + log_softmax + max"
-        kern = cuda_ms(lambda: project_logp_topk(h, w, b, k, with_lse=lse), iters=20)
-        plain = cuda_ms(lambda: project_logp_topk_plain(h, w, b, k, with_lse=lse), iters=20)
-        unfused = cuda_ms(composition, iters=20)
-        bound, bound_by = topk_bound_ms(CTC_ROWS, 128, 4233, k, torch.float32)
+        iters = 20 if n == CTC_ROWS else 50
+        kern = cuda_ms(lambda: project_logp_topk(h, w, b, k, with_lse=lse), iters=iters)
+        plain = cuda_ms(lambda: project_logp_topk_plain(h, w, b, k, with_lse=lse), iters=iters)
+        unfused = cuda_ms(composition, iters=iters)
+        bound, bound_by = topk_bound_ms(n, d, 4233, k, dtype)
         timings[label] = (kern, plain, bound, bound_by)
-        log(f"phase1 time {label} N={CTC_ROWS} D=128 V=4233 k={k}{' + lse' if lse else ''}: "
+        log(f"phase1 time {label} N={n} D={d} V=4233 k={k}{' + lse' if lse else ''}: "
             f"kernel {kern:.4f} ms, plain version {plain:.4f} ms, unfused {what} (a composition "
             f"of calls, not a library call) {unfused:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
-            f"{rate_note(2.0 * CTC_ROWS * 128 * 4233, kern, bound)}"
+            f"{rate_note(2.0 * n * d * 4233, kern, bound)}"
             f"{'' if kern < unfused else f', SLOWER than the composition by {kern / unfused:.2f}x'}"
             f" [{card}]")
     return max_err, timings
@@ -535,6 +602,9 @@ def phase_kernel2():
         ("wide LM head D2=1024 N=130 V=4233 k=5 f32", 130, 256, 1024, 4233, 5, f32, 0.1),
         ("vocab edge V=131 N=65 D1=256 D2=1024 k=5 bf16", 65, 256, 1024, 131, 5, bf16, 0.0),
         ("rows off 16 bytes D1=50 D2=24 N=70 V=300 k=8 bf16", 70, 50, 24, 300, 8, bf16, 0.1),
+        # phase 10d's batcher with the LM: 8 rows x beam 5
+        ("10d batcher + LM N=40 D1=128 D2=256 V=4233 k=5 f32", 40, 128, 256, 4233, 5, f32, 0.0),
+        ("10d batcher + LM N=40 D1=128 D2=256 V=4233 k=5 f32", 40, 128, 256, 4233, 5, f32, 0.1),
     ]
     max_err = 0.0
     for i, (label, n, d1, d2, v, k, dtype, lam) in enumerate(cases):
@@ -1515,6 +1585,568 @@ def phase_conformer_train(workdir: str, paths: dict):
     return launches
 
 
+# --------------------------------------------------------------- phase 10
+def as_numpy(x) -> np.ndarray:
+    """A tensor (any device or dtype) or an array → a float32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def stream_ctc_cfg() -> dict:
+    """A ``ctc`` model of ``conformer_streaming``'s frontend and encoder."""
+    cfg = conformer_model_cfg(STREAM_NAME)
+    return {"type": "ctc", "frontend_type": cfg["frontend_type"], "frontend": cfg["frontend"],
+            "encoder_type": cfg["encoder_type"], "encoder": cfg["encoder"],
+            "vocab_size": cfg["decoder"]["vocab_size"], "lookahead_steps": 0}
+
+
+def seeded_stream_ctc(device="cuda", dtype=torch.float32):
+    """The ctc model of ``stream_ctc_cfg`` with seeded weights → (model,
+    its JAX-layout params)."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    model = build_model(stream_ctc_cfg(), dtype=dtype, device=device)
+    params = seeded_params(model, STREAM_CTC_SEED)
+    return compat.load_into(model, params), params
+
+
+def long_form_inputs():
+    """Two seeded utterances of 2,500-3,000 frames x 80 mel (the first
+    3,000), zero past their end → (feats, mask)."""
+    c = LONG_FORM
+    feats, mask, _ = conformer_inputs(c["seed"], c["utts"], c["frames"], c["min_frames"], 8, 24,
+                                      CONFORMER_INPUTS["mel"])
+    return feats, mask
+
+
+def load_stream_fixture() -> dict:
+    with open(STREAM_FIXTURE, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def staggered(ms, feats, mask):
+    """Open one utterance a tick on the multi-stream server ``ms`` (of
+    either package), push it whole and close it; tick until every stream is
+    final. Returns ({utt: slot}, {utt: final text}). 16 utterances on 16
+    slots: no slot is reused, and the rows stand at 16 different depths."""
+    slots, finals = {}, {}
+    lens = mask.sum(axis=1)
+    i = 0
+    while len(finals) < len(feats):
+        if i < len(feats):
+            slots[i] = ms.open_stream(f"u{i}", lambda _t: None,
+                                      lambda t, _i=i: finals.__setitem__(_i, t))
+            ms.push(slots[i], feats[i, : lens[i]])
+            ms.close(slots[i])
+            i += 1
+        ms.tick()
+    return slots, finals
+
+
+def session_memory(model, feats, mask) -> list:
+    """Each utterance alone through ``StreamingEncoderSession``: 64-frame
+    feeds, then the tail → its streamed memory [T', D] (a tensor)."""
+    from opentransformer_tpu_torch.recognize.online import StreamingEncoderSession
+
+    sess = StreamingEncoderSession(model)
+    rc = sess.raw_chunk
+    if rc != STREAM_CHUNK_FRAMES:
+        raise AssertionError(f"the streamed chunk is {rc} raw frames, not {STREAM_CHUNK_FRAMES}")
+    out = []
+    for i, n in enumerate(mask.sum(axis=1)):
+        sess.reset()
+        x = feats[i: i + 1, :n]
+        full = n // rc
+        for s in range(full):
+            sess.feed(x[:, s * rc:(s + 1) * rc])
+        mem, _ = sess.finish(x[:, full * rc:])
+        out.append(mem[0])
+    return out
+
+
+def stream_outputs(model, ctc_model, feats, mask, probe, long_feats, long_mask) -> dict:
+    """The port's streamed numbers on the models' device: memory projections
+    through the session (``session``) and through ``MultiStreamAttention``
+    with staggered slots (``multi``), the memories themselves, the
+    ``MultiStreamCTC`` ids (``ctc``; with its tick count and kernel-1
+    launches) and ``encode_windowed``'s projection (``long_form``)."""
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+    from opentransformer_tpu_torch.recognize.multistream import MultiStreamAttention, MultiStreamCTC
+    from opentransformer_tpu_torch.recognize.streaming import encode_windowed
+
+    dev = next(model.parameters()).device
+    pr = torch.from_numpy(probe).to(dev)
+    mems = session_memory(model, feats, mask)
+    out = {"session_mem": mems, "session": [as_numpy(m.float() @ pr) for m in mems]}
+    project_logp_topk.launches = 0
+    ms = MultiStreamAttention(model, n_streams=len(feats), **STREAM_SEARCH)
+    slots, _ = staggered(ms, feats, mask)
+    out["multi"] = [as_numpy(ms._mem[slots[i]].view().float() @ pr) for i in range(len(feats))]
+    out["multi_launches"], out["multi_ticks"] = project_logp_topk.launches, ms.ticks
+    project_logp_topk.launches = 0
+    ms = MultiStreamCTC(ctc_model, n_streams=len(feats))
+    _, finals = staggered(ms, feats, mask)
+    out["ctc"] = [[int(x) for x in finals[i].split()] for i in range(len(feats))]
+    out["ctc_launches"], out["ctc_ticks"] = project_logp_topk.launches, ms.ticks
+    x = torch.from_numpy(long_feats).to(dev)
+    lmem, lmask = encode_windowed(model, x, torch.from_numpy(long_mask.sum(axis=1)),
+                                  LONG_FORM["window"], LONG_FORM["context"])
+    proj = as_numpy(lmem.float() @ pr)
+    out["long_form"] = [row[:n] for row, n in zip(proj, as_numpy(lmask).sum(axis=1).astype(int))]
+    return out
+
+
+def stream_parity(out: dict, fixture: dict) -> dict:
+    """Against the stream fixture: the largest |Δ| of the session, the
+    multi-stream and the long-form projections, the utterances whose frame
+    counts differ, and the CTC id sequences that differ."""
+    got = {"session": 0.0, "multi": 0.0, "long_form": 0.0, "frames_differ": 0, "ctc_differ": 0}
+    for key, want in (("session", fixture["stream"]["memory"]),
+                      ("multi", fixture["stream"]["memory"]),
+                      ("long_form", fixture["long_form"]["memory"])):
+        for mine, theirs in zip(out[key], want):
+            theirs = np.asarray(theirs, np.float32)
+            if len(mine) != len(theirs):
+                got["frames_differ"] += 1
+                continue
+            got[key] = max(got[key], float(np.abs(mine - theirs).max()))
+    got["ctc_differ"] = sum(a != b for a, b in zip(out["ctc"], fixture["ctc"]["ids"]))
+    return got
+
+
+def stream_parity_ok(got: dict) -> bool:
+    return (max(got["session"], got["multi"], got["long_form"]) <= STREAM_MEMORY_ATOL
+            and got["frames_differ"] == 0 and got["ctc_differ"] <= STREAM_CTC_ID_LIMIT)
+
+
+@torch.inference_mode()
+def offline_ctc_ids(ctc_model, feats, mask) -> list:
+    """The offline greedy of each utterance at its own length, as
+    ``CTCRecognizer`` decodes it (``recognize_argmax``, then the collapse);
+    a padded batch would count one frame more for some lengths."""
+    from opentransformer_tpu_torch.recognize.ctc_decode import ctc_collapse_ids
+
+    dev = next(ctc_model.parameters()).device
+    ids = []
+    for i, n in enumerate(mask.sum(axis=1)):
+        frame_ids, frame_mask = ctc_model.recognize_argmax(
+            torch.from_numpy(feats[i: i + 1, :n]).to(dev),
+            torch.ones((1, n), dtype=torch.bool, device=dev))
+        toks, lens = ctc_collapse_ids(frame_ids, frame_mask)
+        ids.append(toks[0, : int(lens[0])].tolist())
+    return ids
+
+
+@torch.inference_mode()
+def offline_memory_err(model, feats, mask, streamed) -> float:
+    """The largest |Δ| between each utterance's streamed memory and the
+    port's offline chunk-masked encode of that utterance at its length."""
+    dev = next(model.parameters()).device
+    err = 0.0
+    for i, n in enumerate(mask.sum(axis=1)):
+        mem, mm = model.encode(torch.from_numpy(feats[i: i + 1, :n]).to(dev),
+                               torch.ones((1, n), dtype=torch.bool, device=dev))
+        t = int(mm.sum())
+        if t != streamed[i].shape[0]:
+            raise AssertionError(f"utterance {i}: offline encode has {t} frames, the stream "
+                                 f"{streamed[i].shape[0]}")
+        err = max(err, (mem[0, :t].float() - streamed[i].float()).abs().max().item())
+    return err
+
+
+def read_units(path: str) -> dict:
+    """{utt: units} of a ``text`` file."""
+    with open(path, encoding="utf-8") as f:
+        return {p[0]: p[1:] for p in (line.split() for line in f) if p}
+
+
+def batcher_decode(tag: str, data: str, recognizer, out: str) -> dict:
+    """The anchor split's 500 utterances submitted at once to the port's
+    ``DynamicBatcher`` (phase 2's beam, penalty and -ml 32) → CER, ids off
+    the JAX fixture, launches and ``stats()``; writes ``out/predict.txt``."""
+    from opentransformer_tpu_torch.cli.serve import DynamicBatcher, _Request
+    from opentransformer_tpu_torch.data import UNK, load_idx2unit_map, load_vocab
+    from opentransformer_tpu_torch.data.kaldi_io import load_mat, read_scp
+    from opentransformer_tpu_torch.ops.levenshtein import ErrorRateAccumulator
+    from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
+
+    b = BATCHER
+    dev = next(recognizer.model.parameters()).device
+    batcher = DynamicBatcher(recognizer, b["buckets"], max_batch=b["max_batch"],
+                             timeout_ms=b["timeout_ms"])
+    scp = read_scp(os.path.join(data, "test", "feats.scp"))
+    feats = {utt: load_mat(rx) for utt, rx in scp.items()}
+    batcher.set_n_feat(next(iter(feats.values())).shape[1])
+    texts, lock = {}, threading.Lock()
+
+    def reply(utt, text):
+        with lock:
+            texts[utt] = text
+
+    project_logp_topk.launches = project2_logp_topk.launches = 0
+    t0 = time.time()
+    batcher.start()
+    for utt, x in feats.items():
+        batcher.submit(_Request(utt, x, reply))
+    batcher.drain_and_stop()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    one, two = project_logp_topk.launches, project2_logp_topk.launches
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "predict.txt"), "w", encoding="utf-8") as f:
+        for utt in feats:
+            f.write(f"{utt} {texts[utt]}\n")
+    vocab = os.path.join(data, "vocab")
+    unit2idx, idx2unit = load_vocab(vocab), load_idx2unit_map(vocab)
+    refs = read_units(os.path.join(data, "test", "text"))
+    cer = ErrorRateAccumulator()
+    for utt in feats:
+        cer.update([idx2unit.get(unit2idx.get(u, UNK), "<UNK>") for u in refs[utt]],
+                   texts[utt].split())
+    differ = ids_differing_from_jax(out, vocab)
+    stats = batcher.stats()
+    log(f"{tag}: {len(texts)} requests in {stats['batches']} batches of {b['max_batch']} rows "
+        f"(buckets {list(b['buckets'])}), CER {cer.rate * 100:.2f}% ({cer.errors}/{cer.tokens}), "
+        f"1-best ids differ from the JAX package's on {differ} of 500, kernel launches one-head "
+        f"{one} two-head {two}, stats {stats}, wall {wall:.1f} s "
+        f"[{card_line() if dev.type == 'cuda' else 'cpu'}]")
+    return {"cer": cer.rate * 100, "differ": differ, "one": one, "two": two, "stats": stats}
+
+
+def pcm_client(port: int, utt: str, wav: np.ndarray, frame: int, timeout: float) -> list:
+    """Stream int16 ``wav`` to the server as PCM frames of ``frame`` samples
+    and the end frame; returns the server's lines for the stream."""
+    import socket
+    import struct
+
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as sock:
+        sock.sendall(f"PCM {utt} 16000\n".encode())
+        for s in range(0, len(wav), frame):
+            data = wav[s: s + frame].astype("<i2").tobytes()
+            sock.sendall(struct.pack("<I", len(data)) + data)
+        sock.sendall(struct.pack("<I", 0))
+        lines, buf = [], b""
+        while not any(line.split("\t")[1] == "FINAL" for line in lines):
+            more = sock.recv(65536)
+            if not more:
+                raise AssertionError(f"{utt}: the server closed the connection before FINAL")
+            buf += more
+            *done, buf = buf.split(b"\n")
+            lines += [d.decode() for d in done]
+        return lines
+
+
+def pcm_features(extractor, wav: np.ndarray, frame: int) -> np.ndarray:
+    """The features the server makes of ``wav`` sent in frames of ``frame``
+    samples: ``StreamingFbank`` fed the same frames, then finished."""
+    from opentransformer_tpu_torch.cli.serve import StreamingFbank
+
+    sfe = StreamingFbank(extractor, 16000.0)
+    parts = [sfe.feed(wav[s: s + frame].astype(np.float32) / 32768.0)
+             for s in range(0, len(wav), frame)]
+    return np.concatenate(parts + [sfe.finish()], axis=0)
+
+
+def stream_data_cfg(vocab: str) -> dict:
+    """The data section of the committed ``conformer_streaming`` config
+    that features depend on (80 mel, per-utterance CMVN), with ``vocab``."""
+    with open(os.path.join(CONF_DIR, f"{STREAM_NAME}.json"), encoding="utf-8") as f:
+        data = json.load(f)["data"]
+    return {"num_mel_bins": data["num_mel_bins"], "normalization": data["normalization"],
+            "vocab": vocab}
+
+
+def start_server(argv: list) -> tuple:
+    """``serve.main(argv)`` in a thread; returns (server, thread, result
+    dict) once the server is bound. Whatever ``main`` raises lands in
+    ``result["error"]``, for the caller to raise."""
+    from opentransformer_tpu_torch.cli import serve
+
+    server, result = {}, {}
+    ready = threading.Event()
+
+    def on_ready(srv):
+        server["srv"] = srv
+        ready.set()
+
+    def run():
+        try:
+            result["rc"] = serve.main(argv, on_ready=on_ready)
+        except BaseException as e:  # the caller raises it
+            result["error"] = e
+            ready.set()
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    if not ready.wait(300) or "error" in result:
+        thread.join(60)
+        raise AssertionError("the server did not start") from result.get("error")
+    return server["srv"], thread, result
+
+
+def phase_pcm(workdir: str, corpus: dict, device: str = "cuda") -> int:
+    """10e: the serve CLI with ``--streaming`` on the ctc model of 10b; 8
+    concurrent PCM clients; each FINAL against an in-process ``run_stream``
+    over the same ``StreamingFbank`` features. Returns kernel-1 launches."""
+    import scipy.io.wavfile as siw
+
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.cli import serve
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+
+    _, params = seeded_stream_ctc(device="cpu")
+    npz, cfg_path = os.path.join(workdir, "stream_ctc.npz"), os.path.join(workdir, "stream_ctc.json")
+    compat.save_npz(npz, params, dtype=np.float32)
+    data_cfg = stream_data_cfg(corpus["vocab"])
+    with open(cfg_path, "w") as f:
+        json.dump({"data": data_cfg, "model": stream_ctc_cfg()}, f)
+    with open(corpus["train"][0]) as f:
+        wavs = [line.split()[1] for line in f][: PCM["clients"]]
+    project_logp_topk.launches = 0
+    srv, thread, result = start_server(["--npz", npz, "--model_cfg", cfg_path, "--streaming",
+                                        "--streams", str(PCM["streams"]), "--port", "0",
+                                        "--device", device])
+    frame = 16000 * PCM["frame_ms"] // 1000
+    audio = [siw.read(p)[1] for p in wavs]
+    lines = [None] * len(wavs)
+    errors = []
+
+    def client(i):
+        try:
+            lines[i] = pcm_client(srv.server_address[1], f"pcm{i}", audio[i], frame,
+                                  PCM["timeout_s"])
+        except BaseException as e:  # the phase raises it below
+            errors.append(e)
+
+    t0 = time.time()
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(len(wavs))]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(PCM["timeout_s"])
+    wall = time.time() - t0
+    launches = project_logp_topk.launches
+    try:
+        if errors or any(x is None for x in lines):
+            raise AssertionError("phase10e: a PCM client failed") from (errors[0] if errors
+                                                                         else None)
+        front = srv.front
+        extractor = serve.FeatureExtractor(data_cfg)
+        bad, partials = [], 0
+        for i, got in enumerate(lines):
+            kinds = [line.split("\t")[1] for line in got]
+            finals = [line.split("\t", 2)[2] for line in got if line.split("\t")[1] == "FINAL"]
+            want = front.run_stream(pcm_features(extractor, audio[i], frame), lambda _t: None)
+            partials += kinds.count("PARTIAL")
+            if finals != [want] or kinds[-1] != "FINAL":
+                bad.append((i, finals, want))
+        free = front.ms.free_slots()
+    finally:
+        srv.shutdown()
+        thread.join(60)
+    if "error" in result:
+        raise AssertionError("phase10e: the server failed") from result["error"]
+    seconds = sum(len(a) for a in audio) / 16000.0
+    ok = (not bad and partials > 0 and free == PCM["streams"] and result["rc"] == 0
+          and (launches > 0) == (device == "cuda"))
+    log(f"phase10e PCM over TCP: {len(wavs)} concurrent clients on {PCM['streams']} slots, "
+        f"{seconds:.1f} s of audio in {PCM['frame_ms']} ms frames, wall {wall:.1f} s; FINALs "
+        f"equal to in-process run_stream over the same StreamingFbank features on "
+        f"{len(wavs) - len(bad)} of {len(wavs)} {bad[:1]}, {partials} PARTIAL lines, each "
+        f"stream's FINAL last, free slots after {free} of {PCM['streams']}, kernel 1 launches "
+        f"{launches}, server exit {result['rc']} {'ok' if ok else 'FAIL'} "
+        f"[{card_line() if device == 'cuda' else device}]")
+    if not ok:
+        raise AssertionError("phase10e: a gate failed (see above)")
+    return launches
+
+
+def stream_load(tag: str, ms, feats) -> dict:
+    """10f: every slot of ``ms`` gets one of ``feats`` whole and closed at
+    once; ticks run until all are final. Host-clock tick times (each tick
+    ends in a copy to the host), the encoder step's share (CUDA events
+    around ``_encode``, read after the run: no host synchronize inside a
+    tick), RTFx and peak memory."""
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+
+    encode = ms._encode
+    spans = []
+
+    def timed_encode(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = encode(*args)
+        end.record()
+        spans.append((start, end))
+        return y
+
+    ms._encode = timed_encode
+    finals = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    project_logp_topk.launches = 0
+    ticks = []
+    t0 = time.perf_counter()
+    for i, x in enumerate(feats):
+        slot = ms.open_stream(f"u{i}", lambda _t: None, lambda t, _i=i: finals.__setitem__(_i, t))
+        ms.push(slot, x)
+        ms.close(slot)
+    while len(finals) < len(feats):
+        t = time.perf_counter()
+        if ms.tick() == 0:
+            raise AssertionError(f"{tag}: a tick advanced no stream before every FINAL")
+        ticks.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = project_logp_topk.launches
+    del ms._encode
+    audio = sum(x.shape[0] for x in feats) * 0.01
+    got = {"ticks": len(ticks), "tick_ms_median": float(np.median(ticks)) * 1e3,
+           "tick_ms_p95": float(np.percentile(ticks, 95)) * 1e3,
+           "chunks_per_s": ms.chunks_advanced / wall, "rtfx": audio / wall, "wall_s": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
+           "launches_per_tick": launches / len(ticks),
+           "encode_share": sum(a.elapsed_time(b) for a, b in spans) / 1e3 / sum(ticks)}
+    log(f"{tag}: {len(feats)} slots x {feats[0].shape[0] * 0.01:.0f} s, {got['ticks']} ticks, "
+        f"tick median {got['tick_ms_median']:.2f} ms p95 {got['tick_ms_p95']:.2f} ms, "
+        f"{got['chunks_per_s']:.1f} chunks/s, RTFx {got['rtfx']:.1f} ({audio:.0f} s of audio in "
+        f"{wall:.2f} s), peak memory {got['peak_gib']:.2f} GiB, kernel 1 launches {launches} "
+        f"({got['launches_per_tick']:.2f} a tick), encoder step {100 * got['encode_share']:.1f}% "
+        f"of the tick time, the rest the head (CTC top-1 and collapse, or the beam re-decode) "
+        f"[{card_line()}]")
+    return got
+
+
+def phase_streaming(workdir: str, data: str, corpus: dict):
+    """Phase 10 (module docstring). Returns ({path: kernel 1 launches}, the
+    two-head launches of 10d with the LM)."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.data import load_idx2unit_map
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+    from opentransformer_tpu_torch.recognize.base import SpeechToTextRecognizer
+    from opentransformer_tpu_torch.recognize.multistream import MultiStreamAttention, MultiStreamCTC
+    from opentransformer_tpu_torch.recognize.streaming import LongFormRecognizer
+
+    t_phase = time.time()
+    offline = load_conformer_fixture()
+    fixture = load_stream_fixture()
+    feats, mask, _ = fixture_inputs(offline)
+    probe = memory_probe(384, offline["inputs"]["probe_seed"])
+    model = seeded_conformer(STREAM_NAME, offline)
+    ctc_model, ctc_params = seeded_stream_ctc()
+    want = fixture["checksums"]["ctc_weights"]
+    if abs(checksum(ctc_params) - want) > 1e-9 * want:
+        raise AssertionError("phase10: the seeded ctc weights are not the fixture's")
+    long_feats, long_mask = long_form_inputs()
+    want = fixture["checksums"]["long_feats"]
+    if abs(checksum([long_feats]) - want) > 1e-9 * want:
+        raise AssertionError("phase10: the long-form inputs are not the fixture's")
+    launches = {}
+
+    # 10a-c: the streamed numbers against JAX's and the port's offline ones
+    out = stream_outputs(model, ctc_model, feats, mask, probe, long_feats, long_mask)
+    got = stream_parity(out, fixture)
+    off_err = offline_memory_err(model, feats, mask, out["session_mem"])
+    ok = (max(got["session"], got["multi"]) <= STREAM_MEMORY_ATOL and got["frames_differ"] == 0
+          and off_err <= STREAM_OFFLINE_ATOL and out["multi_launches"] > 0)
+    log(f"phase10a {STREAM_NAME} f32 streamed, 16 utterances in {STREAM_CHUNK_FRAMES}-frame feeds "
+        f"+ tail: memory projection vs JAX's streamed one, through StreamingEncoderSession max|d| "
+        f"{got['session']:.3e}, through MultiStreamAttention (16 slots opened on 16 ticks, "
+        f"{out['multi_ticks']} ticks) {got['multi']:.3e} (atol {STREAM_MEMORY_ATOL:.0e}; frame "
+        f"counts differ on {got['frames_differ']}); streamed memory vs the port's offline "
+        f"chunk-masked encode max|d| {off_err:.3e} (atol {STREAM_OFFLINE_ATOL:.0e}); kernel 1 "
+        f"launches {out['multi_launches']} (the FINALs' beam) {'ok' if ok else 'FAIL'} "
+        f"[{card_line()}]")
+    if not ok:
+        raise AssertionError("phase10a: a gate failed (see above)")
+    launches["phase10a multi-stream attention FINALs (k=5)"] = out["multi_launches"]
+    offline_ids = offline_ctc_ids(ctc_model, feats, mask)
+    off_differ = sum(a != b for a, b in zip(out["ctc"], offline_ids))
+    ok = (got["ctc_differ"] <= STREAM_CTC_ID_LIMIT and off_differ == 0
+          and out["ctc_launches"] == out["ctc_ticks"])
+    log(f"phase10b MultiStreamCTC, 16 staggered slots: ids differ from JAX's on "
+        f"{got['ctc_differ']} <= {STREAM_CTC_ID_LIMIT} of 16, from the port's offline greedy on "
+        f"{off_differ} of 16 (lengths {[len(x) for x in out['ctc']]}), kernel 1 launches "
+        f"{out['ctc_launches']} = ticks {out['ctc_ticks']} (k=1, N = 16 slots x 16 frames) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase10b: a gate failed (see above)")
+    launches["phase10b multi-stream CTC (k=1)"] = out["ctc_launches"]
+    c = LONG_FORM
+    rec = LongFormRecognizer(model, beam_width=c["beam"], max_len=c["steps"], eos_id=-1,
+                             window=c["window"], context=c["context"])
+    project_logp_topk.launches = 0
+    hyp = rec.recognize_arrays(torch.from_numpy(long_feats).cuda(),
+                               torch.from_numpy(long_mask).cuda())
+    n_long = project_logp_topk.launches
+    ok = (got["long_form"] <= STREAM_MEMORY_ATOL and n_long == c["steps"]
+          and bool(torch.isfinite(hyp.scores).all()))
+    log(f"phase10c LongFormRecognizer (window {c['window']}, context {c['context']}), 2 "
+        f"utterances of {long_mask.sum(axis=1).tolist()} frames: windowed memory projection vs "
+        f"JAX max|d| {got['long_form']:.3e} (atol {STREAM_MEMORY_ATOL:.0e}), beam {c['beam']} over "
+        f"{c['steps']} forced steps: kernel 1 launches {n_long} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase10c: a gate failed (see above)")
+    launches["phase10c long-form decode (k=5)"] = n_long
+    log(f"phase10a-c wall {time.time() - t_phase:.1f} s")
+    del model, ctc_model, out, rec
+
+    # 10d: the anchor through the batcher, without and with an LM at -lmw 0.0
+    with open(ANCHOR + ".manifest.json", encoding="utf-8") as f:
+        anchor = compat.load_into(build_model(json.load(f)["model_cfg"]),
+                                  compat.load_npz(ANCHOR + ".npz"))
+    idx2unit = load_idx2unit_map(os.path.join(data, "vocab"))
+    rec = SpeechToTextRecognizer(anchor, beam_width=5, max_len=32, penalty=0.6, idx2unit=idx2unit)
+    res = batcher_decode("phase10d anchor f32 through the DynamicBatcher", data, rec,
+                         os.path.join(workdir, "batcher"))
+    lm = build_model(ANCHOR_LM_CFG)
+    compat.load_into(lm, seeded_params(lm, seed=11, embedding_std=ANCHOR_LM_CFG["d_model"] ** -0.5))
+    rec = SpeechToTextRecognizer(anchor, lm=lm, beam_width=5, max_len=32, penalty=0.6,
+                                 lm_weight=0.0, idx2unit=idx2unit)
+    res_lm = batcher_decode("phase10d anchor f32 + random transformer LM at -lmw 0.0 through the "
+                            "DynamicBatcher", data, rec, os.path.join(workdir, "batcher_lm"))
+    ok = (max(res["cer"], res_lm["cer"]) <= ANCHOR_CER_LIMIT
+          and max(res["differ"], res_lm["differ"]) <= ANCHOR_ID_LIMIT
+          and res["one"] > 0 and res["two"] == 0 and res_lm["two"] > 0 and res_lm["one"] == 0)
+    log(f"phase10d gates (without / with the LM): CER {res['cer']:.2f}% / {res_lm['cer']:.2f}% <= "
+        f"{ANCHOR_CER_LIMIT}%, ids off JAX {res['differ']} / {res_lm['differ']} <= "
+        f"{ANCHOR_ID_LIMIT} of 500, launches one-head {res['one']} / {res_lm['one']}, two-head "
+        f"{res['two']} / {res_lm['two']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase10d: a gate failed (see above)")
+    launches["phase10d batcher, anchor (k=5)"] = res["one"]
+    del anchor, lm, rec
+
+    # 10e: PCM clients against the serve CLI
+    launches["phase10e PCM over TCP, streamed CTC (k=1)"] = phase_pcm(workdir, corpus)
+
+    # 10f: 32 slots of 20 s at full width in bf16
+    c = STREAM_LOAD
+    rng = np.random.default_rng(c["seed"])
+    load = [rng.normal(size=(int(c["seconds"] * 100), CONFORMER_INPUTS["mel"])).astype(np.float32)
+            for _ in range(c["slots"])]
+    ctc16 = seeded_stream_ctc(dtype=torch.bfloat16)[0]
+    ctc_load = stream_load("phase10f MultiStreamCTC bf16", MultiStreamCTC(ctc16, c["slots"]), load)
+    del ctc16
+    s2t16 = seeded_model(conformer_model_cfg(STREAM_NAME), torch.bfloat16,
+                         seed=offline["inputs"]["weights_seed"])
+    att = MultiStreamAttention(s2t16, c["slots"], beam_width=c["beam"], max_len=c["max_len"],
+                               partial_every=c["partial_every"], eos_id=-1)
+    att_load = stream_load(f"phase10f MultiStreamAttention bf16 (beam {c['beam']}, -ml "
+                           f"{c['max_len']} forced, partial_every {c['partial_every']})", att, load)
+    if ctc_load["launches"] != ctc_load["ticks"] or att_load["launches"] == 0:
+        raise AssertionError("phase10f: expected one kernel-1 launch a CTC tick and a launch in "
+                             "every attention re-decode step")
+    launches["phase10f throughput, multi-stream CTC (k=1)"] = ctc_load["launches"]
+    launches["phase10f throughput, multi-stream attention (k=5)"] = att_load["launches"]
+    log(f"phase10 wall {time.time() - t_phase:.1f} s")
+    return launches, res_lm["two"]
+
+
 def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
     """The kernel's entry of the JSON line: ``launches`` on its first main
     path, ``launches_by_path`` on each path that launches it."""
@@ -1543,17 +2175,18 @@ def main() -> int:
         launches = phase_flagship()
         phase_anchor_lm(workdir, data)
         ctc_launches = phase_anchor_ctc(workdir, data)
-    launches2 = phase_flagship_lm()
-    max_err3, timing3 = phase_fbank()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        launches2 = phase_flagship_lm()
+        max_err3, timing3 = phase_fbank()
         launches3, corpus = phase_train(workdir)
         conformer_train_launches = phase_conformer_train(workdir, corpus)
-    conformer_launches = phase_conformer()
+        conformer_launches = phase_conformer()
+        stream_launches, stream_launches2 = phase_streaming(workdir, data, corpus)
 
     # launches: each kernel's count on its own main paths (phase 3 without an
-    # LM, phase 8's CTC decodes and phase 9's conformer decodes, phase 5 with
-    # an LM, phases 7 and 9d's training runs); times at the flagship bf16
-    # beam-step shape and at the 16 x 10 s training batch
+    # LM, phase 8's CTC decodes, phase 9's conformer decodes and phase 10's
+    # serving paths, phases 5 and 10d with an LM, phases 7 and 9d's training
+    # runs); times at the flagship bf16 beam-step shape and at the 16 x 10 s
+    # training batch
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:96", launches, max_err,
@@ -1562,10 +2195,12 @@ def main() -> int:
                        "phase8a anchor CTC greedy (k=1)": ctc_launches["greedy"],
                        "phase8b anchor CTC prefix beam (k=32 + lse)": ctc_launches["beam"],
                        "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"],
-                       **conformer_launches}),
+                       **conformer_launches, **stream_launches}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
-                      timings2["flagship bf16"], {"phase5 flagship decode + LM": launches2}),
+                      timings2["flagship bf16"],
+                      {"phase5 flagship decode + LM": launches2,
+                       "phase10d batcher, anchor + LM at -lmw 0.0": stream_launches2}),
         kernel_record("fbank_spec_mel", "opentransformer_tpu_torch/csrc/fbank_spec_mel.cu",
                       "opentransformer_tpu/ops/fbank_pallas.py:60", launches3, max_err3, timing3,
                       {"phase7 training": launches3,

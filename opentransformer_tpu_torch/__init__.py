@@ -17,9 +17,13 @@ hybrid loss, the ``ctc`` model, greedy and native prefix-beam CTC decoding
 with n-gram fusion, and joint CTC/attention rescoring; and the Conformer
 family (rel-pos attention, the conv module, conformer blocks and encoders,
 chunked attention encoded offline, the concat frontend, BatchNorm conv
-modules for inference). CLI training with a CTC loss, BatchNorm training,
-the streamed encode, MoE, the transducer models, the other datasets,
-streaming and serving are still to port (``ROADMAP.md``).
+modules for inference); and streaming and serving: the streamed encode
+(``encode_step`` with per-block KV caches and causal-conv state), the
+online CTC and attention recognizers, the long-form (windowed) recognizer,
+the multi-stream server core and ``cli/serve.py`` (dynamic batcher, TCP
+lines, streaming TCP and PCM). CLI training with a CTC loss, BatchNorm
+training, MoE, the transducer models (and their streaming recognizers) and
+the other datasets are still to port (``ROADMAP.md``).
 
 The Pallas kernels of the JAX package become hand-written CUDA kernels
 under ``csrc/``, built with ``nvcc`` at first use (``ops/cuda_build.py``):

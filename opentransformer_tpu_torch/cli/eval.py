@@ -32,6 +32,15 @@ npz (the anchor's): the decoder's arrays are then left out.
     python -m opentransformer_tpu_torch.cli.eval --model_cfg CTC.json ... -md greedy
     python -m opentransformer_tpu_torch.cli.eval --model_cfg CTC.json ... -bw 5 -prune 32
 
+``--online`` decodes each utterance as a stream, fed chunk by chunk
+through the streamed encode (a chunked-attention model with a conv
+frontend): greedy frame-synchronous CTC for a ``ctc`` model, the
+incremental beam re-decode for ``speech2text`` (``recognize/online.py``).
+``--long_form`` encodes inputs longer than ``--window`` frames in
+overlapping windows with ``--context`` frames each side
+(``recognize/streaming.py``; ``speech2text`` only, other models decode
+offline with a warning). ``-p2w`` joins sentencepiece pieces in the output.
+
 It runs on the CUDA card unless ``--device cpu`` is given.
 """
 
@@ -103,9 +112,35 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="shallow-fusion weight of the LM's log-probs in the beam")
     p.add_argument("-lm_resc", "--lm_rescore_weight", type=float, default=0.0,
                    help="post-beam n-best LM rescoring weight (0: off)")
+    p.add_argument("-mt", "--max_tokens_per_chunk", type=int, default=8,
+                   help="transducer streaming: max emissions per frame (the transducer is not "
+                        "ported yet)")
+    p.add_argument("-p2w", "--piece2word", action="store_true",
+                   help="join sentencepiece pieces: strip spaces, '\u2581' -> space")
+    p.add_argument("--online", action="store_true",
+                   help="streaming decode over a chunked-attention encoder: frame-synchronous "
+                        "for ctc, incremental beam re-decode for speech2text")
+    p.add_argument("--long_form", action="store_true",
+                   help="windowed encoding for long audio (speech2text)")
+    p.add_argument("--window", type=int, default=1200, help="long-form window frames")
+    p.add_argument("--context", type=int, default=200, help="long-form context frames")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
     p.add_argument("--device", default=None, help="default: the CUDA card")
     return p
+
+
+LANG_TAGS = ("<PESN>", "<VIET>", "<SWAH>")
+
+
+def postprocess(text: str, piece2word: bool = False) -> str:
+    """Output-side text normalization: language tags stripped, and with
+    ``piece2word`` sentencepiece pieces joined (spaces dropped, '\u2581' →
+    space)."""
+    for tag in LANG_TAGS:
+        text = text.replace(tag, " ")
+    if piece2word:
+        text = text.replace(" ", "").replace("\u2581", " ").strip()
+    return " ".join(text.split())
 
 
 def load_model_cfg(path: str) -> dict:
@@ -167,7 +202,25 @@ def main(argv=None) -> int:
 
     unit2idx = load_vocab(args.vocab)
     idx2unit = load_idx2unit_map(args.vocab)
-    recognizer = build_recognizer(model_type, model, lm=lm, args=vars(args), idx2unit=idx2unit)
+    long_form = args.long_form and model_type == "speech2text"
+    if args.long_form and not long_form:
+        logger.warning("--long_form only applies to speech2text models; decoding offline")
+    if args.online:
+        from ..recognize.online import OnlineRecognizerAdapter
+
+        recognizer = OnlineRecognizerAdapter(
+            model_type, model, idx2unit=idx2unit, max_per_frame=args.max_tokens_per_chunk,
+            beam_width=args.beam_width, max_len=args.max_len, penalty=args.penalty)
+    elif long_form:
+        from ..recognize.streaming import LongFormRecognizer
+
+        recognizer = LongFormRecognizer(
+            model, lm=lm, beam_width=args.beam_width, max_len=args.max_len,
+            penalty=args.penalty, lm_weight=args.lm_weight, idx2unit=idx2unit,
+            window=args.window, context=args.context)
+    else:
+        recognizer = build_recognizer(model_type, model, lm=lm, args=vars(args),
+                                      idx2unit=idx2unit)
     scp = list(read_scp(args.feats).items())
     refs = read_text(args.text)
     os.makedirs(args.decode_dir, exist_ok=True)
@@ -181,7 +234,8 @@ def main(argv=None) -> int:
             x, mask, lens = collate([load_mat(rx) for _, rx in chunk])
             t0 = time.time()
             feats, feat_mask = torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev)
-            if args.lm_rescore_weight > 0.0 and lm is not None and model_type == "speech2text":
+            if (args.lm_rescore_weight > 0.0 and lm is not None and model_type == "speech2text"
+                    and not args.online):
                 hyp = lm_rescore(lm, recognizer.recognize_arrays(feats, feat_mask),
                                  args.lm_rescore_weight)
                 texts = recognizer.nbest_translate(hyp.tokens[:, :, 1:].cpu().numpy())
@@ -191,9 +245,11 @@ def main(argv=None) -> int:
             accu_time += time.time() - t0
             total_frames += sum(lens)
             for i, (utt, _) in enumerate(chunk):
+                texts[i] = [postprocess(h, args.piece2word) for h in texts[i]]
                 best = texts[i][0]
                 ftxt.write(f"{utt} {best}\n")
-                ref = [idx2unit.get(unit2idx.get(u, UNK), "<UNK>") for u in refs.get(utt, [])]
+                ref = postprocess(" ".join(idx2unit.get(unit2idx.get(u, UNK), "<UNK>")
+                                           for u in refs.get(utt, [])), args.piece2word).split()
                 dists = edit_distances(ref, [h.split() for h in texts[i]])
                 cer.update(ref, best.split())
                 oracle.update(ref, texts[i][int(np.argmin(dists))].split())

@@ -17,8 +17,15 @@ reference-import mode ``ref_compat`` (the second FFN dropped, its norm
 applied bare, no attention output projection). ``res_dropout`` acts on
 every residual branch.
 
-MoE blocks, concat_after, the scanned layout and the streamed encode
-(``encode_step``) are not ported yet (ROADMAP Queue 1).
+Both encoders stream a chunked-attention config frame-synchronously
+(inference only): ``init_stream_cache`` gives per-block shifting KV caches
+of the last ``left_chunks`` chunks (and the conformer's causal-conv state),
+and ``encode_step`` advances them by one chunk, equal to the offline
+encode under the chunk mask. The caches are plain tensors on the model's
+device and dtype, not parameters or buffers.
+
+MoE blocks, concat_after and the scanned layout are not ported yet
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -37,6 +44,35 @@ from .modules import (
     layer_norm,
     rel_pos_embedding,
 )
+
+
+def stream_kv_mask(batch: int, left: int, chunk: int, cache_len, chunk_mask=None,
+                   device=None) -> torch.Tensor:
+    """Validity mask bool[B, 1, 1, L + C] of a chunk step over [cache(L) ∥
+    chunk(C)] keys: the cache fills from the right, so only its last
+    ``cache_len`` slots are valid. ``cache_len`` is an int or int[B] (one
+    stream depth a row); ``chunk_mask`` bool[B, C] marks the chunk's valid
+    frames (all when None)."""
+    cl = torch.as_tensor(cache_len, device=device)
+    if cl.dim() == 0:
+        cl = cl.expand(batch)
+    key_valid = torch.arange(left, device=cl.device)[None] >= (left - cl[:, None])
+    if chunk_mask is None:
+        chunk_mask = torch.ones((batch, chunk), dtype=torch.bool, device=cl.device)
+    return torch.cat([key_valid, chunk_mask.to(cl.device)], dim=1)[:, None, None, :]
+
+
+def _check_streamable(chunk_size: int, left_chunks: int) -> None:
+    if chunk_size <= 0 or left_chunks < 0:
+        raise ValueError(
+            "streaming encode requires chunk_size > 0 and left_chunks >= 0 "
+            f"(got chunk_size={chunk_size}, left_chunks={left_chunks})")
+
+
+def _like(module: nn.Module):
+    """(device, dtype) of a module's parameters: where its caches live."""
+    p = next(module.parameters())
+    return p.device, p.dtype
 
 
 def encoder_attn_mask(pad_mask: torch.Tensor, chunk_size: int = 0,
@@ -80,6 +116,21 @@ class TransformerEncoderLayer(nn.Module):
             h = self.norm2(h)
         return h
 
+    def encode_step(self, x, cache_k, cache_v, kv_mask):
+        """One streamed chunk x [B, C, D] over the block's shifting KV cache
+        (inference: no dropout) → (y, new_k, new_v)."""
+        pre = self.normalize_before
+        h = self.norm1(x) if pre else x
+        attn, new_k, new_v = self.slf_attn.chunk_step(h, cache_k, cache_v, kv_mask)
+        h = h + attn
+        if not pre:
+            h = self.norm1(h)
+        h2 = self.norm2(h) if pre else h
+        h = h2 + self.ffn(h2)
+        if not pre:
+            h = self.norm2(h)
+        return h, new_k, new_v
+
 
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int = 256, n_heads: int = 4, d_ff: int = 2048,
@@ -89,7 +140,7 @@ class TransformerEncoder(nn.Module):
                  relative_positional: bool = False, chunk_size: int = 0,
                  left_chunks: int = -1):
         super().__init__()
-        self.d_model = d_model
+        self.d_model, self.n_heads = d_model, n_heads
         self.relative_positional = relative_positional
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
         self.pos_enc = None if relative_positional else PositionalEncoding(d_model, pos_dropout)
@@ -115,6 +166,37 @@ class TransformerEncoder(nn.Module):
         if self.after_norm is not None:
             x = self.after_norm(x)
         return x, pad_mask
+
+    # ---- frame-synchronous streaming (chunked-attention configs) ----------
+
+    def init_stream_cache(self, batch: int) -> list[dict]:
+        """Per-block zero KV caches [B, H, left_chunks·chunk_size, Dh] for
+        ``encode_step``."""
+        _check_streamable(self.chunk_size, self.left_chunks)
+        dev, dtype = _like(self)
+        shape = (batch, self.n_heads, self.left_chunks * self.chunk_size,
+                 self.d_model // self.n_heads)
+        return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)} for _ in self.layers]
+
+    def encode_step(self, x_chunk, cache, start, cache_len, chunk_mask=None):
+        """One chunk [B, C, D] of frontend frames → (y [B, C, D], new cache),
+        equal to the offline encode under the chunk mask. ``start`` (int or
+        int[B]) is the global index of the chunk's first frame, for the
+        absolute positions (rel-pos attention ignores it); ``cache_len``
+        (int or int[B]) the valid frames in the cache; ``chunk_mask``
+        bool[B, C] the chunk's valid frames (a final partial chunk)."""
+        b, c, _ = x_chunk.shape
+        x = x_chunk if self.relative_positional else self.pos_enc(x_chunk, start=start)
+        kv_mask = stream_kv_mask(b, self.left_chunks * self.chunk_size, c, cache_len,
+                                 chunk_mask, x.device)
+        new_cache = []
+        for layer, lc in zip(self.layers, cache):
+            x, nk, nv = layer.encode_step(x, lc["k"], lc["v"], kv_mask)
+            new_cache.append({"k": nk, "v": nv})
+        if self.after_norm is not None:
+            x = self.after_norm(x)
+        return x, new_cache
 
 
 class ConformerEncoderBlock(nn.Module):
@@ -173,6 +255,30 @@ class ConformerEncoderBlock(nn.Module):
             x = x + self.ffn_scale * self.res_dropout(self.post_ffn(h))
         return self.final_norm(x)
 
+    def encode_step(self, x, cache: dict, kv_mask):
+        """One streamed chunk (inference): attention over the shifting KV
+        cache and the causal conv over its carried state → (y, new cache
+        {"k", "v", "conv"}). The conv step takes no pad mask, as in the JAX
+        package: a final partial chunk's pad frames enter the conv state,
+        which only the flush reaches."""
+        if self.macaron_style:
+            x = x + self.ffn_scale * self.pre_ffn(self.pre_ffn_norm(x))
+        new_cache = dict(cache)
+
+        def attn(x):
+            out, new_cache["k"], new_cache["v"] = self.slf_attn.chunk_step(
+                self.attn_norm(x), cache["k"], cache["v"], kv_mask)
+            return x + out
+
+        def conv(x):
+            out, new_cache["conv"] = self.conv_module.conv_step(self.conv_norm(x), cache["conv"])
+            return x + out
+
+        x = attn(conv(x)) if self.conv_first else conv(attn(x))
+        h = self.post_ffn_norm(x)
+        x = h if self.ref_compat else x + self.ffn_scale * self.post_ffn(h)
+        return self.final_norm(x), new_cache
+
 
 class ConformerEncoder(nn.Module):
     """The conformer stack; its config key for depth is ``nblocks`` (no
@@ -188,7 +294,8 @@ class ConformerEncoder(nn.Module):
                  relative_positional: bool = True, chunk_size: int = 0, left_chunks: int = -1,
                  ref_compat: bool = False):
         super().__init__()
-        self.d_model = d_model
+        self.d_model, self.n_heads = d_model, n_heads
+        self.cov_kernel_size, self.conv_causal = cov_kernel_size, conv_causal
         self.relative_positional = relative_positional
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
         self.pos_enc = (PositionalEncoding(d_model, pos_dropout)
@@ -213,3 +320,38 @@ class ConformerEncoder(nn.Module):
         for block in self.layers:
             x = block(x, pad_mask, attn_mask, pos_emb)
         return x, pad_mask
+
+    # ---- frame-synchronous streaming (chunked attention + causal conv) ----
+
+    def init_stream_cache(self, batch: int) -> list[dict]:
+        """Per-block zero KV caches and causal-conv state f[B, k − 1, D] for
+        ``encode_step``; needs ``conv_causal`` (a SAME conv reaches into
+        future chunks)."""
+        _check_streamable(self.chunk_size, self.left_chunks)
+        if not self.conv_causal:
+            raise ValueError(
+                "streaming a conformer requires conv_causal: true (the SAME-"
+                "padded conv window reaches into future chunks)")
+        dev, dtype = _like(self)
+        kv = (batch, self.n_heads, self.left_chunks * self.chunk_size,
+              self.d_model // self.n_heads)
+        conv = (batch, self.cov_kernel_size - 1, self.d_model)
+        return [{"k": torch.zeros(kv, dtype=dtype, device=dev),
+                 "v": torch.zeros(kv, dtype=dtype, device=dev),
+                 "conv": torch.zeros(conv, dtype=dtype, device=dev)} for _ in self.layers]
+
+    def encode_step(self, x_chunk, cache, start, cache_len, chunk_mask=None):
+        """One chunk; the contract of ``TransformerEncoder.encode_step``
+        (rel-pos attention computes its offsets within the chunk step, so
+        ``start`` serves the absolute-position variant only)."""
+        b, c, _ = x_chunk.shape
+        x = x_chunk
+        if self.pos_enc is not None:
+            x = self.pos_enc(x, start=start)
+        kv_mask = stream_kv_mask(b, self.left_chunks * self.chunk_size, c, cache_len,
+                                 chunk_mask, x.device)
+        new_cache = []
+        for block, lc in zip(self.layers, cache):
+            x, nc = block.encode_step(x, lc, kv_mask)
+            new_cache.append(nc)
+        return x, new_cache

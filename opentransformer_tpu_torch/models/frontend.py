@@ -56,12 +56,19 @@ class ConvFrontEnd(nn.Module):
         super().__init__()
         if in_channel != 1:
             raise ValueError("ConvFrontEnd takes [B, T, F] features (in_channel 1)")
+        self.input_size = input_size
         self.conv1 = Conv2dSubsampleLayer(1, mid_channel, kernel_size[0], stride[0], act_func_type,
                                           dropout)
         self.conv2 = Conv2dSubsampleLayer(mid_channel, out_channel, kernel_size[1], stride[1],
                                           act_func_type, dropout)
         f_out = self.conv2.out_features(self.conv1.out_features(input_size))
         self.output_layer = nn.Linear(out_channel * f_out, output_size)
+
+    def output_length(self, t: int) -> int:
+        """Output frames for ``t`` input frames (no time padding)."""
+        for layer in (self.conv1, self.conv2):
+            t = conv_out_len(t, layer.kt, layer.stride)
+        return t
 
     def forward(self, x, mask):
         """x: [B, T, F]; mask: bool[B, T] → ([B, T', D], bool[B, T'])."""

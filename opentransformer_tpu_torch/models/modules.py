@@ -92,17 +92,23 @@ def sinusoid_position_encoding(positions: torch.Tensor, dim: int) -> torch.Tenso
 
 
 class PositionalEncoding(nn.Module):
-    """y = dropout(x·√d + pe) (the reference's additive mode)."""
+    """y = dropout(x·√d + pe) (the reference's additive mode), positions
+    ``start`` … ``start`` + T − 1. ``start`` is an int or a 0-d tensor (a
+    streamed chunk's offset), or int[B] (multi-stream: each row at its own
+    stream position, so the table is [B, T, D])."""
 
     def __init__(self, dim: int, dropout_rate: float = 0.0):
         super().__init__()
         self.dim = dim
         self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x):
+    def forward(self, x, start=0):
         pos = torch.arange(x.shape[1], device=x.device)
-        pe = sinusoid_position_encoding(pos, self.dim)[None].to(x.dtype)
-        return self.dropout(x * math.sqrt(self.dim) + pe)
+        if isinstance(start, torch.Tensor) and start.dim() == 1:
+            pe = sinusoid_position_encoding(start.to(x.device)[:, None] + pos[None], self.dim)
+        else:
+            pe = sinusoid_position_encoding(pos + start, self.dim)[None]
+        return self.dropout(x * math.sqrt(self.dim) + pe.to(x.dtype))
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -187,6 +193,23 @@ class MultiHeadSelfAttention(nn.Module):
                                            index, src)
         return self.out_proj(merge_heads(ctx))
 
+    def chunk_step(self, x, cache_k, cache_v, kv_mask=None):
+        """Chunk-streaming attention: the C new frames x [B, C, D] attend to
+        [cache ∥ new] keys and values, the cache [B, H, L, Dh] holding the
+        last L frames' (newest last). ``kv_mask``: bool broadcastable to
+        [B, H, C, L + C]. Returns (out [B, C, D], the last L entries of
+        [cache ∥ new] as the new cache)."""
+        q, k_c, v_c = self._qkv(x)
+        k = torch.cat([cache_k.to(k_c.dtype), k_c], dim=2)
+        v = torch.cat([cache_v.to(v_c.dtype), v_c], dim=2)
+        out = self.out_proj(merge_heads(attention_context(q, k, v, kv_mask)))
+        return out, keep_last(k, cache_k.shape[2]), keep_last(v, cache_v.shape[2])
+
+
+def keep_last(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The last ``n`` entries of axis 2 (none when n = 0)."""
+    return x.narrow(2, x.shape[2] - n, n)
+
 
 class MultiHeadCrossAttention(nn.Module):
     """Cross-attention with a fused KV projection over the memory;
@@ -233,6 +256,13 @@ class MultiHeadCrossAttention(nn.Module):
 def rel_pos_embedding(t: int, dim: int, dtype, device=None) -> torch.Tensor:
     """Sinusoid embeddings of the relative positions −(T−1) … T−1: [1, 2T−1, D]."""
     pos = torch.arange(-(t - 1), t, device=device)
+    return sinusoid_position_encoding(pos, dim)[None].to(dtype)
+
+
+def rel_pos_embedding_span(lo: int, hi: int, dim: int, dtype, device=None) -> torch.Tensor:
+    """Sinusoid embeddings of the relative positions lo … hi − 1: [1, hi − lo, D]
+    (a streamed chunk's −(L+C−1) … C−1)."""
+    pos = torch.arange(lo, hi, device=device)
     return sinusoid_position_encoding(pos, dim)[None].to(dtype)
 
 
@@ -300,6 +330,38 @@ class RelPosSelfAttention(nn.Module):
         if self.out_proj is not None:
             out = self.out_proj(out)
         return self.attn_dropout(out)
+
+    def chunk_step(self, x, cache_k, cache_v, kv_mask=None):
+        """Chunk-streaming rel-pos attention: C queries x [B, C, D] over
+        [cache(L) ∥ chunk(C)] keys. The offsets key − query run over
+        −(L+C−1) … C−1 (L + 2C − 1 sinusoid rows, the batch path's table
+        for these offsets), and the position term is gathered as
+        ``bd[q, k] = bd_raw[q, k − q + C − 1]``. With ``skip_term_b`` the
+        term is broadcast over the queries before the gather. Returns (out,
+        new_k, new_v) as ``MultiHeadSelfAttention.chunk_step``."""
+        b, c, _ = x.shape
+        left = cache_k.shape[2]
+        y = self.qkv_proj(x)
+        q, k_c, v_c = (y, y, y) if self.share_qvk_proj else y.split(self.d_model, dim=-1)
+        q, k_c, v_c = (split_heads(a, self.n_heads) for a in (q, k_c, v_c))
+        k = torch.cat([cache_k.to(k_c.dtype), k_c], dim=2)
+        v = torch.cat([cache_v.to(v_c.dtype), v_c], dim=2)
+        pos_emb = rel_pos_embedding_span(-(left + c - 1), c, self.d_model, x.dtype, x.device)
+        r = split_heads(self.pos_proj(pos_emb), self.n_heads)  # [1, H, L+2C−1, Dh]
+        posu, posv = self.posu.to(x.dtype), self.posv.to(x.dtype)
+        ac = torch.matmul((q + posu).float(), k.float().transpose(-1, -2))  # [B, H, C, L+C]
+        content = posv if self.skip_term_b else q + posv
+        bd_raw = torch.matmul(content.float(), r.float().transpose(-1, -2))
+        bd_raw = bd_raw.expand(b, self.n_heads, c, bd_raw.shape[-1])
+        idx = (torch.arange(left + c, device=x.device)[None, :]
+               - torch.arange(c, device=x.device)[:, None]) + (c - 1)
+        bd = torch.gather(bd_raw, 3, idx.expand(b, self.n_heads, c, left + c))
+        scores = (ac + bd) / math.sqrt(q.shape[-1])
+        weights = torch.softmax(apply_attn_mask(scores, kv_mask), dim=-1).to(x.dtype)
+        out = merge_heads(torch.matmul(weights.float(), v.float()).to(x.dtype))
+        if self.out_proj is not None:
+            out = self.out_proj(out)
+        return out, keep_last(k, left), keep_last(v, left)
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -377,18 +439,36 @@ class ConformerConvModule(nn.Module):
         self.pw2 = nn.Linear(d_model, d_model)
         self.drop = Dropout(dropout_rate)
 
-    def forward(self, x, pad_mask=None):
-        """x: [B, T, D]; pad_mask: bool[B, T] → [B, T, D]."""
+    def _glu_in(self, x, keep):
         a, g = self.pw1(x).chunk(2, dim=-1)
         h = a * torch.sigmoid(g)
         # zero the pads after the GLU, so that they feed zeros (not GLU(bias))
         # to the conv window
-        keep = None if pad_mask is None else pad_mask[..., None].to(h.dtype)
-        if keep is not None:
-            h = h * keep
-        k = self.kernel_size
-        pad = (k - 1, 0) if self.causal else ((k - 1) // 2, k // 2)
-        h = self.dw_conv(F.pad(h.transpose(1, 2), pad)).transpose(1, 2)
+        return h if keep is None else h * keep
+
+    def _post_conv(self, h, keep):
         h = self.bn(h) if self.norm_type == "batch" else self.ln(h)
         h = self.drop(self.pw2(swish(h)))
         return h if keep is None else h * keep
+
+    def forward(self, x, pad_mask=None):
+        """x: [B, T, D]; pad_mask: bool[B, T] → [B, T, D]."""
+        keep = None if pad_mask is None else pad_mask[..., None].to(x.dtype)
+        h = self._glu_in(x, keep)
+        k = self.kernel_size
+        pad = (k - 1, 0) if self.causal else ((k - 1) // 2, k // 2)
+        h = self.dw_conv(F.pad(h.transpose(1, 2), pad)).transpose(1, 2)
+        return self._post_conv(h, keep)
+
+    def conv_step(self, x, conv_state, pad_mask=None):
+        """Causal streaming step: ``conv_state`` f[B, k − 1, D] holds the last
+        post-GLU frames before the chunk x [B, C, D]; the depthwise conv runs
+        VALID over [state ∥ new] and emits exactly C frames. Returns (y [B, C,
+        D], the last k − 1 frames of [state ∥ new] as the new state).
+        Chunk by chunk it equals ``forward`` with ``causal``."""
+        keep = None if pad_mask is None else pad_mask[..., None].to(x.dtype)
+        h = self._glu_in(x, keep)
+        full = torch.cat([conv_state.to(h.dtype), h], dim=1)
+        y = self.dw_conv(full.transpose(1, 2)).transpose(1, 2)
+        n = self.kernel_size - 1
+        return self._post_conv(y, keep), full.narrow(1, full.shape[1] - n, n)

@@ -73,6 +73,9 @@ def cuda():
     (2560, 384, 4233, 5, torch.bfloat16),
     (2560, 384, 4233, 5, torch.float32),
     (500, 128, 4233, 5, torch.float32),
+    # the streamed CTC tick: 32 slots x a 16-frame chunk, D = 384, top-1
+    (512, 384, 4233, 1, torch.bfloat16),
+    (512, 384, 4233, 1, torch.float32),
     (7, 64, 700, 32, torch.float32),
     (33, 40, 131, 128, torch.float32),
     # tile edges: 64-row blocks, 128-byte depth slices, 128-column tiles,
@@ -426,3 +429,48 @@ def test_ctc_loss_and_rescoring_on_card_match_cpu(cuda):
            for dev in ("cpu", cuda)]
     assert torch.equal(out[1].tokens.cpu(), out[0].tokens)
     torch.testing.assert_close(out[1].scores.cpu(), out[0].scores, rtol=1e-5, atol=0)
+
+
+STREAM_CTC_CFG = {
+    "type": "ctc", "frontend": {"input_size": 20, "output_size": 32, "mid_channel": 4,
+                                "out_channel": 8},
+    "encoder_type": "conformer",
+    "encoder": {"d_model": 32, "n_heads": 4, "d_ff": 48, "nblocks": 2, "cov_kernel_size": 5,
+                "conv_causal": True, "chunk_size": 4, "left_chunks": 2},
+    "vocab_size": 50}
+
+
+@pytest.mark.gpu
+def test_multistream_ctc_runs_through_kernel(cuda):
+    """A small streaming conformer CTC model on the card and the same
+    weights on the CPU: three ragged streams through ``MultiStreamCTC``
+    (two slots, so one is reused) give the CPU's transcripts, with one
+    kernel-1 launch a tick."""
+    import threading
+
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.recognize.multistream import MultiStreamCTC
+
+    torch.manual_seed(0)
+    model = build_model(STREAM_CTC_CFG, device=cuda)
+    cpu = build_model(STREAM_CTC_CFG, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(4)
+    utts = [rng.normal(size=(t, 20)).astype(np.float32) for t in (90, 57, 130)]
+    got = {}
+    for name, m in (("cpu", cpu), ("cuda", model)):
+        ms = MultiStreamCTC(m, n_streams=2)
+        port.project_logp_topk.launches = 0
+        out = [None] * len(utts)
+
+        def run(i, ms=ms, out=out):
+            out[i] = ms.run_stream(utts[i], lambda _t: None)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(utts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        got[name] = (out, port.project_logp_topk.launches, ms.ticks)
+    assert got["cuda"][0] == got["cpu"][0]
+    assert got["cpu"][1] == 0 and got["cuda"][1] == got["cuda"][2] > 0
