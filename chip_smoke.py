@@ -17,8 +17,10 @@ each of which raises on failure:
      on 16 bytes) and ties, and time the kernel, the plain version and the
      unfused three-call composition, with the achieved rate and the share of
      the bound, at the beam step's shapes, at the anchor's CTC shapes
-     (N = 100 utterances x 239 frames, k=1 and k=32 with lse) and at the
-     streamed CTC tick (N = 32 slots x 16 frames, D=384, k=1);
+     (N = 100 utterances x 239 frames, k=1 and k=32 with lse), at the
+     streamed CTC tick (N = 32 slots x 16 frames, D=384, k=1) and at the
+     transducer's greedy lattice step (k=1, D=256, N = 1, 4, 8, 16, 32, 64);
+     device time (``torch.profiler``) beside the top-1 and top-32 times;
   1b. the same for the two-head ``project2_logp_topk`` kernel of LM shallow
      fusion: flagship, LSTM-LM and anchor widths, the tile edges (D2=1024
      among them), lm weights 0.1, 0 and -0.3, ties;
@@ -99,7 +101,27 @@ each of which raises on failure:
      ``StreamingFbank`` features, every slot free afterwards; (f) 32 slots
      of 20 s through ``MultiStreamCTC`` and ``MultiStreamAttention`` (beam
      5, 32 forced steps, a re-decode every tick) in bf16: tick times, RTFx,
-     peak memory, launches a tick and the encoder step's share.
+     peak memory, launches a tick and the encoder step's share;
+  11. the transducer (``conf/transducer.json`` and ``transducer_streaming.json``:
+     d256, 12 blocks, a 1-layer d256 LSTM predictor, d_joint 256, V=4233, 40
+     mel) at full width with seeded weights (the joint's output kernel scaled
+     so that the beam's 1-best holds labels, its blank bias raised so that
+     blank is the argmax at about a third of the lattice steps), float32
+     unless said, held to the JAX package's CPU numbers in
+     ``transducer_seeded.jax.json`` (``tools/torch_port_transducer_parity.py``)
+     on 16 seeded utterances of 300-500 frames: (a) the encoder memory
+     projection, the joint log-probs along a lattice path and the greedy ids,
+     one kernel-1 launch (k=1) a greedy loop iteration; (b) beam 4 with 2
+     expansions a frame, without an LM and with a seeded LSTM and transformer
+     LM fused at 0.3 (plain PyTorch: no kernel), most 1-bests labelled; (c)
+     the streaming config through ``StreamingTransducerRecognizer`` in
+     64-frame feeds (held to the port's offline greedy of each chunk-masked
+     utterance and to JAX's streamed ids) and ``MultiStreamTransducer`` (16
+     staggered slots, a slot reused); (d) ``cli/eval.py -bw 1`` and ``-bw 4`` over phase 7's dev wavs,
+     and the serve CLI with ``--streaming --streams 4`` (its default ``-mt
+     8``) and 4 PCM clients; (e) timed: greedy (with kernel 1's device time
+     from ``torch.profiler``) and beam over 64 x 500 frames, and 32 slots x
+     20 s through ``MultiStreamTransducer`` in bf16.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -225,6 +247,42 @@ BATCHER = dict(max_batch=8, buckets=(200, 400, 800, 1600), timeout_ms=30.0)
 # 10e: PCM clients over TCP; 10f: streaming throughput at full width
 PCM = dict(streams=4, clients=8, frame_ms=100, timeout_s=300.0)
 STREAM_LOAD = dict(slots=32, seconds=20.0, seed=12, beam=5, max_len=32, partial_every=1)
+# phase 11: the committed transducer configs (d256, 12 blocks, a 1-layer d256
+# LSTM predictor, d_joint 256, V=4233, 40 mel) with seeded weights, held to
+# the JAX package's CPU numbers (tools/torch_port_transducer_parity.py
+# --write). Random joints put the blank's logit among 4,233 others of about
+# the same size, so it is almost never the argmax, and their log-probs all
+# sit near -log V, so the beam's best hypothesis is the empty one. The seeded
+# tree (both packages) scales the joint's output kernel by ``joint_scale``,
+# so that the argmax label costs far less than log V and the beam's 1-best
+# holds labels, then raises the blank bias by ``blank_bias`` to make blank
+# the argmax at about a third of the JAX greedy run's lattice steps. The
+# greedy caps (``max_symbols`` >= frames x ``max_per_frame``) never bind.
+TRANSDUCERS = ("transducer", "transducer_streaming")
+TRANSDUCER_FIXTURE = os.path.join(REPO, "egs", "synth_bench", "trained",
+                                  "transducer_seeded.jax.json")
+TRANSDUCER_INPUTS = dict(weights_seed=0, inputs_seed=5, probe_seed=9, utts=16, frames=500,
+                         min_frames=300, min_units=8, max_units=24, mel=40, joint_scale=10.0,
+                         blank_bias=10.5, max_symbols=1024, max_per_frame=8, beam=4,
+                         expansions=2, beam_max_symbols=256, lm_weight=0.3, rnn_lm_seed=13,
+                         transformer_lm_seed=11)
+# LMs fused in 11b: the LSTM LM of egs/aishell/conf/rnnlm.yaml and phase 4's
+# transformer LM (the flagship LM's widths, depth cut to 2)
+TRANSDUCER_LMS = {"rnn_lm": LSTM_LM_CFG, "transformer_lm": ANCHOR_LM_CFG}
+TRANSDUCER_MEMORY_ATOL = 2e-4
+TRANSDUCER_LOGP_ATOL = 3e-3
+TRANSDUCER_GREEDY_LIMIT = 1    # of 16 greedy id sequences off JAX's (11a, 11c)
+TRANSDUCER_BEAM_LIMIT = 2      # of 16 beam 1-best (and n-best) id lists off JAX's (11b)
+TRANSDUCER_SCORE_RTOL = 1e-4   # n-best scores of hypotheses with the same ids
+# 11b compares labelled hypotheses: at least 12 of 16 beam 1-bests hold a
+# label and one holds two or more (a second label is scored by the LM state
+# stepped at the hypothesis's own position 1)
+TRANSDUCER_BEAM_LABELLED = 12
+TRANSDUCER_BEAM_LONGEST = 2
+# 11e: greedy and beam over a batch of 64 x 500 frames, 32 slots x 20 s streamed
+TRANSDUCER_LOAD = dict(batch=64, frames=500, seed=14, slots=32, seconds=20.0)
+# kernel 1's rows in a transducer greedy step on phase 11's paths (phase 1)
+TRANSDUCER_ROWS = (1, 4, 8, 16, 32, 64)
 
 
 def log(msg: str) -> None:
@@ -469,6 +527,12 @@ def phase_kernel():
         ("10c long-form beam N=10 D=384 V=4233 k=5 f32", 10, 384, 4233, 5, torch.float32),
         ("10d batcher beam N=40 D=128 V=4233 k=5 f32", 40, 128, 4233, 5, torch.float32),
         ("10f multi-stream beam N=160 D=384 V=4233 k=5 bf16", 160, 384, 4233, 5, torch.bfloat16),
+        # phase 11's transducer greedy lattice steps: one online stream (N=1),
+        # the PCM server's 4 slots, the eval CLI's batches of 8, 16 utterances or
+        # slots, 32 slots, 64 rows
+        *((f"11 transducer greedy k=1 N={n} D=256 V=4233 {label}", n, 256, 4233, 1, dtype)
+          for n in TRANSDUCER_ROWS for label, dtype in (("f32", torch.float32),
+                                                        ("bf16", torch.bfloat16))),
     ]
     max_err = 0.0
     for i, (label, n, d, v, k, dtype) in enumerate(cases):
@@ -504,11 +568,18 @@ def phase_kernel():
             f"bound {bound:.4f} ms ({bound_by}); {rate_note(2.0 * n * d * 4233, kern, bound)}"
             f"{'' if kern < unfused else ', SLOWER than the composition'} [{card}]")
     # the CTC head's calls: top-1 for greedy and for the streamed tick, top-32
-    # with lse for the prefix beam
+    # with lse for the prefix beam; the transducer's greedy lattice step: top-1
+    # of the joint, D = d_joint = 256. At a few rows the calls are short enough
+    # that the host's launch work may set the back-to-back time, so the device
+    # time (torch.profiler) stands beside it
     for label, n, d, k, dtype in (("anchor CTC greedy f32", CTC_ROWS, 128, 1, torch.float32),
                                   ("anchor CTC sparse beam f32", CTC_ROWS, 128, 32, torch.float32),
                                   ("streamed CTC tick bf16", STREAM_ROWS, 384, 1, torch.bfloat16),
-                                  ("streamed CTC tick f32", STREAM_ROWS, 384, 1, torch.float32)):
+                                  ("streamed CTC tick f32", STREAM_ROWS, 384, 1, torch.float32),
+                                  *((f"transducer greedy {tag}", n, 256, 1, dtype)
+                                    for n in TRANSDUCER_ROWS
+                                    for tag, dtype in (("bf16", torch.bfloat16),
+                                                       ("f32", torch.float32)))):
         h, w, b = _inputs(n, d, 4233, dtype, seed=98)
         lse = k > 1
         if lse:
@@ -525,14 +596,18 @@ def phase_kernel():
         kern = cuda_ms(lambda: project_logp_topk(h, w, b, k, with_lse=lse), iters=iters)
         plain = cuda_ms(lambda: project_logp_topk_plain(h, w, b, k, with_lse=lse), iters=iters)
         unfused = cuda_ms(composition, iters=iters)
+        dev_kern = device_ms_cold(lambda _x: project_logp_topk(h, w, b, k, with_lse=lse), [None],
+                                  iters=iters)
+        dev_unfused = device_ms_cold(lambda _x: composition(), [None], iters=iters)
         bound, bound_by = topk_bound_ms(n, d, 4233, k, dtype)
-        timings[label] = (kern, plain, bound, bound_by)
+        timings[f"{label} N={n}"] = (kern, plain, bound, bound_by)
         log(f"phase1 time {label} N={n} D={d} V=4233 k={k}{' + lse' if lse else ''}: "
             f"kernel {kern:.4f} ms, plain version {plain:.4f} ms, unfused {what} (a composition "
             f"of calls, not a library call) {unfused:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
             f"{rate_note(2.0 * n * d * 4233, kern, bound)}"
             f"{'' if kern < unfused else f', SLOWER than the composition by {kern / unfused:.2f}x'}"
-            f" [{card}]")
+            f"; device time (torch.profiler, warm L2) kernel {dev_kern:.4f} ms, composition "
+            f"{dev_unfused:.4f} ms [{card}]")
     return max_err, timings
 
 
@@ -1399,7 +1474,7 @@ def phase_anchor_ctc(workdir: str, data: str, device: str = "cuda"):
 
 # ---------------------------------------------------------------- phase 9
 def conformer_model_cfg(name: str) -> dict:
-    """The ``model`` section of a committed conformer config."""
+    """The ``model`` section of a committed config (``conf/<name>.json``)."""
     with open(os.path.join(CONF_DIR, f"{name}.json"), encoding="utf-8") as f:
         return json.load(f)["model"]
 
@@ -1891,20 +1966,31 @@ def phase_pcm(workdir: str, corpus: dict, device: str = "cuda") -> int:
     """10e: the serve CLI with ``--streaming`` on the ctc model of 10b; 8
     concurrent PCM clients; each FINAL against an in-process ``run_stream``
     over the same ``StreamingFbank`` features. Returns kernel-1 launches."""
+    _, params = seeded_stream_ctc(device="cpu")
+    return pcm_check("phase10e", workdir, "stream_ctc", params, stream_ctc_cfg(),
+                     stream_data_cfg(corpus["vocab"]), corpus, PCM["clients"], device)
+
+
+def pcm_check(tag: str, workdir: str, name: str, params: dict, model_cfg: dict, data_cfg: dict,
+              corpus: dict, clients: int, device: str = "cuda") -> int:
+    """The serve CLI with ``--streaming --streams PCM["streams"]`` on ``params``
+    saved as ``name``.npz + JSON; ``clients`` concurrent PCM clients send
+    phase 7's training wavs in 100 ms frames;
+    each FINAL is held to an in-process ``run_stream`` over the same
+    ``StreamingFbank`` features, and every slot must be free after. Returns
+    kernel-1 launches."""
     import scipy.io.wavfile as siw
 
     from opentransformer_tpu_torch import compat
     from opentransformer_tpu_torch.cli import serve
     from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
 
-    _, params = seeded_stream_ctc(device="cpu")
-    npz, cfg_path = os.path.join(workdir, "stream_ctc.npz"), os.path.join(workdir, "stream_ctc.json")
+    npz, cfg_path = os.path.join(workdir, f"{name}.npz"), os.path.join(workdir, f"{name}.json")
     compat.save_npz(npz, params, dtype=np.float32)
-    data_cfg = stream_data_cfg(corpus["vocab"])
     with open(cfg_path, "w") as f:
-        json.dump({"data": data_cfg, "model": stream_ctc_cfg()}, f)
+        json.dump({"data": data_cfg, "model": model_cfg}, f)
     with open(corpus["train"][0]) as f:
-        wavs = [line.split()[1] for line in f][: PCM["clients"]]
+        wavs = [line.split()[1] for line in f][:clients]
     project_logp_topk.launches = 0
     srv, thread, result = start_server(["--npz", npz, "--model_cfg", cfg_path, "--streaming",
                                         "--streams", str(PCM["streams"]), "--port", "0",
@@ -1922,17 +2008,17 @@ def phase_pcm(workdir: str, corpus: dict, device: str = "cuda") -> int:
             errors.append(e)
 
     t0 = time.time()
-    clients = [threading.Thread(target=client, args=(i,)) for i in range(len(wavs))]
-    for c in clients:
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(wavs))]
+    for c in threads:
         c.start()
-    for c in clients:
+    for c in threads:
         c.join(PCM["timeout_s"])
     wall = time.time() - t0
     launches = project_logp_topk.launches
     try:
         if errors or any(x is None for x in lines):
-            raise AssertionError("phase10e: a PCM client failed") from (errors[0] if errors
-                                                                         else None)
+            raise AssertionError(f"{tag}: a PCM client failed") from (errors[0] if errors
+                                                                      else None)
         front = srv.front
         extractor = serve.FeatureExtractor(data_cfg)
         bad, partials = [], 0
@@ -1948,19 +2034,19 @@ def phase_pcm(workdir: str, corpus: dict, device: str = "cuda") -> int:
         srv.shutdown()
         thread.join(60)
     if "error" in result:
-        raise AssertionError("phase10e: the server failed") from result["error"]
+        raise AssertionError(f"{tag}: the server failed") from result["error"]
     seconds = sum(len(a) for a in audio) / 16000.0
     ok = (not bad and partials > 0 and free == PCM["streams"] and result["rc"] == 0
           and (launches > 0) == (device == "cuda"))
-    log(f"phase10e PCM over TCP: {len(wavs)} concurrent clients on {PCM['streams']} slots, "
-        f"{seconds:.1f} s of audio in {PCM['frame_ms']} ms frames, wall {wall:.1f} s; FINALs "
-        f"equal to in-process run_stream over the same StreamingFbank features on "
-        f"{len(wavs) - len(bad)} of {len(wavs)} {bad[:1]}, {partials} PARTIAL lines, each "
-        f"stream's FINAL last, free slots after {free} of {PCM['streams']}, kernel 1 launches "
-        f"{launches}, server exit {result['rc']} {'ok' if ok else 'FAIL'} "
+    log(f"{tag} PCM over TCP ({model_cfg['type']}): {len(wavs)} concurrent clients on "
+        f"{PCM['streams']} slots, {seconds:.1f} s of audio in {PCM['frame_ms']} ms frames, wall "
+        f"{wall:.1f} s; FINALs equal to in-process run_stream over the same StreamingFbank "
+        f"features on {len(wavs) - len(bad)} of {len(wavs)} {bad[:1]}, {partials} PARTIAL lines, "
+        f"each stream's FINAL last, free slots after {free} of {PCM['streams']}, kernel 1 "
+        f"launches {launches}, server exit {result['rc']} {'ok' if ok else 'FAIL'} "
         f"[{card_line() if device == 'cuda' else device}]")
     if not ok:
-        raise AssertionError("phase10e: a gate failed (see above)")
+        raise AssertionError(f"{tag}: a gate failed (see above)")
     return launches
 
 
@@ -2015,7 +2101,8 @@ def stream_load(tag: str, ms, feats) -> dict:
         f"{got['chunks_per_s']:.1f} chunks/s, RTFx {got['rtfx']:.1f} ({audio:.0f} s of audio in "
         f"{wall:.2f} s), peak memory {got['peak_gib']:.2f} GiB, kernel 1 launches {launches} "
         f"({got['launches_per_tick']:.2f} a tick), encoder step {100 * got['encode_share']:.1f}% "
-        f"of the tick time, the rest the head (CTC top-1 and collapse, or the beam re-decode) "
+        f"of the tick time, the rest the head (CTC top-1 and collapse, the beam re-decode, or "
+        f"the transducer's greedy lattice walk) "
         f"[{card_line()}]")
     return got
 
@@ -2147,6 +2234,495 @@ def phase_streaming(workdir: str, data: str, corpus: dict):
     return launches, res_lm["two"]
 
 
+# --------------------------------------------------------------- phase 11
+def load_transducer_fixture() -> dict:
+    with open(TRANSDUCER_FIXTURE, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def seeded_transducer_params(model, seed: int, blank_bias: float,
+                             joint_scale: float = 1.0) -> dict:
+    """``seeded_params`` of a transducer with the joint's output kernel
+    scaled by ``joint_scale``, then its blank bias raised by ``blank_bias``
+    (``TRANSDUCER_INPUTS``)."""
+    from opentransformer_tpu_torch.data import BLK
+
+    params = seeded_params(model, seed)
+    dense = params["params"]["joint"]["output_layer"]["dense"]
+    dense["kernel"] *= np.float32(joint_scale)
+    dense["bias"][BLK] += np.float32(blank_bias)
+    return params
+
+
+def beam_holds_labels(best: list) -> bool:
+    """11b's coverage gate on the beam 1-bests' lengths ``best``."""
+    return (sum(n > 0 for n in best) >= TRANSDUCER_BEAM_LABELLED
+            and max(best) >= TRANSDUCER_BEAM_LONGEST)
+
+
+def seeded_transducer(name: str, c: dict, device="cuda", dtype=torch.float32, want=None):
+    """The committed ``name`` config on ``device`` with the seeded weights
+    of ``c`` (``TRANSDUCER_INPUTS`` or a fixture's inputs) → (model, its
+    JAX-layout params); with ``want`` (a fixture) the config and the
+    weights' checksum must be the fixture's."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    cfg = conformer_model_cfg(name)
+    model = build_model(cfg, dtype=dtype, device=device)
+    params = seeded_transducer_params(model, c["weights_seed"], c["blank_bias"],
+                                      c["joint_scale"])
+    if want is not None:
+        got, sum_want = checksum(params), want["checksums"]["weights"]
+        if cfg != want["configs"][name] or abs(got - sum_want) > 1e-9 * sum_want:
+            raise AssertionError(f"{name}: the committed config or the seeded weights' checksum "
+                                 f"{got!r} is not the fixture's {sum_want!r}")
+    return compat.load_into(model, params), params
+
+
+def seeded_lm(kind: str, c: dict, device="cuda"):
+    """The LM of ``TRANSDUCER_LMS[kind]`` with seeded weights (a transformer
+    LM's tied embedding at std d^-1/2, as phase 4's) → (lm, params)."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    cfg = TRANSDUCER_LMS[kind]
+    lm = build_model(cfg, device=device)
+    std = cfg["d_model"] ** -0.5 if kind == "transformer_lm" else 1.0
+    params = seeded_params(lm, c[f"{kind}_seed"], embedding_std=std)
+    return compat.load_into(lm, params), params
+
+
+def transducer_inputs(c: dict):
+    """16 seeded utterances of 300-500 frames x 40 mel, masks and targets
+    (``conformer_inputs`` at ``c``'s seeds and sizes)."""
+    return conformer_inputs(c["inputs_seed"], c["utts"], c["frames"], c["min_frames"],
+                            c["min_units"], c["max_units"], c["mel"])
+
+
+def lattice_path(frames: int, units: int) -> list:
+    """A monotone path through the lattice: label u at frame u·frames//units."""
+    return [(u * frames // units, u) for u in range(units)]
+
+
+def path_logp(logp, labels, frames: int) -> list:
+    """Joint log-probs f32[T, U+1, V] of one utterance → along
+    ``lattice_path``: each label's and the blank's at its point, then the
+    final blank at (T − 1, U)."""
+    out = []
+    for t, u in lattice_path(frames, len(labels)):
+        out += [float(logp[t, u, labels[u]]), float(logp[t, u, 0])]
+    return out + [float(logp[frames - 1, len(labels), 0])]
+
+
+def target_units(targets) -> list:
+    """The label count of each BOS ⧺ y ⧺ EOS ⧺ PAD row (EOS not counted)."""
+    return [int(u) for u in ((np.asarray(targets)[:, 1:] != 0).sum(axis=1) - 1)]
+
+
+def transducer_outputs(model, feats, mask, targets, c: dict) -> dict:
+    """On the model's device: the encoder memory projected on
+    ``memory_probe`` with its mask, each utterance's teacher-forced joint
+    log-probs along ``lattice_path`` (``path_logp``; its joint alone, at its
+    own frames), the greedy ids (``max_symbols``, ``max_per_frame`` of
+    ``c``) and the greedy loop's iterations, as numpy / lists."""
+    dev = next(model.parameters()).device
+    x, m, tg = (torch.from_numpy(a).to(dev) for a in (feats, mask, targets))
+    units = target_units(targets)
+    with torch.inference_mode():
+        memory, memory_mask = model.encode(x, m)
+        probe = torch.from_numpy(memory_probe(memory.shape[-1], c["probe_seed"])).to(dev)
+        proj = memory.float() @ probe
+        frames = memory_mask.sum(dim=1).tolist()
+        logp = []
+        for i, (n, u) in enumerate(zip(frames, units)):
+            logits = model.joint(memory[i: i + 1, :n], model.predictor(tg[i: i + 1, : u + 1]))
+            lp = torch.log_softmax(logits, dim=-1)[0].cpu().numpy()
+            logp.append(path_logp(lp, targets[i, 1: 1 + u], n))
+    it0 = model.greedy_iterations
+    tokens, n = model.greedy_decode(x, m, c["max_symbols"], c["max_per_frame"])
+    tokens, n = tokens.cpu().numpy(), n.cpu().numpy()
+    return {"memory": proj.cpu().numpy(), "memory_mask": memory_mask.cpu().numpy(),
+            "logp": logp, "greedy": [tokens[i, : n[i]].tolist() for i in range(len(n))],
+            "iterations": model.greedy_iterations - it0}
+
+
+def transducer_parity(out: dict, want: dict) -> dict:
+    """Against a fixture entry: the largest |Δ| of the memory projection
+    over each utterance's frames and of the path log-probs, and the
+    utterances whose frame count or greedy ids differ."""
+    got = {"memory": 0.0, "logp": 0.0, "ids_differ": 0, "frames_differ": 0}
+    for i, mem in enumerate(want["memory"]):
+        mem = np.asarray(mem, np.float32)
+        got["frames_differ"] += int(int(out["memory_mask"][i].sum()) != len(mem))
+        got["memory"] = max(got["memory"], float(np.abs(out["memory"][i, : len(mem)] - mem).max()))
+        got["logp"] = max(got["logp"], float(np.abs(np.asarray(out["logp"][i])
+                                                    - np.asarray(want["logp"][i])).max()))
+        got["ids_differ"] += int(out["greedy"][i] != want["greedy"][i])
+    return got
+
+
+def transducer_beam(model, feats, mask, c: dict, lm=None) -> dict:
+    """Beam ``c["beam"]``, ``c["expansions"]`` a frame, at most
+    ``beam_max_symbols`` tokens, with ``lm`` fused at ``lm_weight`` if given
+    → {"ids": [utt][hyp] id lists, "scores": [utt][hyp]}, best first."""
+    from opentransformer_tpu_torch.recognize.base import make_lm_adapter
+
+    dev = next(model.parameters()).device
+    lm_init, lm_step = make_lm_adapter(lm, c["beam_max_symbols"])
+    tokens, lens, scores = model.beam_decode(
+        torch.from_numpy(feats).to(dev), torch.from_numpy(mask).to(dev), c["beam"],
+        c["beam_max_symbols"], c["expansions"], lm_init, lm_step,
+        c["lm_weight"] if lm is not None else 0.0)
+    tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
+    return {"ids": [[tokens[i, j, : lens[i, j]].tolist() for j in range(tokens.shape[1])]
+                    for i in range(tokens.shape[0])],
+            "scores": scores.float().cpu().numpy().tolist()}
+
+
+def beam_parity(got: dict, want: dict) -> dict:
+    """Utterances whose 1-best ids (``best_differ``) or whose n-best id
+    lists (``nbest_differ``) differ, the largest relative score difference
+    over hypotheses present in both n-best lists (``score_rtol``), and the
+    utterances whose scores are not sorted (``unsorted``)."""
+    out = {"best_differ": 0, "nbest_differ": 0, "score_rtol": 0.0, "unsorted": 0}
+    for ids, scores, wids, wscores in zip(got["ids"], got["scores"], want["ids"],
+                                          want["scores"]):
+        out["best_differ"] += int(ids[0] != wids[0])
+        out["nbest_differ"] += int(ids != wids)
+        out["unsorted"] += int(scores != sorted(scores, reverse=True))
+        for j, hyp in enumerate(wids):
+            if hyp in ids:
+                g = scores[ids.index(hyp)]
+                out["score_rtol"] = max(out["score_rtol"],
+                                        abs(g - wscores[j]) / max(abs(wscores[j]), 1e-30))
+    return out
+
+
+def feed_stream(rec, x) -> list:
+    """One utterance [1, T, F] through a streaming recognizer of either
+    package in ``raw_chunk``-frame feeds and the tail → its ids."""
+    rec.reset()
+    rc = rec.session.raw_chunk
+    full = x.shape[1] // rc
+    for s in range(full):
+        rec.feed(x[:, s * rc:(s + 1) * rc])
+    rec.finish(x[:, full * rc:])
+    return list(rec.tokens[0])
+
+
+def streamed_transducer_ids(rec, feats, mask) -> list:
+    """Each utterance alone through ``rec`` (a StreamingTransducerRecognizer
+    of either package, batch 1)."""
+    return [feed_stream(rec, feats[i: i + 1, :n]) for i, n in enumerate(mask.sum(axis=1))]
+
+
+def offline_transducer_ids(model, feats, mask, c: dict) -> list:
+    """The port's offline greedy ids of each utterance encoded alone at its
+    own length (the streamed frame count; chunk-masked for a chunked
+    encoder)."""
+    dev = next(model.parameters()).device
+    out = []
+    for i, n in enumerate(mask.sum(axis=1)):
+        x = torch.from_numpy(feats[i: i + 1, :n]).to(dev)
+        tokens, k = model.greedy_decode(x, torch.ones(x.shape[:2], dtype=torch.bool, device=dev),
+                                        c["max_symbols"], c["max_per_frame"])
+        out.append(tokens[0, : int(k[0])].tolist())
+    return out
+
+
+def multistream_reuse(ms, feats, mask, again: int = 0):
+    """The utterances opened one a tick on the multi-stream server ``ms``
+    (pushed whole and closed), then utterance ``again`` once more as soon
+    as a slot frees, so that a slot takes a second stream; ticks until
+    every stream is final. Returns ({key: slot}, {key: final text}), the
+    second stream under key ``"again"``."""
+    lens = mask.sum(axis=1)
+    queue = [(i, i) for i in range(len(feats))] + [("again", again)]
+    slots, finals = {}, {}
+    while len(finals) < len(queue):
+        if len(slots) < len(queue):
+            key, i = queue[len(slots)]
+            slot = ms.open_stream(f"u{key}", lambda _t: None,
+                                  lambda t, _k=key: finals.__setitem__(_k, t), timeout=0)
+            if slot is not None:
+                slots[key] = slot
+                ms.push(slot, feats[i, : lens[i]])
+                ms.close(slot)
+        ms.tick()
+    return slots, finals
+
+
+def transducer_cli(tag: str, workdir: str, corpus: dict, params: dict, cfg: dict,
+                   device: str = "cuda"):
+    """11d (eval): the dev split of phase 7's corpus (16 wavs of 2-10 s) as
+    40-mel features (the serve CLI's extractor with the config's data
+    section) in a kaldi ark; the seeded transducer saved as npz + JSON;
+    ``cli/eval.py -bw 1`` (greedy) and ``-bw 4`` (beam), each ``predict.txt``
+    held to an in-process ``build_recognizer`` decode of the same batches.
+    Returns the greedy run's kernel-1 launches."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.cli import eval as eval_cli
+    from opentransformer_tpu_torch.cli import serve
+    from opentransformer_tpu_torch.data import load_idx2unit_map
+    from opentransformer_tpu_torch.data.kaldi_io import load_mat, read_scp, write_ark
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+    from opentransformer_tpu_torch.recognize.base import build_recognizer
+
+    root = os.path.join(workdir, "transducer_cli")
+    os.makedirs(root, exist_ok=True)
+    extractor = serve.FeatureExtractor(cfg["data"])
+    with open(corpus["dev"][0]) as f:
+        wavs = [line.split() for line in f if line.strip()]
+    scp = os.path.join(root, "feats.scp")
+    write_ark(os.path.join(root, "feats.ark"), {u: extractor(p) for u, p in wavs}, scp)
+    npz, cfg_path = os.path.join(root, "transducer.npz"), os.path.join(root, "transducer.json")
+    compat.save_npz(npz, params, dtype=np.float32)
+    with open(cfg_path, "w") as f:
+        json.dump({"model": cfg["model"]}, f)
+    model = compat.load_into(build_model(cfg["model"], device=device), params)
+    idx2unit = load_idx2unit_map(corpus["vocab"])
+    feats = [(u, load_mat(rx)) for u, rx in read_scp(scp).items()]
+    batch, launches = 8, 0
+    for bw in (1, 4):
+        out = os.path.join(root, f"decode_bw{bw}")
+        project_logp_topk.launches = 0
+        rc = eval_cli.main(["--npz", npz, "--model_cfg", cfg_path, "--feats", scp,
+                            "--text", corpus["dev"][1], "--vocab", corpus["vocab"],
+                            "-b", str(batch), "-bw", str(bw), "--decode_dir", out,
+                            "--device", device])
+        cli_launches = project_logp_topk.launches
+        with open(os.path.join(out, "predict.txt"), encoding="utf-8") as f:
+            got = [line.rstrip("\n") for line in f]
+        rec = build_recognizer("transducer", model, args={"beam_width": bw, "max_len": 100},
+                               idx2unit=idx2unit)
+        want = []
+        for s in range(0, len(feats), batch):
+            chunk = feats[s: s + batch]
+            x, m, _ = eval_cli.collate([a for _, a in chunk])
+            texts, _ = rec.recognize(torch.from_numpy(x).to(device), torch.from_numpy(m).to(device))
+            want += [f"{u} {eval_cli.postprocess(t[0])}".rstrip() for (u, _), t in
+                     zip(chunk, texts)]
+        same = sum(a.rstrip() == b for a, b in zip(got, want))
+        ok = (rc == 0 and same == len(feats) == len(got)
+              and (cli_launches > 0) == (bw == 1 and device == "cuda"))
+        lens = [len(line.split()) - 1 for line in got]
+        log(f"{tag} cli/eval.py -bw {bw} over {len(feats)} dev wavs of phase 7 (40-mel host "
+            f"features, batches of {batch}): predict.txt equals the in-process decode on {same} "
+            f"of {len(feats)} (tokens {min(lens)}-{max(lens)} an utterance), kernel 1 launches "
+            f"{cli_launches} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} -bw {bw}: a gate failed (see above)")
+        if bw == 1:
+            launches = cli_launches
+    return launches
+
+
+def timed_greedy(tag: str, model, c: dict, feats, mask) -> dict:
+    """11e: the offline greedy over one batch, warm-up then the median of
+    three host-clock runs ending in a synchronize; its loop iterations and
+    kernel-1 launches; then one more run under ``torch.profiler`` for the
+    device time of kernel 1 (its partial and merge kernels) and of all the
+    device work in that run, each beside the median host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+
+    def run():
+        return model.greedy_decode(feats, mask, c["max_symbols"], c["max_per_frame"])
+
+    run()
+    torch.cuda.synchronize()
+    it0, project_logp_topk.launches = model.greedy_iterations, 0
+    tokens, n = run()
+    torch.cuda.synchronize()
+    iters, launches = model.greedy_iterations - it0, project_logp_topk.launches
+    times = [host_seconds(run) for _ in range(3)]
+    secs = sorted(times)[1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kern_us = dev_us = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            dev_us += us
+            if "partial_topk_kernel" in e.name or "merge_topk_kernel" in e.name:
+                kern_us += us
+    got = {"seconds": secs, "iterations": iters, "launches": launches,
+           "kernel_ms": kern_us / 1e3, "device_ms": dev_us / 1e3, "tokens": int(n.sum())}
+    log(f"{tag}: greedy B={feats.shape[0]} x {feats.shape[1]} frames: median {secs:.3f} s of "
+        f"{[round(t, 3) for t in times]}, {iters} loop iterations, kernel 1 launches {launches}; "
+        f"in one more run under torch.profiler kernel 1's device time {got['kernel_ms']:.2f} ms "
+        f"({1e3 * got['kernel_ms'] / max(launches, 1):.1f} us a launch, "
+        f"{0.1 * got['kernel_ms'] / secs:.1f}% of the median host time) and all device work "
+        f"{got['device_ms']:.2f} ms ({0.1 * got['device_ms'] / secs:.1f}%); {got['tokens']} "
+        f"tokens, {1e3 * secs / max(iters, 1):.2f} ms an iteration [{card_line()}]")
+    if launches != iters or iters == 0 or not bool((n > 0).any()) or kern_us <= 0:
+        raise AssertionError(f"{tag}: expected one kernel-1 launch an iteration, tokens and "
+                             f"kernel-1 device time")
+    return got
+
+
+def phase_transducer(workdir: str, corpus: dict):
+    """Phase 11 (module docstring). Returns {path: kernel 1 launches}."""
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+    from opentransformer_tpu_torch.recognize.multistream import MultiStreamTransducer
+    from opentransformer_tpu_torch.recognize.online import StreamingTransducerRecognizer
+
+    t_phase = time.time()
+    fixture = load_transducer_fixture()
+    c = fixture["inputs"]
+    feats, mask, targets = transducer_inputs(c)
+    got_sum = checksum([feats])
+    if (abs(got_sum - fixture["checksums"]["feats"]) > 1e-9 * got_sum
+            or checksum([targets]) != fixture["checksums"]["targets"]):
+        raise AssertionError("phase11: the seeded inputs are not the fixture's")
+    launches = {}
+
+    # 11a: offline greedy against JAX's
+    name = TRANSDUCERS[0]
+    want = fixture["results"][name]
+    model, params = seeded_transducer(name, c, want=fixture)
+    project_logp_topk.launches = 0
+    out = transducer_outputs(model, feats, mask, targets, c)
+    one = project_logp_topk.launches
+    got = transducer_parity(out, want)
+    ok = (got["memory"] <= TRANSDUCER_MEMORY_ATOL and got["logp"] <= TRANSDUCER_LOGP_ATOL
+          and got["frames_differ"] == 0 and got["ids_differ"] <= TRANSDUCER_GREEDY_LIMIT
+          and one == out["iterations"] > 0)
+    log(f"phase11a {name} f32, seeded weights (joint output kernel x{c['joint_scale']}, blank "
+        f"bias +{c['blank_bias']}), {c['utts']} "
+        f"utterances of up to {c['frames']} frames x {c['mel']} mel, against JAX: encoder memory "
+        f"(projected) max|d| {got['memory']:.3e} (atol {TRANSDUCER_MEMORY_ATOL:.0e}; frame "
+        f"counts differ on {got['frames_differ']}), joint log-probs along a lattice path max|d| "
+        f"{got['logp']:.3e} (atol {TRANSDUCER_LOGP_ATOL:.0e}), greedy ids differ on "
+        f"{got['ids_differ']} <= {TRANSDUCER_GREEDY_LIMIT} of {c['utts']} (tokens "
+        f"{sum(map(len, out['greedy']))}, JAX {sum(map(len, want['greedy']))}; blank the JAX "
+        f"argmax at {100 * want['blank_share']:.1f}% of its lattice steps), kernel 1 launches "
+        f"{one} = loop iterations {out['iterations']} (k=1, N={c['utts']}) "
+        f"{'ok' if ok else 'FAIL'} [{card_line()}]")
+    if not ok:
+        raise AssertionError("phase11a: a gate failed (see above)")
+    launches["phase11a transducer greedy (k=1, N=16)"] = one
+
+    # 11b: beam 4, plain and with each LM fused
+    for kind in ("none", *TRANSDUCER_LMS):
+        lm = None
+        if kind != "none":
+            lm, lm_params = seeded_lm(kind, c)
+            want_sum = fixture["checksums"][kind]
+            if abs(checksum(lm_params) - want_sum) > 1e-9 * want_sum:
+                raise AssertionError(f"phase11b: the seeded {kind} is not the fixture's")
+        project_logp_topk.launches = 0
+        t0 = time.time()
+        beam = transducer_beam(model, feats, mask, c, lm)
+        wall = time.time() - t0
+        got = beam_parity(beam, want["beam"][kind])
+        best = [len(h[0]) for h in beam["ids"]]
+        ok = (got["best_differ"] <= TRANSDUCER_BEAM_LIMIT and got["unsorted"] == 0
+              and got["nbest_differ"] <= TRANSDUCER_BEAM_LIMIT
+              and got["score_rtol"] <= TRANSDUCER_SCORE_RTOL and project_logp_topk.launches == 0
+              and beam_holds_labels(best))
+        weight = "" if lm is None else f" at -lmw {c['lm_weight']}"
+        log(f"phase11b beam {c['beam']}, {c['expansions']} expansions a frame, LM {kind}{weight}: "
+            f"1-best ids differ from JAX's on {got['best_differ']} <= {TRANSDUCER_BEAM_LIMIT} of "
+            f"{c['utts']}, n-best id lists on {got['nbest_differ']} <= {TRANSDUCER_BEAM_LIMIT}, "
+            f"scores of hypotheses in "
+            f"both max rel|d| {got['score_rtol']:.2e} (rtol {TRANSDUCER_SCORE_RTOL:.0e}), "
+            f"unsorted {got['unsorted']}, 1-best lengths {best} (labelled on "
+            f"{sum(n > 0 for n in best)} >= {TRANSDUCER_BEAM_LABELLED}, longest >= "
+            f"{TRANSDUCER_BEAM_LONGEST}), n-best lengths "
+            f"{sorted({len(x) for h in beam['ids'] for x in h})}, wall {wall:.1f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase11b {kind}: a gate failed (see above)")
+        del lm
+    del model
+
+    # 11c: the streaming config, single-stream and multi-stream
+    name = TRANSDUCERS[1]
+    model, stream_params = seeded_transducer(name, c, want=fixture)
+    rec = StreamingTransducerRecognizer(model, max_per_frame=c["max_per_frame"])
+    if rec.session.raw_chunk != STREAM_CHUNK_FRAMES:
+        raise AssertionError(f"the streamed chunk is {rec.session.raw_chunk} raw frames")
+    project_logp_topk.launches, it0 = 0, model.greedy_iterations
+    streamed = streamed_transducer_ids(rec, feats, mask)
+    one, iters = project_logp_topk.launches, model.greedy_iterations - it0
+    offline = offline_transducer_ids(model, feats, mask, c)
+    jax_differ = sum(a != b for a, b in zip(streamed, fixture["results"][name]["streamed"]))
+    off_differ = sum(a != b for a, b in zip(streamed, offline))
+    ms = MultiStreamTransducer(model, n_streams=c["utts"], max_per_frame=c["max_per_frame"])
+    project_logp_topk.launches, it0 = 0, model.greedy_iterations
+    slots, finals = multistream_reuse(ms, feats, mask)
+    ms_one, ms_iters = project_logp_topk.launches, model.greedy_iterations - it0
+    ms_differ = sum(finals[i] != " ".join(map(str, ids)) for i, ids in enumerate(streamed))
+    ms_differ += int(finals["again"] != finals[0])
+    reused = slots["again"] in slots.values() and ms.free_slots() == c["utts"]
+    ok = (jax_differ <= TRANSDUCER_GREEDY_LIMIT and off_differ == 0 and ms_differ == 0
+          and reused and one == iters > 0 and ms_one == ms_iters > 0)
+    log(f"phase11c {name} f32 streamed in {STREAM_CHUNK_FRAMES}-frame feeds: "
+        f"StreamingTransducerRecognizer ids differ from the port's offline greedy of each "
+        f"chunk-masked utterance on {off_differ} of {c['utts']}, from JAX's streamed ids on "
+        f"{jax_differ} <= {TRANSDUCER_GREEDY_LIMIT} (tokens {sum(map(len, streamed))}), kernel 1 "
+        f"launches {one} = iterations {iters} (k=1, N=1); MultiStreamTransducer, {c['utts']} "
+        f"slots opened one a tick, utterance 0 again in the first freed slot (slot "
+        f"{slots['again']}), {ms.ticks} ticks: FINALs differ from the single-stream ids on "
+        f"{ms_differ} of {c['utts'] + 1}, free slots after {ms.free_slots()}, kernel 1 launches "
+        f"{ms_one} = iterations {ms_iters} (k=1, N={c['utts']}) {'ok' if ok else 'FAIL'} "
+        f"[{card_line()}]")
+    if not ok:
+        raise AssertionError("phase11c: a gate failed (see above)")
+    launches["phase11c online transducer (k=1, N=1)"] = one
+    launches["phase11c multi-stream transducer (k=1, N=16)"] = ms_one
+    del model, rec, ms
+
+    # 11d: the CLIs
+    with open(os.path.join(CONF_DIR, f"{TRANSDUCERS[0]}.json"), encoding="utf-8") as f:
+        offline_cfg = json.load(f)
+    launches["phase11d eval CLI, transducer greedy (k=1, N=8)"] = transducer_cli(
+        "phase11d", workdir, corpus, params, offline_cfg)
+    data_cfg = {"num_mel_bins": offline_cfg["data"]["num_mel_bins"],
+                "normalization": offline_cfg["data"]["normalization"], "vocab": corpus["vocab"]}
+    launches["phase11d serve --streaming, transducer (k=1, N=4)"] = pcm_check(
+        "phase11d", workdir, name, stream_params, conformer_model_cfg(name), data_cfg, corpus,
+        PCM["streams"])
+    log(f"phase11a-d wall {time.time() - t_phase:.1f} s")
+
+    # 11e: timed, not gated
+    t = TRANSDUCER_LOAD
+    g = torch.Generator().manual_seed(t["seed"])
+    x = torch.randn(t["batch"], t["frames"], c["mel"], generator=g).cuda()
+    m = torch.ones(t["batch"], t["frames"], dtype=torch.bool, device="cuda")
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        model, _ = seeded_transducer(TRANSDUCERS[0], c, dtype=dtype)
+        got = timed_greedy(f"phase11e transducer {label}", model, c, x, m)
+        launches[f"phase11e transducer greedy {label} (k=1, N={t['batch']})"] = got["launches"]
+        if dtype == torch.bfloat16:
+            run = lambda: model.beam_decode(x, m, c["beam"], c["beam_max_symbols"],  # noqa: E731
+                                            c["expansions"])
+            run()
+            secs = host_seconds(run)
+            log(f"phase11e transducer bf16 beam {c['beam']} ({c['expansions']} expansions a "
+                f"frame) B={t['batch']} x {t['frames']} frames: {secs:.3f} s a batch (one run "
+                f"after a warm-up) [{card_line()}]")
+        del model
+    model, _ = seeded_transducer(TRANSDUCERS[1], c, dtype=torch.bfloat16)
+    rng = np.random.default_rng(t["seed"])
+    load = [rng.normal(size=(int(t["seconds"] * 100), c["mel"])).astype(np.float32)
+            for _ in range(t["slots"])]
+    ms = MultiStreamTransducer(model, t["slots"], max_per_frame=c["max_per_frame"])
+    it0 = model.greedy_iterations
+    got = stream_load("phase11e MultiStreamTransducer bf16", ms, load)
+    if got["launches"] != model.greedy_iterations - it0 or got["launches"] == 0:
+        raise AssertionError("phase11e: expected one kernel-1 launch a lattice iteration")
+    launches[f"phase11e multi-stream transducer bf16 (k=1, N={t['slots']})"] = got["launches"]
+    log(f"phase11 wall {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
     """The kernel's entry of the JSON line: ``launches`` on its first main
     path, ``launches_by_path`` on each path that launches it."""
@@ -2181,12 +2757,13 @@ def main() -> int:
         conformer_train_launches = phase_conformer_train(workdir, corpus)
         conformer_launches = phase_conformer()
         stream_launches, stream_launches2 = phase_streaming(workdir, data, corpus)
+        transducer_launches = phase_transducer(workdir, corpus)
 
     # launches: each kernel's count on its own main paths (phase 3 without an
-    # LM, phase 8's CTC decodes, phase 9's conformer decodes and phase 10's
-    # serving paths, phases 5 and 10d with an LM, phases 7 and 9d's training
-    # runs); times at the flagship bf16 beam-step shape and at the 16 x 10 s
-    # training batch
+    # LM, phase 8's CTC decodes, phase 9's conformer decodes, phase 10's
+    # serving paths and phase 11's transducer paths, phases 5 and 10d with an
+    # LM, phases 7 and 9d's training runs); times at the flagship bf16
+    # beam-step shape and at the 16 x 10 s training batch
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:96", launches, max_err,
@@ -2195,7 +2772,7 @@ def main() -> int:
                        "phase8a anchor CTC greedy (k=1)": ctc_launches["greedy"],
                        "phase8b anchor CTC prefix beam (k=32 + lse)": ctc_launches["beam"],
                        "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"],
-                       **conformer_launches, **stream_launches}),
+                       **conformer_launches, **stream_launches, **transducer_launches}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
                       timings2["flagship bf16"],

@@ -21,9 +21,12 @@ modules for inference); and streaming and serving: the streamed encode
 (``encode_step`` with per-block KV caches and causal-conv state), the
 online CTC and attention recognizers, the long-form (windowed) recognizer,
 the multi-stream server core and ``cli/serve.py`` (dynamic batcher, TCP
-lines, streaming TCP and PCM). CLI training with a CTC loss, BatchNorm
-training, MoE, the transducer models (and their streaming recognizers) and
-the other datasets are still to port (``ROADMAP.md``).
+lines, streaming TCP and PCM); and the transducer's inference and serving
+(prediction and joint networks, greedy and mAES beam decoding with LM
+fusion, the online and multi-stream transducer recognizers, the eval and
+serve CLIs). Transducer training (the RNNT loss), CLI training with a CTC
+loss, BatchNorm training, MoE and the other datasets are still to port
+(``ROADMAP.md``).
 
 The Pallas kernels of the JAX package become hand-written CUDA kernels
 under ``csrc/``, built with ``nvcc`` at first use (``ops/cuda_build.py``):

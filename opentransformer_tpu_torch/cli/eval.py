@@ -17,6 +17,11 @@ frame's top ``-prune`` candidates, with ``-nb`` n-best and optional n-gram
 fusion (``-ngram ARPA -alpha A -beta B``). Its weights may be a speech2text
 npz (the anchor's): the decoder's arrays are then left out.
 
+A ``transducer`` model config decodes greedily at ``-bw 1`` or ``-md
+greedy`` (kernel 1 at k = 1 in every lattice step, at most ``-mt``
+emissions a frame) or with the mAES beam of width ``-bw`` (``-nb`` n-best,
+an LM fused at ``-lmw``); ``-ml`` caps the tokens an utterance.
+
     python -m opentransformer_tpu_torch.cli.eval \\
         --npz egs/synth_bench/trained/anchor_synth_f16.npz \\
         --model_cfg egs/synth_bench/trained/anchor_synth_f16.manifest.json \\
@@ -34,8 +39,9 @@ npz (the anchor's): the decoder's arrays are then left out.
 
 ``--online`` decodes each utterance as a stream, fed chunk by chunk
 through the streamed encode (a chunked-attention model with a conv
-frontend): greedy frame-synchronous CTC for a ``ctc`` model, the
-incremental beam re-decode for ``speech2text`` (``recognize/online.py``).
+frontend): greedy frame-synchronous CTC for a ``ctc`` model, the resumed
+greedy lattice walk for a ``transducer``, the incremental beam re-decode
+for ``speech2text`` (``recognize/online.py``).
 ``--long_form`` encodes inputs longer than ``--window`` frames in
 overlapping windows with ``--context`` frames each side
 (``recognize/streaming.py``; ``speech2text`` only, other models decode
@@ -83,12 +89,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--decode_dir", required=True, help="output directory")
     p.add_argument("-b", "--batch_size", type=int, default=16)
     p.add_argument("-bw", "--beam_width", type=int, default=5,
-                   help="attention beam width; for a ctc model the prefix-beam width "
-                        "(1: greedy)")
+                   help="attention beam width; for a ctc model the prefix-beam width, for a "
+                        "transducer the mAES beam width (1: greedy)")
     p.add_argument("-nb", "--nbest", type=int, default=1,
-                   help="n-best size of the CTC prefix beam")
+                   help="n-best size of the CTC prefix beam and of the transducer beam")
     p.add_argument("-pn", "--penalty", type=float, default=0.6)
-    p.add_argument("-ml", "--max_len", type=int, default=100)
+    p.add_argument("-ml", "--max_len", type=int, default=100,
+                   help="most decode steps (speech2text) or tokens an utterance (transducer)")
     p.add_argument("-md", "--mode", default="beam", choices=["beam", "greedy"],
                    help="'greedy' sets the beam width to 1")
     p.add_argument("-ctcw", "-cw", "--ctc_weight", type=float, default=0.0,
@@ -113,13 +120,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-lm_resc", "--lm_rescore_weight", type=float, default=0.0,
                    help="post-beam n-best LM rescoring weight (0: off)")
     p.add_argument("-mt", "--max_tokens_per_chunk", type=int, default=8,
-                   help="transducer streaming: max emissions per frame (the transducer is not "
-                        "ported yet)")
+                   help="transducer: max emissions per encoder frame")
     p.add_argument("-p2w", "--piece2word", action="store_true",
                    help="join sentencepiece pieces: strip spaces, '\u2581' -> space")
     p.add_argument("--online", action="store_true",
                    help="streaming decode over a chunked-attention encoder: frame-synchronous "
-                        "for ctc, incremental beam re-decode for speech2text")
+                        "for ctc and transducer, incremental beam re-decode for speech2text")
     p.add_argument("--long_form", action="store_true",
                    help="windowed encoding for long audio (speech2text)")
     p.add_argument("--window", type=int, default=1200, help="long-form window frames")

@@ -14,7 +14,8 @@ it) on the card:
     frame and are dropped), decodes them with the model's recognizer (kernel
     1 in every beam step; kernel 2 with ``-lm``) and answers
     ``utt_id<TAB>text``; ``stats()`` reports latency percentiles and RTFx;
-  * ``--streaming`` (a chunked-attention ``ctc`` or ``speech2text`` model):
+  * ``--streaming`` (a chunked-attention ``ctc``, ``transducer`` or
+    ``speech2text`` model):
     ``--streams`` slots advance together, one fused step a tick
     (``recognize/multistream.py``), answering ``utt<TAB>PARTIAL<TAB>text``
     lines as a hypothesis grows and then ``utt<TAB>FINAL<TAB>text``. Over
@@ -85,12 +86,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true",
                    help="run every bucket shape once before accepting requests")
     p.add_argument("--streaming", action="store_true",
-                   help="frame-synchronous session mode (ctc, speech2text): PARTIAL "
+                   help="frame-synchronous session mode (ctc, transducer, speech2text): PARTIAL "
                         "hypotheses per chunk, then a FINAL result")
     p.add_argument("--streams", type=int, default=2,
                    help="concurrent streaming slots; all advance in one fused step a tick")
     p.add_argument("-mt", "--max_tokens_per_chunk", type=int, default=8,
-                   help="transducer streaming: max emissions per frame (not ported yet)")
+                   help="transducer: max emissions per encoder frame")
     p.add_argument("-bw", "--beam_width", type=int, default=5)
     p.add_argument("-nb", "--nbest", type=int, default=1)
     p.add_argument("-pn", "--penalty", type=float, default=0.6)
@@ -500,7 +501,8 @@ def _build(args):
                        "penalty": args.penalty, "lamda": args.lamda})
         return front, extractor
     recog_args = {"beam_width": args.beam_width, "nbest": args.nbest, "penalty": args.penalty,
-                  "lamda": args.lamda, "max_len": args.max_len, "lm_weight": args.lm_weight}
+                  "lamda": args.lamda, "max_len": args.max_len, "lm_weight": args.lm_weight,
+                  "max_tokens_per_chunk": args.max_tokens_per_chunk}
     recognizer = build_recognizer(model_type, model, lm=lm, args=recog_args, idx2unit=idx2unit)
     batcher = DynamicBatcher(recognizer, [int(b) for b in str(args.bucket_frames).split(",") if b],
                              max_batch=args.max_batch, timeout_ms=args.batch_timeout_ms,

@@ -13,9 +13,10 @@ Both expose what the beam search needs: ``logits`` over whole sequences
 (``ops/project_topk.py:project2_logp_topk``). Module and parameter names
 follow the flax modules so ``compat.params_from_jax`` maps their weights.
 
-Not ported: the training ``__call__`` and its loss, the MoE feed-forward
-(``moe_experts > 0`` raises), and the per-row ``index`` of the transformer
-LM's decode step, which only the transducer beam uses.
+The transformer LM's decode step takes a scalar position (the lockstep
+beam) or one position a row (the transducer beam's per-hypothesis LM
+state). Not ported: the training ``__call__`` and its loss, and the MoE
+feed-forward (``moe_experts > 0`` raises).
 """
 
 from __future__ import annotations
@@ -81,8 +82,9 @@ class TransformerLMLayer(nn.Module):
         x = self.norm1(x + self.slf_attn(x, attn_mask))
         return self.norm2(x + self.ffn(x))
 
-    def decode_step(self, x_t, cache, index: int, src=None):
-        """x_t: [N, 1, D]; writes position ``index`` of ``cache`` in place."""
+    def decode_step(self, x_t, cache, index, src=None):
+        """x_t: [N, 1, D]; writes position ``index`` (an int, or int[N]) of
+        ``cache`` in place."""
         x = self.norm1(x_t + self.slf_attn.decode_step(x_t, cache["k"], cache["v"], index, src))
         return self.norm2(x + self.ffn(x))
 
@@ -132,9 +134,12 @@ class TransformerLanguageModel(_VocabHead):
                  "v": torch.zeros(shape, dtype=p.dtype, device=p.device)}
                 for _ in range(self.num_blocks)]
 
-    def decode_hidden(self, token_t, cache, index: int, src=None):
+    def decode_hidden(self, token_t, cache, index, src=None):
         """Pre-projection hidden of one step: (h [N, D], cache), the caches
-        written in place at position ``index`` (a scalar: lockstep beam).
+        written in place at position ``index``: an int (lockstep beam), or
+        int[N], each row at its own position (the transducer beam; a row
+        whose position lies past the cache writes nothing, as the JAX
+        package's one-hot write).
 
         ``src``: optional int[B, K, U] beam-ancestry map (B·K = N), the one
         the decoder threads through its own step. With it the KV caches are
@@ -145,11 +150,16 @@ class TransformerLanguageModel(_VocabHead):
         hypothesis order and the caller reorders them between steps.
 
         The position term is added as the JAX reference does: embedded at
-        position 0, then shifted by pe(index) − pe(0)."""
+        position 0, then shifted by pe(index) − pe(0) (a row's own with
+        per-row positions)."""
         x = self._embed(token_t[:, None])
-        pos = torch.tensor([0, index], device=token_t.device)
-        pe = sinusoid_position_encoding(pos, self.d_model)
-        x = x + (pe[1] - pe[0]).to(x.dtype)
+        pe0 = sinusoid_position_encoding(torch.zeros(1, device=token_t.device), self.d_model)
+        if isinstance(index, torch.Tensor) and index.dim() == 1:
+            pe = sinusoid_position_encoding(index.to(token_t.device), self.d_model)[:, None]
+        else:
+            pe = sinusoid_position_encoding(torch.tensor([index], device=token_t.device),
+                                            self.d_model)
+        x = x + (pe - pe0).to(x.dtype)
         for layer, layer_cache in zip(self.layers, cache):
             x = layer.decode_step(x, layer_cache, index, src)
         return x[:, 0], cache

@@ -175,14 +175,25 @@ class MultiHeadSelfAttention(nn.Module):
         q, k, v = self._qkv(x)
         return self.attn_dropout(self.out_proj(merge_heads(attention_context(q, k, v, mask))))
 
-    def decode_step(self, x_t, cache_k, cache_v, index: int, src=None):
+    def decode_step(self, x_t, cache_k, cache_v, index, src=None):
         """One step at position ``index`` with a [N, H, U_max, Dh] cache.
 
         The new key/value is written into the cache in place (the JAX
         reference returns updated copies). With ``src`` (int[B, K, U_max])
         the cache is unordered and rows are selected through the ancestry
-        map (``ancestral_decode_context``). Returns out [N, 1, D]."""
+        map (``ancestral_decode_context``). ``index`` may be int[N], each row
+        at its own position (no ``src`` then): as the JAX package, a one-hot
+        write (a row past the cache writes nothing) and a mask of the
+        positions up to the row's. Returns out [N, 1, D]."""
         q, k_t, v_t = self._qkv(x_t)
+        if isinstance(index, torch.Tensor) and index.dim() == 1:
+            pos = torch.arange(cache_k.shape[2], device=cache_k.device)
+            hot = (pos[None] == index[:, None])[:, None, :, None]
+            cache_k.copy_(torch.where(hot, k_t.to(cache_k.dtype), cache_k))
+            cache_v.copy_(torch.where(hot, v_t.to(cache_v.dtype), cache_v))
+            valid = pos[None, None, None, :] <= index[:, None, None, None]
+            ctx = attention_context(q, cache_k.to(q.dtype), cache_v.to(q.dtype), valid)
+            return self.out_proj(merge_heads(ctx))
         cache_k[:, :, index] = k_t[:, :, 0].to(cache_k.dtype)
         cache_v[:, :, index] = v_t[:, :, 0].to(cache_v.dtype)
         if src is None:

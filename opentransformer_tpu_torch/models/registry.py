@@ -2,10 +2,10 @@
 
 Builds a model from the ``model`` section of a config, as a dict (read from
 JSON: the anchor manifest's ``model_cfg`` is one). The port covers
-``speech2text`` and ``ctc`` with a conv or concat frontend and a
-transformer or conformer encoder (absolute or relative positions, chunked
-attention), and the language models ``transformer_lm`` and ``rnn_lm``;
-anything else raises and names the ROADMAP queue.
+``speech2text``, ``ctc`` and ``transducer`` with a conv or concat
+frontend and a transformer or conformer encoder (absolute or relative
+positions, chunked attention), and the language models ``transformer_lm``
+and ``rnn_lm``; anything else raises and names the ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from torch import nn
 from ..utils import disable_tf32, resolve_device
 from .lm import RecurrentLanguageModel, TransformerLanguageModel
 from .speech2text import ENCODERS, FRONTENDS, CTCModel, SpeechToText
+from .transducer import TransducerModel
 
 LM_TYPES = {"transformer_lm": TransformerLanguageModel, "rnn_lm": RecurrentLanguageModel}
 
@@ -63,7 +64,7 @@ def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
     if mtype in LM_TYPES:
         cls = LM_TYPES[mtype]
         return cls(**_lm_kwargs(model_cfg, cls)).to(device=dev, dtype=dtype).eval()
-    if mtype not in ("speech2text", "ctc"):
+    if mtype not in ("speech2text", "ctc", "transducer"):
         raise _not_ported(f"model type {mtype!r}")
     frontend_type = model_cfg.get("frontend_type", "conv")
     encoder_type = model_cfg.get("encoder_type", "transformer")
@@ -79,7 +80,13 @@ def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
                 raise _not_ported(f"{section} option {key}={model_cfg[section][key]!r}")
     lookahead = int(model_cfg.get("lookahead_steps", 0))
     types = {"frontend_type": frontend_type, "encoder_type": encoder_type}
-    if mtype == "ctc":
+    if mtype == "transducer":
+        model = TransducerModel(
+            model_cfg["frontend"], model_cfg["encoder"], int(model_cfg["vocab_size"]),
+            predictor_cfg=model_cfg.get("predictor") or {},
+            d_joint=int(model_cfg.get("d_joint", model_cfg["encoder"].get("d_model", 256))),
+            **types)
+    elif mtype == "ctc":
         model = CTCModel(model_cfg["frontend"], model_cfg["encoder"],
                          int(model_cfg["vocab_size"]), lookahead_steps=lookahead, **types)
     else:

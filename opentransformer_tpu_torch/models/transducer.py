@@ -1,0 +1,323 @@
+"""RNN-Transducer, inference side (counterpart of
+``opentransformer_tpu/models/transducer.py``).
+
+  * ``TransducerPredictionNetwork``: embedding → LSTM stack (the flax
+    ``OptimizedLSTMCell`` layout of ``lm.LSTMCell``, carry (c, h)), over a
+    label sequence or one label a step.
+  * ``TransducerJointNetwork``: ``tanh(enc_proj(enc) + pred_proj(pred))`` →
+    vocabulary projection; ``step_argmax`` takes a lattice step's argmax
+    through the fused projection → log-softmax → top-k (kernel 1 at k = 1
+    on the card), so the [B, V] logits are never written.
+  * ``TransducerModel``: frontend → encoder → prediction and joint
+    networks; the frame-synchronous greedy decode (``greedy_frames``,
+    resumable across chunks for streaming) and the time-synchronous mAES
+    beam with optional LM shallow fusion (``beam_decode``).
+
+Blank = PAD = 0. The greedy lattice loop checks on the host, once an
+iteration, whether any row still has frames; ``greedy_iterations`` counts
+the iterations, each of which launches kernel 1 once. Not ported: the
+training loss (``forward`` raises; the RNNT loss and the blocked joint
+``blank_emit_log_probs`` wait in ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..data import BLK, BOS
+from ..ops.masks import mask_to_length
+from ..ops.project_topk import project_logp_topk, topk_smallest_id
+from .lm import RNN
+from .speech2text import ENCODERS, FRONTENDS, _build
+
+NEG = -1.0e30
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of nested lists, tuples and dicts."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
+class TransducerPredictionNetwork(nn.Module):
+    """Label-history encoder: embedding → ``num_layers`` LSTMs (the JAX
+    config's inter-layer ``dropout`` acts only in training)."""
+
+    def __init__(self, vocab_size: int, d_model: int = 256, num_layers: int = 1):
+        super().__init__()
+        self.d_model = d_model
+        self.num_layers = num_layers
+        self.embedding = nn.Embedding(vocab_size, d_model)
+        self.rnns = []
+        for i in range(num_layers):
+            rnn = RNN(d_model, d_model)
+            self.add_module(f"lstm_{i}", rnn)
+            self.rnns.append(rnn)
+
+    def init_hidden(self, batch: int):
+        """Per-layer (c, h) of [batch, d_model] zeros."""
+        p = self.embedding.weight
+        return [(torch.zeros((batch, self.d_model), dtype=p.dtype, device=p.device),
+                 torch.zeros((batch, self.d_model), dtype=p.dtype, device=p.device))
+                for _ in range(self.num_layers)]
+
+    def forward(self, tokens):
+        """tokens int[B, U1] (BOS ⧺ labels) → states [B, U1, D]."""
+        x = self.embedding(tokens)
+        for rnn, carry in zip(self.rnns, self.init_hidden(tokens.shape[0])):
+            _, x = rnn(x, carry)
+        return x
+
+    def decode_step(self, token_t, hidden):
+        """token_t int[B] → (state [B, D], new hidden)."""
+        x = self.embedding(token_t)
+        new_hidden = []
+        for rnn, carry in zip(self.rnns, hidden):
+            carry, x = rnn.cell(carry, x)
+            new_hidden.append(carry)
+        return x, new_hidden
+
+
+class TransducerJointNetwork(nn.Module):
+    """The additive joiner: enc-proj + pred-proj → tanh → vocabulary."""
+
+    def __init__(self, enc_dim: int, pred_dim: int, vocab_size: int, d_joint: int = 256):
+        super().__init__()
+        self.enc_proj = nn.Linear(enc_dim, d_joint)
+        self.pred_proj = nn.Linear(pred_dim, d_joint)
+        self.output_layer = nn.Linear(d_joint, vocab_size)
+
+    def forward(self, enc, pred):
+        """enc [B, T, De], pred [B, U1, Dp] → logits f32[B, T, U1, V]."""
+        h = torch.tanh(self.enc_proj(enc)[:, :, None, :] + self.pred_proj(pred)[:, None, :, :])
+        return self.output_layer(h).float()
+
+    def _hidden(self, enc_t, pred_u):
+        return torch.tanh(self.enc_proj(enc_t) + self.pred_proj(pred_u))
+
+    def step(self, enc_t, pred_u):
+        """enc_t [B, De], pred_u [B, Dp] → logits f32[B, V]."""
+        return self.output_layer(self._hidden(enc_t, pred_u)).float()
+
+    def step_argmax(self, enc_t, pred_u):
+        """The argmax label of ``step`` (int[B], ties to the smallest id, as
+        ``jnp.argmax``) through the fused projection top-1: kernel 1 on a
+        CUDA tensor, its plain version on a CPU tensor."""
+        h = self._hidden(enc_t, pred_u).contiguous()
+        _, idx = project_logp_topk(h, self.output_layer.weight, self.output_layer.bias, 1)
+        return idx[:, 0].long()
+
+
+class TransducerModel(nn.Module):
+    """frontend → encoder → prediction and joint networks (inference). The
+    JAX config's training-only keys (``joint_t_block``, ``moe_aux_weight``)
+    are not read."""
+
+    def __init__(self, frontend_cfg: dict, encoder_cfg: dict, vocab_size: int,
+                 predictor_cfg: dict | None = None, d_joint: int | None = None,
+                 frontend_type: str = "conv", encoder_type: str = "transformer"):
+        super().__init__()
+        self.vocab_size = int(vocab_size)
+        self.frontend = _build(FRONTENDS[frontend_type], frontend_cfg)
+        self.encoder = _build(ENCODERS[encoder_type], encoder_cfg)
+        pc = dict(predictor_cfg or {})
+        pc.setdefault("d_model", self.encoder.d_model)
+        self.predictor = TransducerPredictionNetwork(
+            self.vocab_size, **{k: v for k, v in pc.items()
+                                if k in ("d_model", "num_layers")})
+        self.joint = TransducerJointNetwork(
+            self.encoder.d_model, self.predictor.d_model, self.vocab_size,
+            self.encoder.d_model if d_joint is None else int(d_joint))
+        self.greedy_iterations = 0  # lattice-loop iterations, one kernel-1 launch each
+
+    @property
+    def dtype(self):
+        return self.joint.output_layer.weight.dtype
+
+    def encode(self, feats, feat_mask):
+        """feats [B, T, F], bool[B, T] → (memory [B, T', D], bool[B, T'])."""
+        x, mask = self.frontend(feats.to(self.dtype), feat_mask)
+        return self.encoder(x, mask)
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the transducer's training loss (the RNNT loss) is not ported to "
+            "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: transducer training)")
+
+    def init_decode_state(self, batch: int):
+        """(prediction state [B, D], hidden) primed with BOS: the carry of
+        ``greedy_frames`` (offline decode and chunk streaming share it)."""
+        dev = self.predictor.embedding.weight.device
+        return self.predictor.decode_step(
+            torch.full((batch,), BOS, dtype=torch.long, device=dev),
+            self.predictor.init_hidden(batch))
+
+    def greedy_frames(self, memory, frame_len, state, hidden, max_symbols: int = 200,
+                      max_per_frame: int = 8):
+        """Frame-synchronous greedy search over ``memory`` [B, T, D]: at each
+        lattice state emit the argmax label and advance the prediction
+        network, or consume a frame on blank. Every row runs until its
+        ``frame_len`` frames are used; the caps ``max_symbols`` (a row) and
+        ``max_per_frame`` force a blank. A row with no frame is never
+        stepped.
+
+        Returns (tokens int[B, max_symbols] 0-padded, n int[B], state,
+        hidden): the carried (state, hidden) make this resumable chunk by
+        chunk."""
+        b, t_max, _ = memory.shape
+        dev = memory.device
+        frame_len = frame_len.to(device=dev, dtype=torch.long)
+        rows = torch.arange(b, device=dev)
+        slots = torch.arange(max_symbols, device=dev)[None]
+        t = torch.zeros(b, dtype=torch.long, device=dev)
+        n = torch.zeros(b, dtype=torch.long, device=dev)
+        emitted_in_frame = torch.zeros(b, dtype=torch.long, device=dev)
+        tokens = torch.zeros((b, max_symbols), dtype=torch.long, device=dev)
+        while bool((t < frame_len).any()):
+            self.greedy_iterations += 1
+            enc_t = memory[rows, t.clamp(max=t_max - 1)]
+            best = self.joint.step_argmax(enc_t, state)
+            active = t < frame_len
+            emit = ((best != BLK) & active & (n < max_symbols)
+                    & (emitted_in_frame < max_per_frame))
+            new_state, new_hidden = self.predictor.decode_step(best, hidden)
+            keep = emit[:, None]
+            state = torch.where(keep, new_state, state)
+            hidden = [(torch.where(keep, nc, c), torch.where(keep, nh, h))
+                      for (nc, nh), (c, h) in zip(new_hidden, hidden)]
+            tokens = torch.where(keep & (slots == n[:, None]), best[:, None], tokens)
+            n = n + emit.long()
+            t = torch.where(active & ~emit, t + 1, t)
+            emitted_in_frame = torch.where(emit, emitted_in_frame + 1, 0)
+        return tokens, n, state, hidden
+
+    @torch.inference_mode()
+    def greedy_decode(self, feats, feat_mask, max_symbols: int = 200, max_per_frame: int = 8):
+        """Offline batched greedy search → (tokens int[B, max_symbols]
+        0-padded, n_tokens int[B])."""
+        memory, memory_mask = self.encode(feats, feat_mask)
+        state, hidden = self.init_decode_state(memory.shape[0])
+        tokens, n, _, _ = self.greedy_frames(memory, mask_to_length(memory_mask), state, hidden,
+                                             max_symbols, max_per_frame)
+        return tokens, n
+
+    @torch.inference_mode()
+    def beam_decode(self, feats, feat_mask, beam_width: int = 4, max_symbols: int = 100,
+                    expansions: int = 2, lm_init=None, lm_step=None, lm_weight: float = 0.0):
+        """Time-synchronous transducer beam search with at most
+        ``expansions`` label expansions a frame (mAES): every frame, each of
+        the K hypotheses is blank-finalized into the next frame's beam and
+        extended by its top non-blank labels; the next beam is the top K of
+        all finalized candidates, equal label sequences merged by logsumexp
+        into the earliest slot. Plain PyTorch: the expansion's top-K over
+        K·V candidates needs the materialized log-probs.
+
+        LM shallow fusion through ``lm_init`` / ``lm_step``
+        (``recognize/base.make_lm_adapter``): a blank leaves the LM as it
+        is; a label adds ``lm_weight · log p_lm(label | prefix)`` and steps
+        the LM at the hypothesis' own position (BOS at 0, labels from 1).
+
+        Returns (tokens int[B, K, max_symbols], lengths int[B, K], scores
+        f32[B, K]), sorted best first."""
+        memory, memory_mask = self.encode(feats, feat_mask)
+        b, t_max, _ = memory.shape
+        k = beam_width
+        dev = memory.device
+        frame_len = mask_to_length(memory_mask)
+        state0, hidden0 = self.init_decode_state(b)
+        bi = torch.arange(b, device=dev)[:, None]
+
+        def tile(x):
+            return x[:, None].repeat_interleave(k, dim=1)
+
+        def gather(tree, idx):  # along the beam axis by idx [B, K] (a copy)
+            return tree_map(lambda x: x[bi, idx], tree)
+
+        def flat(tree):
+            return tree_map(lambda x: x.reshape((b * k,) + x.shape[2:]), tree)
+
+        def unflat(tree):
+            return tree_map(lambda x: x.reshape((b, k) + x.shape[1:]), tree)
+
+        use_lm = lm_step is not None and lm_weight != 0.0
+        scores0 = torch.full((b, k), NEG, device=dev)
+        scores0[:, 0] = 0.0
+        beam = {"scores": scores0,
+                "tokens": torch.zeros((b, k, max_symbols), dtype=torch.long, device=dev),
+                "lens": torch.zeros((b, k), dtype=torch.long, device=dev),
+                "state": tile(state0), "hidden": tree_map(tile, hidden0)}
+        if use_lm:
+            lm_lp0, lm_state0 = lm_step(torch.full((b,), BOS, dtype=torch.long, device=dev),
+                                        lm_init(b), 0)
+            beam["lm_lp"] = tile(lm_lp0)
+            beam["lm_state"] = tree_map(tile, lm_state0)
+        slot = torch.arange(2 * k, device=dev)
+        earlier = slot[None, :, None] < slot[None, None, :]
+        positions = torch.arange(max_symbols, device=dev)[None, None, :]
+
+        def joint_logp(enc_t, beam_state):
+            enc_bk = enc_t[:, None].repeat_interleave(k, dim=1).reshape(b * k, -1)
+            logits = self.joint.step(enc_bk, beam_state.reshape(b * k, -1))
+            return torch.log_softmax(logits, dim=-1).reshape(b, k, -1)
+
+        def rest(tree):
+            return {key: val for key, val in tree.items() if key != "scores"}
+
+        for t in range(t_max):
+            enc_t = memory[:, t]
+            active = beam
+            done = dict(beam, scores=torch.full((b, k), NEG, device=dev))
+            for e in range(expansions + 1):
+                logp = joint_logp(enc_t, active["state"])
+                # blank-finalize every active hypothesis into the done set
+                blank_scores = active["scores"] + logp[..., BLK]
+                cat = tree_map(lambda d, a: torch.cat([d, a], dim=1), rest(done), rest(active))
+                cat_scores = torch.cat([done["scores"], blank_scores], dim=1)
+                # prefix merge over the 2K union: equal buffers (0-padded past
+                # lens) of equal length fold into the earliest slot
+                same = ((cat["tokens"][:, :, None, :] == cat["tokens"][:, None, :, :]).all(-1)
+                        & (cat["lens"][:, :, None] == cat["lens"][:, None, :]))
+                is_dup = (same & earlier).any(dim=1)
+                merged = torch.logsumexp(cat_scores[:, None, :].masked_fill(~same, NEG), dim=-1)
+                cat_scores = merged.masked_fill(is_dup, NEG)
+                top_scores, top = topk_smallest_id(cat_scores, k)
+                done = {"scores": top_scores, **gather(cat, top)}
+                if e == expansions:
+                    break
+                # expand: the top K non-blank continuations of K·V candidates
+                nb = active["scores"][:, :, None] + logp
+                if use_lm:
+                    nb = nb + lm_weight * active["lm_lp"]
+                nb[..., BLK] = NEG
+                nb = nb.masked_fill((active["lens"] >= max_symbols)[:, :, None], NEG)
+                v = nb.shape[-1]
+                flat_scores, flat_idx = topk_smallest_id(nb.reshape(b, k * v), k)
+                parent = torch.div(flat_idx, v, rounding_mode="floor")
+                label = flat_idx % v
+                new = {"scores": flat_scores, **gather(rest(active), parent)}
+                new["tokens"] = torch.where(positions == new["lens"][:, :, None],
+                                            label[:, :, None], new["tokens"])
+                new["lens"] = new["lens"] + 1
+                ns, nh = self.predictor.decode_step(label.reshape(b * k), flat(new["hidden"]))
+                new["state"] = ns.reshape(b, k, -1)
+                new["hidden"] = unflat(nh)
+                if use_lm:
+                    # the gathered LM state is this hypothesis' own copy, so an
+                    # LM that writes its caches in place touches nothing else
+                    lm_lp, lm_state = lm_step(label.reshape(b * k), flat(new["lm_state"]),
+                                              new["lens"].reshape(b * k))
+                    new["lm_lp"] = lm_lp.reshape(b, k, -1)
+                    new["lm_state"] = unflat(lm_state)
+                active = new
+            # advance only the rows that still have frames
+            live = t < frame_len
+            beam = tree_map(lambda o, u: torch.where(
+                live.reshape((-1,) + (1,) * (o.dim() - 1)), u, o), beam, done)
+        order = torch.argsort(-beam["scores"], dim=1, stable=True)
+        return (beam["tokens"][bi, order], beam["lens"][bi, order],
+                beam["scores"][bi, order])

@@ -3,12 +3,13 @@
 recognizer with LM shallow fusion (transformer or LSTM LM), joint
 CTC/attention rescoring and n-best LM rescoring; the CTC recognizer (greedy
 on the device, or the native sparse prefix beam with optional n-gram
-fusion); ``build_recognizer`` by model type. The transducer recognizer is
-not ported yet (ROADMAP Queue 1).
+fusion); the transducer recognizer (greedy through kernel 1 at k = 1, or
+the mAES beam with optional LM fusion); ``build_recognizer`` by model type.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Optional
 
 import numpy as np
@@ -22,11 +23,16 @@ from ..ops.project_topk import MAX_K, project2_logp_topk
 from .beam import BeamHypotheses, beam_search, greedy_search
 from .ctc_decode import ctc_collapse_ids
 
+logger = logging.getLogger(__name__)
+
 
 def make_lm_adapter(lm, max_len: int):
     """(lm_init, lm_step) closures for shallow fusion inside the beam loop:
-    ``lm_init(n)`` → the LM state at n rows, ``lm_step(tokens, state,
-    index)`` → (log_probs f32[n, V], state)."""
+    ``lm_init(n)`` → the LM state at n rows (a transformer LM's caches hold
+    ``max_len + 1`` positions), ``lm_step(tokens, state, index)`` →
+    (log_probs f32[n, V], state). ``index`` is an int (the lockstep beam)
+    or int[n], each row at its own position (the transducer beam's
+    per-hypothesis LM state); an LSTM LM ignores it."""
     if lm is None:
         return None, None
     if isinstance(lm, TransformerLanguageModel):
@@ -194,6 +200,48 @@ class CTCRecognizer(Recognizer):
         return texts, scores
 
 
+class TransducerRecognizer(Recognizer):
+    """Transducer decoding: the frame-synchronous greedy search
+    (``beam_width`` ≤ 1; kernel 1 at k = 1 in every lattice step) or the
+    mAES beam of ``beam_width`` with ``expansions`` a frame and an optional
+    LM fused at ``lm_weight`` (beam only: greedy warns and ignores the LM)."""
+
+    def __init__(self, model, idx2unit: Optional[dict] = None, max_symbols: int = 200,
+                 beam_width: int = 1, nbest: int = 1, expansions: int = 2,
+                 max_per_frame: int = 8, lm=None, lm_weight: float = 0.0):
+        super().__init__(model, idx2unit)
+        self.beam_width = int(beam_width)
+        self.nbest = min(int(nbest), max(1, self.beam_width))
+        self.max_symbols = int(max_symbols)
+        self.max_per_frame = int(max_per_frame)
+        self.expansions = int(expansions)
+        if lm is not None and lm_weight != 0.0 and self.beam_width <= 1:
+            logger.warning("transducer LM fusion applies to beam decoding only; greedy "
+                           "(-bw 1 / -md greedy) ignores the LM")
+        self.lm_init = self.lm_step = None
+        self.lm_weight = 0.0
+        if lm is not None and lm_weight != 0.0 and self.beam_width > 1:
+            self.lm_init, self.lm_step = make_lm_adapter(lm, self.max_symbols)
+            self.lm_weight = float(lm_weight)
+
+    def recognize(self, feats, feat_mask):
+        """Returns (n-best texts [B][nbest], scores f32[B, nbest] numpy;
+        greedy: one text, score 0)."""
+        if self.beam_width <= 1:
+            tokens, n = self.model.greedy_decode(feats, feat_mask, self.max_symbols,
+                                                 self.max_per_frame)
+            tokens, n = tokens.cpu().numpy(), n.cpu().numpy()
+            texts = [[self.translate(tokens[i, : n[i]])] for i in range(len(n))]
+            return texts, np.zeros((len(n), 1), np.float32)
+        tokens, lens, scores = self.model.beam_decode(
+            feats, feat_mask, self.beam_width, self.max_symbols, self.expansions,
+            self.lm_init, self.lm_step, self.lm_weight)
+        tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
+        texts = [[self.translate(tokens[i, j, : lens[i, j]]) for j in range(self.nbest)]
+                 for i in range(tokens.shape[0])]
+        return texts, scores[:, : self.nbest].float().cpu().numpy()
+
+
 def ctc_rescore_scores(logits, memory_mask, hyp: BeamHypotheses, weight: float) -> BeamHypotheses:
     """Joint CTC/attention n-best rescoring: ``(1 − w)·att + w·ctc``, where
     ctc is the hypothesis' CTC log-likelihood (y + EOS, as the hybrid head
@@ -271,6 +319,9 @@ def build_recognizer(model_type: str, model, lm=None, args: Any = None, idx2unit
             nbest=get("nbest", 1), lm_path=get("ngram_lm", None), alpha=get("alpha", 0.0),
             beta=get("beta", 0.0), prune_k=get("prune_k", 32) or 32)
     if model_type == "transducer":
-        raise NotImplementedError("the transducer recognizer is not ported to "
-                                  "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1)")
+        return TransducerRecognizer(
+            model, idx2unit=idx2unit, max_symbols=get("max_len", 200),
+            beam_width=get("beam_width", 1), nbest=get("nbest", 1),
+            max_per_frame=get("max_tokens_per_chunk", 8), lm=lm,
+            lm_weight=get("lm_weight", 0.1) if lm is not None else 0.0)
     raise KeyError(f"unknown model type for recognition: {model_type!r}")

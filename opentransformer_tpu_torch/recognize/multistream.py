@@ -13,13 +13,14 @@ the next stream's first chunk).
 
 A tick runs frontend → ``encode_step`` → head on the model's device: the
 CTC head's top-1 through kernel 1 (one launch a tick over streams × chunk
-rows), or, for an attention decoder, one batched beam search over every
-row that is due a decode, reading the memory accumulated on the device.
+rows); the transducer's greedy lattice walk over every row's chunk (one
+kernel-1 launch a lattice step, N = streams); or, for an attention
+decoder, one batched beam search over every row that is due a decode,
+reading the memory accumulated on the device.
 
 Threads: ``_lock`` guards the slots' host state, ``_tick_lock`` serializes
 the device steps (every launch happens under it); the PARTIAL/FINAL
-callbacks run outside both locks. The transducer's multi-stream server is
-not ported yet (ROADMAP Queue 1, item 2).
+callbacks run outside both locks.
 """
 
 from __future__ import annotations
@@ -323,12 +324,40 @@ class MultiStreamCTC(_MultiStreamBase):
 
 
 class MultiStreamTransducer(_MultiStreamBase):
-    """The transducer's multi-stream greedy: not ported yet."""
+    """Multi-stream greedy transducer: the tick runs the resumable
+    ``greedy_frames`` lattice walk over every row, each with its chunk's
+    valid frames (a row without a chunk has 0 and is never stepped). The
+    prediction network's state and hidden stay on the device a row each,
+    and restart from BOS when a slot starts a new stream (``fresh``). A
+    stream's hypothesis equals ``StreamingTransducerRecognizer``'s wherever
+    ``max_symbols`` does not bind."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the transducer's streaming recognizers are not ported to opentransformer_tpu_torch "
-            "yet (see ROADMAP.md, Queue 1, item 2: the transducer)")
+    def __init__(self, model, n_streams: int = 4, idx2unit=None, max_symbols: int = 10_000,
+                 max_per_frame: int = 8):
+        super().__init__(model, n_streams, idx2unit)
+        self.max_symbols = int(max_symbols)
+        self.max_per_frame = int(max_per_frame)
+        with torch.inference_mode():
+            self._state, self._hidden = model.init_decode_state(self.n_streams)
+
+    def _advance_rows(self, window, start, cache_len, chunk_mask, advance, fresh, fin_now):
+        y = self._encode(window, start, cache_len, chunk_mask, advance, fresh)
+        if fresh.any():
+            new = torch.from_numpy(fresh).to(self.device)
+            s0, h0 = self.model.init_decode_state(self.n_streams)
+            self._state = _row_where(new, s0, self._state)
+            self._hidden = [(_row_where(new, c0, c), _row_where(new, x0, x))
+                            for (c0, x0), (c, x) in zip(h0, self._hidden)]
+        frame_len = torch.from_numpy(chunk_mask.sum(axis=1)).to(self.device)
+        toks, n, self._state, self._hidden = self.model.greedy_frames(
+            y, frame_len, self._state, self._hidden, self.chunk * self.max_per_frame,
+            self.max_per_frame)
+        return toks.cpu().numpy(), n.cpu().numpy()
+
+    def _collect(self, out, row, valid, s):
+        toks, n = out
+        room = self.max_symbols - len(s.tokens)
+        return toks[row, : min(int(n[row]), room)].tolist()
 
 
 class MultiStreamAttention(_MultiStreamBase):

@@ -13,9 +13,10 @@ Streaming is inference only: every recognizer puts the model in eval mode
 and runs each step under ``torch.inference_mode``. Emitted encoder chunks
 stay on the model's device; the CTC recognizer takes each frame's top-1
 through the fused projection → log-softmax → top-k kernel (k = 1) and
-collapses ids on the host; the attention recognizer re-runs the KV-cached
-beam search over the memory accumulated on the device. The transducer's
-streaming recognizer is not ported yet (ROADMAP Queue 1, item 2).
+collapses ids on the host; the transducer recognizer resumes its greedy
+lattice walk a chunk at a time (kernel 1 at k = 1 in every lattice step);
+the attention recognizer re-runs the KV-cached beam search over the memory
+accumulated on the device.
 """
 
 from __future__ import annotations
@@ -251,12 +252,43 @@ class StreamingCTCRecognizer(_StreamingRecognizer):
 
 
 class StreamingTransducerRecognizer(_StreamingRecognizer):
-    """The transducer's frame-synchronous greedy: not ported yet."""
+    """Frame-synchronous transducer recognition: the greedy lattice walk
+    (``TransducerModel.greedy_frames``) resumes chunk by chunk, the
+    prediction network's state and hidden carried across chunks on the
+    device. Each chunk's token buffer holds ``chunk · max_per_frame``, so
+    nothing is dropped within a chunk; the hypothesis equals the offline
+    greedy decode of the chunk-masked memory wherever ``max_symbols`` does
+    not bind."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the transducer's streaming recognizers are not ported to opentransformer_tpu_torch "
-            "yet (see ROADMAP.md, Queue 1, item 2: the transducer)")
+    def __init__(self, model, batch: int = 1, idx2unit=None, max_symbols: int = 10_000,
+                 max_per_frame: int = 8):
+        super().__init__(model, batch, idx2unit)
+        self.max_symbols = int(max_symbols)
+        self.max_per_frame = int(max_per_frame)
+        self._buf = self.session.chunk * self.max_per_frame
+        self._init_decode()
+
+    @torch.inference_mode()
+    def _init_decode(self) -> None:
+        self._state, self._hidden = self.model.init_decode_state(self.batch)
+
+    def reset(self) -> None:
+        super().reset()
+        self._init_decode()
+
+    def _consume(self, chunks) -> None:
+        for y in chunks:
+            c = y.shape[1]
+            if c == 0:
+                continue
+            frame_len = torch.full((y.shape[0],), c, dtype=torch.long, device=y.device)
+            with torch.inference_mode():
+                toks, n, self._state, self._hidden = self.model.greedy_frames(
+                    y, frame_len, self._state, self._hidden, self._buf, self.max_per_frame)
+            toks, n = toks.cpu().numpy(), n.cpu().numpy()
+            for b in range(toks.shape[0]):
+                room = self.max_symbols - len(self.tokens[b])
+                self.tokens[b].extend(toks[b, : min(int(n[b]), room)].tolist())
 
 
 def pad_memory(rows, bucket: int, like: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -76,6 +76,14 @@ def cuda():
     # the streamed CTC tick: 32 slots x a 16-frame chunk, D = 384, top-1
     (512, 384, 4233, 1, torch.bfloat16),
     (512, 384, 4233, 1, torch.float32),
+    # the transducer's greedy lattice step: one online stream, the eval CLI's
+    # batches of 8, 16 rows, D = 256
+    (1, 256, 4233, 1, torch.bfloat16),
+    (1, 256, 4233, 1, torch.float32),
+    (8, 256, 4233, 1, torch.bfloat16),
+    (8, 256, 4233, 1, torch.float32),
+    (16, 256, 4233, 1, torch.bfloat16),
+    (16, 256, 4233, 1, torch.float32),
     (7, 64, 700, 32, torch.float32),
     (33, 40, 131, 128, torch.float32),
     # tile edges: 64-row blocks, 128-byte depth slices, 128-column tiles,
@@ -474,3 +482,49 @@ def test_multistream_ctc_runs_through_kernel(cuda):
         got[name] = (out, port.project_logp_topk.launches, ms.ticks)
     assert got["cuda"][0] == got["cpu"][0]
     assert got["cpu"][1] == 0 and got["cuda"][1] == got["cuda"][2] > 0
+
+
+TRANSDUCER_CFG = {
+    "type": "transducer",
+    "frontend": {"input_size": 20, "output_size": 32, "mid_channel": 4, "out_channel": 8},
+    "encoder": {"d_model": 32, "n_heads": 4, "d_ff": 48, "n_blocks": 2, "activation": "glu",
+                "chunk_size": 4, "left_chunks": 2},
+    "vocab_size": 50, "predictor": {"num_layers": 1, "d_model": 32}, "d_joint": 32}
+
+
+@pytest.mark.gpu
+def test_transducer_greedy_runs_through_kernel(cuda):
+    """A small transducer on the card and the same weights on the CPU: the
+    offline greedy of three ragged utterances (N = 3) and one stream through
+    ``StreamingTransducerRecognizer`` (N = 1) give the CPU's ids, with one
+    kernel-1 launch a lattice-loop iteration."""
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.recognize.online import StreamingTransducerRecognizer
+
+    torch.manual_seed(0)
+    model = build_model(TRANSDUCER_CFG, device=cuda)
+    with torch.no_grad():  # blank the argmax at some lattice steps, not all
+        model.joint.output_layer.bias[0] += 0.5
+    cpu = build_model(TRANSDUCER_CFG, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(5)
+    lens = (90, 57, 130)
+    x = np.zeros((3, 130, 20), np.float32)
+    for i, t in enumerate(lens):
+        x[i, :t] = rng.normal(size=(t, 20))
+    mask = np.arange(130)[None] < np.array(lens)[:, None]
+    got = {}
+    for name, m in (("cpu", cpu), ("cuda", model)):
+        dev = next(m.parameters()).device
+        port.project_logp_topk.launches, it0 = 0, m.greedy_iterations
+        tokens, n = m.greedy_decode(torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev))
+        rec = StreamingTransducerRecognizer(m)
+        rc = rec.session.raw_chunk
+        for s in range(130 // rc):
+            rec.feed(x[:1, s * rc:(s + 1) * rc])
+        rec.finish(x[:1, (130 // rc) * rc:])
+        got[name] = (tokens.cpu().tolist(), n.cpu().tolist(), rec.tokens,
+                     port.project_logp_topk.launches, m.greedy_iterations - it0)
+    assert got["cuda"][:3] == got["cpu"][:3]
+    assert sum(got["cpu"][1]) > 0
+    assert got["cpu"][3] == 0 and got["cuda"][3] == got["cuda"][4] > 0

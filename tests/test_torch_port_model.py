@@ -229,8 +229,12 @@ def test_unported_configs_raise():
     cfg["encoder"]["moe_experts"] = 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model({"type": "transducer"}, device="cpu")
+    # the transducer is ported: a transducer config builds and decodes
+    cfg = small_cfg()
+    model = build_model({"type": "transducer", "frontend": cfg["frontend"],
+                         "encoder": cfg["encoder"], "vocab_size": 50}, device="cpu")
+    tokens, n = model.greedy_decode(torch.randn(2, 40, 20), torch.ones(2, 40, dtype=torch.bool))
+    assert tokens.shape == (2, 200) and n.shape == (2,)
     # relative positions and the conformer encoder are ported
     cfg = small_cfg()
     cfg["encoder"]["relative_positional"] = True

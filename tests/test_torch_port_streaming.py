@@ -260,12 +260,18 @@ def test_streaming_needs_a_chunked_causal_encoder():
 
 
 def test_transducer_streaming_raises():
-    model = build_model(model_cfg("transformer"), device="cpu")
-    for make in (lambda: online.StreamingTransducerRecognizer(model),
-                 lambda: multistream.MultiStreamTransducer(model),
-                 lambda: online.OnlineRecognizerAdapter("transducer", model)):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-            make()
+    """The transducer's streaming recognizers are ported: the calls that
+    raised build now, and each decodes a stream (the same ids)."""
+    cfg = {"type": "transducer", "frontend_type": "conv", "frontend": FRONTEND,
+           "encoder_type": "transformer", "encoder": TRANSFORMER, "vocab_size": V}
+    model = build_model(cfg, device="cpu")
+    x = feats_of(8, [45])[0]
+    texts = []
+    for rec in (online.StreamingTransducerRecognizer(model),
+                online.OnlineRecognizerAdapter("transducer", model)._rec):
+        texts.append(_feed_all(rec, x[None])[0])
+    texts.append(multistream.MultiStreamTransducer(model).run_stream(x, lambda _t: None))
+    assert texts[0] == texts[1] == texts[2]
 
 
 # -------------------------------------------------------------- recognizers
