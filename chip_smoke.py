@@ -121,7 +121,19 @@ each of which raises on failure:
      and the serve CLI with ``--streaming --streams 4`` (its default ``-mt
      8``) and 4 PCM clients; (e) timed: greedy (with kernel 1's device time
      from ``torch.profiler``) and beam over 64 x 500 frames, and 32 slots x
-     20 s through ``MultiStreamTransducer`` in bf16.
+     20 s through ``MultiStreamTransducer`` in bf16;
+  12. the anchor recipe (``conf/anchor.json``: kaldi features, bucketing,
+     the device-resident corpus, noise 0.3, bf16 autocast, steps_per_exec
+     24, the per-epoch dev greedy-CER probe, the hybrid CTC loss) through the
+     training CLI on the full synthetic corpus, cut to 2 epochs of its 80:
+     624 updates, finite losses, no NaN skip, the resident corpus 1,843,200,000
+     bytes, one kernel-1 launch (k=1) a probe step and none elsewhere in the
+     run, epoch 1's mean loss below the first 50 updates'; kernel 1 at the
+     probe's step on the trained model's own hidden states against its plain
+     version, and timed; the average of epochs 0-1 through the averaging and
+     eval CLIs over the 500 test utterances at beam 5, ``-ml 32`` (n-best
+     sorted; CER recorded, not gated); seconds per update, peak memory and
+     the resident upload recorded.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -283,6 +295,12 @@ TRANSDUCER_BEAM_LONGEST = 2
 TRANSDUCER_LOAD = dict(batch=64, frames=500, seed=14, slots=32, seconds=20.0)
 # kernel 1's rows in a transducer greedy step on phase 11's paths (phase 1)
 TRANSDUCER_ROWS = (1, 4, 8, 16, 32, 64)
+# phase 12: conf/anchor.json cut to 2 epochs of its 80; 312 full batches of
+# 64 an epoch (20,000 utterances, drop_last); the resident corpus is
+# 20,000 x 1152 frames x 40 float16
+ANCHOR_CONF = os.path.join(CONF_DIR, "anchor.json")
+RECIPE = dict(epochs=2, updates=624, log_interval=50, seed=1234,
+              resident_bytes=20000 * 1152 * 40 * 2)
 
 
 def log(msg: str) -> None:
@@ -2723,6 +2741,194 @@ def phase_transducer(workdir: str, corpus: dict):
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+def recipe_config(data: str, epochs: int) -> dict:
+    """``conf/anchor.json`` at ``epochs``, its data paths under ``data``."""
+    with open(ANCHOR_CONF, encoding="utf-8") as f:
+        cfg = json.load(f)
+    cfg["train"]["epochs"] = epochs
+    cfg["data"]["vocab"] = os.path.join(data, "vocab")
+    for split in ("train", "dev", "test"):
+        cfg["data"][split] = {"feat": [os.path.join(data, split, "feats.scp")],
+                              "text": [os.path.join(data, split, "text")]}
+    return cfg
+
+
+def probe_step_inputs(trainer):
+    """The first greedy step of the probe's first dev batch: (h, W, b) as
+    the trained model hands them to kernel 1 under the run's autocast."""
+    model, probe = trainer.model.eval(), trainer.dev_probe_fn
+    _, feats, mask = probe.batches[0]
+    with torch.inference_mode(), trainer.autocast():
+        memory, memory_mask = model.encode(feats, mask)
+        cache = model.init_cache(memory, probe.max_len + 1)
+        bos = torch.ones(feats.shape[0], dtype=torch.long, device=feats.device)
+        h, _ = model.decode_hidden_step(bos, cache, 0, memory_mask)
+        w, b = model.vocab_head()
+    model.train()
+    return h.contiguous(), w.detach(), b.detach()
+
+
+def update_seconds(trainer, batches, cuda: bool) -> float:
+    """Median host seconds of one update a batch, after one warm-up."""
+    trainer.model.train()
+    secs = []
+    for batch in [batches[0], *batches]:
+        start = time.time()
+        trainer.micro_step(batch)
+        trainer.update()
+        if cuda:
+            torch.cuda.synchronize()
+        secs.append(time.time() - start)
+    return float(np.median(secs[1:]))
+
+
+def phase_anchor_recipe(workdir: str, data: str, device: str = "cuda"):
+    """The anchor recipe cut to 2 epochs: ``conf/anchor.json`` through the
+    training CLI (kaldi features, bucketing, the device-resident corpus,
+    noise 0.3, bf16 autocast, steps_per_exec 24, the dev CER probe, the
+    hybrid loss) on the full synthetic corpus, kernel 1 at the probe's step
+    against its plain version, then the average of epochs 0-1 decoded over
+    the 500 test utterances at beam 5, ``-ml 32``, through the eval CLI.
+    ``data`` holds phase 2's test split; the train and dev splits are
+    written beside it. Returns ({path: kernel-1 launches}, the probe step's
+    (kernel ms, plain ms, bound ms, bound by))."""
+    from opentransformer_tpu_torch.cli import average as average_cli
+    from opentransformer_tpu_torch.cli import eval as eval_cli
+    from opentransformer_tpu_torch.cli import run as run_cli
+    from opentransformer_tpu_torch.data import synth
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk, \
+        project_logp_topk_plain
+
+    cuda = device == "cuda"
+    r = RECIPE
+    t0 = time.time()
+    synth.write_corpus(data, splits=("train", "dev"))
+    log(f"phase12 wrote the synthetic train and dev splits ({synth.SPLIT_SIZES['train']} + "
+        f"{synth.SPLIT_SIZES['dev']} utts) in {time.time() - t0:.1f} s")
+    cfg = recipe_config(data, r["epochs"])
+    conf = os.path.join(workdir, "anchor_recipe.json")
+    with open(conf, "w", encoding="utf-8") as f:
+        json.dump(cfg, f)
+    expdir = os.path.join(workdir, "exp_anchor_torch")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    trainer = run_cli.run(["-c", conf, "--expdir", expdir, "--log_interval",
+                           str(r["log_interval"]), "-s", str(r["seed"]),
+                           *([] if cuda else ["--device", device])])
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    run_launches = project_logp_topk.launches  # the probe is the run's only caller
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    hist, probe, res = trainer.history, trainer.dev_probe_fn, trainer.resident
+    losses = [x for rec in hist for x in rec["losses"]]
+    first = float(np.mean([x for rec in hist[: r["log_interval"]] for x in rec["losses"]]))
+    last_epoch = float(np.mean([x for rec in hist if rec["epoch"] == r["epochs"] - 1
+                                for x in rec["losses"]]))
+    gaps = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])
+            if a["epoch"] == b["epoch"] == r["epochs"] - 1]
+    spu = float(np.median(gaps))
+    steps = sum(rec["steps"] for rec in probe.records)
+    probe_launches = sum(rec["launches"] for rec in probe.records)
+    cers = [round(100 * rec["cer"], 2) for rec in probe.records]
+    epoch_loss = [round(float(np.mean([x for q in hist if q["epoch"] == e for x in q["losses"]])), 4)
+                  for e in range(r["epochs"])]
+    ok = (np.isfinite(losses).all() and np.isfinite(trainer.dev_losses).all()
+          and trainer.nan_skips == 0 and len(hist) == r["updates"]
+          and res.nbytes == r["resident_bytes"] and [rec["epoch"] for rec in probe.records]
+          == list(range(r["epochs"])) and last_epoch < first
+          and probe_launches == run_launches == (steps if cuda else 0) and steps > 0)
+    log(f"phase12 anchor recipe {r['epochs']} epochs through the training CLI in {wall:.1f} s: "
+        f"{len(hist)} updates (want {r['updates']}), NaN skips {trainer.nan_skips}, "
+        f"steps_per_exec {trainer.steps_per_exec}, autocast {trainer.autocast_dtype}, "
+        f"resident corpus {res.nbytes} bytes (want {r['resident_bytes']}) {tuple(res.feats.shape)} "
+        f"{res.feats.dtype} uploaded in {res.upload_seconds:.3f} s; mean loss of the first "
+        f"{r['log_interval']} updates {first:.4f}, of epoch {r['epochs'] - 1} {last_epoch:.4f}; "
+        f"per-epoch train loss {epoch_loss}, "
+        f"dev loss {[round(x, 4) for x in trainer.dev_losses]}, dev greedy CER % {cers} "
+        f"({probe.records[0]['utts']} utts, max_len {probe.max_len}), probe greedy steps {steps}, "
+        f"kernel-1 launches in the probe {probe_launches} (whole run {run_launches}), probe "
+        f"seconds {[round(q['seconds'], 3) for q in probe.records]}; seconds per update (host "
+        f"clock, epoch {r['epochs'] - 1}) median {spu:.4f}, min {min(gaps):.4f}, max "
+        f"{max(gaps):.4f}; peak memory {peak} bytes {'ok' if ok else 'FAIL'} "
+        f"[{card_line() if cuda else device}]")
+    if not ok:
+        raise AssertionError("phase12: the recipe run is not what was asked for (see above)")
+
+    # what the hybrid loss' CTC term costs an update: the same resident
+    # batches with and without it, in turns (recorded, not gated)
+    batches = [b for _, b in zip(range(4), FeatureLoader(cfg, "train", seed=r["seed"]))]
+    secs = {}
+    for weight in (trainer.model.ctc_weight, 0.0, trainer.model.ctc_weight, 0.0):
+        trainer.model.ctc_weight = weight
+        secs.setdefault(weight, []).append(update_seconds(trainer, batches, cuda))
+    log(f"phase12 seconds per update on {len(batches)} resident batches (host clock, after a "
+        f"warm-up, in turns): hybrid loss (ctc_weight {cfg['model']['ctc_weight']}) "
+        f"{[round(x, 4) for x in secs[cfg['model']['ctc_weight']]]}, attention loss alone "
+        f"{[round(x, 4) for x in secs[0.0]]} [{card_line() if cuda else device}]")
+
+    # kernel 1 at the probe's greedy step: the trained model's own h and W
+    h, w, b = probe_step_inputs(trainer)
+    vals, ids = project_logp_topk(h, w, b, 1)
+    ref_vals, ref_ids = project_logp_topk_plain(h, w, b, 1)
+    err = (vals - ref_vals).abs().max().item()
+    wide, _ = project_logp_topk_plain(h, w, b, 2)
+    untied = (wide[:, 0] - wide[:, 1]) > 1e-5 * max(wide.abs().max().item(), 1.0)
+    bad = int(((ids != ref_ids)[:, 0] & untied).sum())
+    n, d = h.shape
+    timing = None
+    if cuda:
+        kern = cuda_ms(lambda: project_logp_topk(h, w, b, 1))
+        plain = cuda_ms(lambda: project_logp_topk_plain(h, w, b, 1))
+        unfused = cuda_ms(lambda: torch.max(torch.log_softmax(
+            (h @ w.to(h.dtype).T).float() + b, dim=-1), dim=-1))
+        bound, bound_by = topk_bound_ms(n, d, w.shape[0], 1, h.dtype)
+        timing = (kern, plain, bound, bound_by)
+        log(f"phase12 time the probe's greedy step N={n} D={d} V={w.shape[0]} k=1 "
+            f"{h.dtype}: kernel {kern:.4f} ms, plain version {plain:.4f} ms, unfused matmul + "
+            f"log_softmax + max (a composition of calls) {unfused:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by}); {rate_note(2.0 * n * d * w.shape[0], kern, bound)} [{card_line()}]")
+    if err > 1e-4 or bad:
+        raise AssertionError(f"phase12: kernel 1 disagrees with its plain version at the probe's "
+                             f"step (max|dvals| {err:.3e}, {bad} untied ids)")
+    log(f"phase12 kernel 1 at the probe's step ({h.dtype} h, {w.dtype} W, N={n}): max|dvals| "
+        f"{err:.3e} (atol 1e-4), untied id mismatches {bad} ok")
+    del trainer, h, w, b
+
+    # the average of both epochs, reloaded by the eval CLI, decodes the test split
+    average_cli.main([expdir, "0", str(r["epochs"] - 1)])
+    avg = os.path.join(expdir, f"model.average.from0to{r['epochs'] - 1}")
+    out = os.path.join(workdir, "decode_recipe_avg")
+    project_logp_topk.launches = 0
+    t0 = time.time()
+    rc = eval_cli.main(["--npz", os.path.join(avg, "params.npz"),
+                        "--model_cfg", os.path.join(expdir, "config.json"),
+                        "--feats", cfg["data"]["test"]["feat"][0],
+                        "--text", cfg["data"]["test"]["text"][0], "--vocab", cfg["data"]["vocab"],
+                        "-b", "100", "-bw", "5", "-pn", "0.6", "-ml", "32", "--decode_dir", out,
+                        *([] if cuda else ["--device", device])])
+    decode_launches = project_logp_topk.launches
+    with open(os.path.join(out, "RESULT"), encoding="utf-8") as f:
+        result = f.read().splitlines()
+    n_utts = nbest_scores_sorted(out)
+    ok = (rc == 0 and n_utts == synth.SPLIT_SIZES["test"]
+          and (decode_launches > 0 or not cuda))
+    log(f"phase12 average of epochs 0-{r['epochs'] - 1} decoded at beam 5, -ml 32: "
+        f"{' | '.join(result)} | {n_utts} utts, n-best sorted, kernel-1 launches "
+        f"{decode_launches} (k=5), wall {time.time() - t0:.1f} s (CER not gated: "
+        f"{r['epochs']} of 80 epochs) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase12: the averaged checkpoint did not decode (see above)")
+    return ({f"phase12 anchor recipe dev CER probe (k=1, N={n})": probe_launches,
+             f"phase12 averaged recipe checkpoint decode (k=5, {n_utts} utts)": decode_launches},
+            timing)
+
+
 def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
     """The kernel's entry of the JSON line: ``launches`` on its first main
     path, ``launches_by_path`` on each path that launches it."""
@@ -2758,10 +2964,12 @@ def main() -> int:
         conformer_launches = phase_conformer()
         stream_launches, stream_launches2 = phase_streaming(workdir, data, corpus)
         transducer_launches = phase_transducer(workdir, corpus)
+        recipe_launches, _ = phase_anchor_recipe(workdir, data)
 
     # launches: each kernel's count on its own main paths (phase 3 without an
     # LM, phase 8's CTC decodes, phase 9's conformer decodes, phase 10's
-    # serving paths and phase 11's transducer paths, phases 5 and 10d with an
+    # serving paths, phase 11's transducer paths and phase 12's dev CER
+    # probe and averaged-checkpoint decode, phases 5 and 10d with an
     # LM, phases 7 and 9d's training runs); times at the flagship bf16
     # beam-step shape and at the 16 x 10 s training batch
     record = {"kernels": [
@@ -2772,7 +2980,8 @@ def main() -> int:
                        "phase8a anchor CTC greedy (k=1)": ctc_launches["greedy"],
                        "phase8b anchor CTC prefix beam (k=32 + lse)": ctc_launches["beam"],
                        "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"],
-                       **conformer_launches, **stream_launches, **transducer_launches}),
+                       **conformer_launches, **stream_launches, **transducer_launches,
+                       **recipe_launches}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
                       timings2["flagship bf16"],

@@ -24,8 +24,12 @@ the multi-stream server core and ``cli/serve.py`` (dynamic batcher, TCP
 lines, streaming TCP and PCM); and the transducer's inference and serving
 (prediction and joint networks, greedy and mAES beam decoding with LM
 fusion, the online and multi-stream transducer recognizers, the eval and
-serve CLIs). Transducer training (the RNNT loss), CLI training with a CTC
-loss, BatchNorm training, MoE and the other datasets are still to port
+serve CLIs); and the anchor recipe: the kaldi feature dataset with
+load-time noise, the bucketing sampler, the device-resident corpus, bf16
+autocast, ``steps_per_exec``, CLI training with the hybrid CTC loss, the
+per-epoch dev greedy-CER probe and checkpoint averaging (``cli/average.py``).
+Transducer training (the RNNT loss), ``ctc`` models in the training CLI,
+BatchNorm training, MoE and the espnet and text datasets are still to port
 (``ROADMAP.md``).
 
 The Pallas kernels of the JAX package become hand-written CUDA kernels

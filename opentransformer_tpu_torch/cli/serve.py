@@ -126,7 +126,8 @@ class FeatureExtractor:
         if self.flavor in PSF_FLAVORS:
             raise NotImplementedError(
                 "feature_extractor 'psf' (logfbank_psf) is not ported to "
-                "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1 item 6)")
+                "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: What training and "
+                "decoding still lack)")
         self.normalization = bool(data_cfg.get("normalization", False))
         self.global_mean = self.global_std = None
         if self.normalization and "global_cmvn" in data_cfg:

@@ -1,7 +1,15 @@
-"""Batched SpecAugment on the device
-(counterpart of ``opentransformer_tpu/data/augment.py:spec_augment_jax``).
+"""SpecAugment (counterpart of ``opentransformer_tpu/data/augment.py``):
+``spec_augment_numpy``, the host variant of one utterance that the
+host-feature datasets apply (``spec_augment`` there), and the batched
+device variant (``spec_augment_jax`` there).
 
-``freq_mask_num`` frequency masks of width ⌊U·⌊F·freq_mask_rate⌋⌋ at
+Host: ``freq_mask_num`` frequency masks of width ⌊U(0, ⌊F·freq_mask_rate⌋)⌋
+at an integer drawn from [0, F − w], then ``time_mask_num`` time masks of
+width ⌊U(0, min(⌊T·time_mask_rate⌋, max_mask_time_len))⌋, from a numpy
+generator in the JAX function's call order, so the same seed gives the
+same masks.
+
+Device: ``freq_mask_num`` frequency masks of width ⌊U·⌊F·freq_mask_rate⌋⌋ at
 ⌊U·(F − w + 1)⌋, then ``time_mask_num`` time masks of width
 ⌊U·min(⌊T_b·time_mask_rate⌋, max_mask_time_len)⌋ at ⌊U·(T_b − w + 1)⌋, where
 T_b is each utterance's own frame count, so padding frames are never the
@@ -17,7 +25,29 @@ draws give the same masks.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def spec_augment_numpy(mel: np.ndarray, freq_mask_num: int = 2, time_mask_num: int = 2,
+                       freq_mask_rate: float = 0.3, time_mask_rate: float = 0.05,
+                       max_mask_time_len: int = 100,
+                       rng: np.random.Generator | None = None) -> np.ndarray:
+    """One [T, F] utterance → a masked copy (masked cells zeroed)."""
+    rng = rng or np.random.default_rng()
+    out = np.array(mel, copy=True)
+    tau, v = out.shape
+    freq_para = int(v * freq_mask_rate)
+    time_para = min(int(tau * time_mask_rate), max_mask_time_len)
+    for _ in range(freq_mask_num):
+        f = int(rng.uniform(0.0, freq_para))
+        f0 = int(rng.integers(0, v - f + 1))
+        out[:, f0 : f0 + f] = 0.0
+    for _ in range(time_mask_num):
+        t = int(rng.uniform(0.0, time_para))
+        t0 = int(rng.integers(0, tau - t + 1))
+        out[t0 : t0 + t, :] = 0.0
+    return out
 
 
 def spec_augment_from_uniforms(feats: torch.Tensor, lengths: torch.Tensor,

@@ -1,14 +1,24 @@
-"""The online audio dataset (counterpart of the ``AudioDataset`` part of
+"""The online audio and the kaldi feature datasets (counterpart of the
+``AudioDataset`` and ``KaldiDataset`` parts of
 ``opentransformer_tpu/data/datasets.py``).
 
-Reads a ``wav.scp`` and a transcript file. A training split with
-``extract_on_device`` yields raw waveforms for the device feature stage
-(``data/device_pipeline.py``); an evaluation split yields host log-fbank
-(``ops/fbank.py:fbank_numpy``) with per-utterance or global CMVN. Both
-yield ``(utt_id, array, length, target ids, target count)``. Speed and
-volume perturbation of the training waveforms are ported; host-feature
-training (host SpecAugment, ``gaussian_noise``) and the python_speech_features
-extractor are not, and raise.
+``AudioDataset`` reads a ``wav.scp`` and a transcript file. A training
+split with ``extract_on_device`` yields raw waveforms for the device
+feature stage (``data/device_pipeline.py``); otherwise it yields host
+log-fbank (``ops/fbank.py:fbank_numpy``) with per-utterance or global CMVN,
+and a training split adds host SpecAugment. Speed and volume perturbation
+of the training waveforms are ported; ``gaussian_noise`` and the
+python_speech_features extractor are not, and raise.
+
+``KaldiDataset`` reads precomputed features through a ``feats.scp``, with
+speaker CMVN (``utt2spk`` + ``cmvn``) or per-utterance normalization, a
+``max_target_length`` filter, train-only ``additive_noise_std`` (fresh
+Gaussian noise on every read) and host SpecAugment.
+
+Both yield ``(utt_id, array, length, target ids, target count)`` and draw
+every random number from child generators of the numpy generator they are
+given, one locked draw a child, in the JAX package's order, so the same
+seed gives the same arrays.
 """
 
 from __future__ import annotations
@@ -21,6 +31,10 @@ import numpy as np
 
 from ..ops.fbank import fbank_numpy, normalize_per_utterance, num_frames
 from . import UNK_TOKEN, load_vocab
+from .augment import spec_augment_numpy
+from .kaldi_io import cmvn_from_stats, load_mat, read_scp
+
+WHAT_TRAINING_LACKS = "see ROADMAP.md, Queue 1: What training and decoding still lack"
 
 
 class _RngSpawner:
@@ -77,16 +91,15 @@ class AudioDataset:
         if extractor not in ("torchaudio", "ta"):
             raise NotImplementedError(
                 f"feature_extractor {extractor!r} is not ported to opentransformer_tpu_torch "
-                "yet (see ROADMAP.md, Queue 1 item 6); the kaldi-compatible one is")
+                f"yet ({WHAT_TRAINING_LACKS}); the kaldi-compatible one is")
         self.return_waveform = bool(params.get("extract_on_device", False)) and not is_eval
-        if not is_eval and not self.return_waveform:
-            raise NotImplementedError(
-                "training from host features is not ported to opentransformer_tpu_torch yet "
-                "(see ROADMAP.md, Queue 1 item 6); set data.extract_on_device: true")
         if not is_eval and float(params.get("gaussian_noise", 0.0)) > 0.0:
             raise NotImplementedError(
-                "data.gaussian_noise acts on host features, which training with "
-                "extract_on_device does not make; it is not ported")
+                "data.gaussian_noise is not ported to opentransformer_tpu_torch yet "
+                f"({WHAT_TRAINING_LACKS})")
+        # the online dataset ignores spec_augment_config and uses the
+        # function's defaults, as the JAX package's does
+        self.apply_spec_augment = bool(params.get("spec_augment", False)) and not is_eval
         self.normalization = bool(params.get("normalization", False))
         self.apply_volume_perturb = bool(params.get("volume_perturb", False)) and not is_eval
         self.apply_speed_perturb = bool(params.get("speed_perturb", False)) and not is_eval
@@ -133,6 +146,8 @@ class AudioDataset:
                 feature = (feature - self.global_mean) / self.global_std
             else:
                 feature = normalize_per_utterance(feature)
+        if self.apply_spec_augment:
+            feature = spec_augment_numpy(feature, rng=rng)
         return utt_id, feature.astype(np.float32), feature.shape[0], targets, len(targets)
 
     def index_length_pair(self) -> list[tuple[int, int]]:
@@ -155,3 +170,89 @@ class AudioDataset:
                 with wave.open(path, "rb") as w:
                     pairs.append((i, num_frames(w.getnframes(), w.getframerate())))
         return pairs
+
+
+class KaldiDataset:
+    """Precomputed features from ``feats.scp`` (``dataset_type: kaldi``)."""
+
+    def __init__(self, params: Any, datadict: Any, is_eval: bool = False,
+                 rng: Optional[np.random.Generator] = None):
+        self._rngs = _RngSpawner(rng)
+        self.apply_spec_augment = bool(params.get("spec_augment", False)) and not is_eval
+        self.spec_augment_config = dict(params.get("spec_augment_config", {}) or {})
+        self.max_target_length = int(params.get("max_target_length", 0))
+        self.normalization = bool(params.get("normalization", False))
+        # fresh noise on every read of a training split: the noise is added
+        # after any CMVN, so it assumes unnormalized features (the synthetic
+        # corpus keeps normalization off and bakes noise into dev and test)
+        self.additive_noise_std = (float(params.get("additive_noise_std", 0.0))
+                                   if not is_eval else 0.0)
+        self.unit2idx = load_vocab(params["vocab"])
+        self.targets_dict = read_targets(datadict["text"], self.unit2idx)
+
+        self.utt2spk: dict[str, str] = {}
+        self.spk_cmvn: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        if "utt2spk" in datadict and "cmvn" in datadict:
+            for p in datadict["utt2spk"]:
+                with open(p, "r", encoding="utf-8") as f:
+                    for line in f:
+                        u, spk = line.strip().split()
+                        self.utt2spk[u] = spk
+            for p in datadict["cmvn"]:
+                for spk, rx in read_scp(p).items():
+                    self.spk_cmvn[spk] = cmvn_from_stats(load_mat(rx))
+
+        self.file_list: list[tuple[str, str]] = []
+        for feat_file in datadict["feat"]:
+            for utt, rx in read_scp(feat_file).items():
+                if utt not in self.targets_dict:
+                    continue
+                if (self.max_target_length
+                        and len(self.targets_dict[utt]) > self.max_target_length):
+                    continue
+                self.file_list.append((utt, rx))
+        self.lengths_file = datadict.get("feat-to-len")
+
+    def __len__(self) -> int:
+        return len(self.file_list)
+
+    def __getitem__(self, index: int):
+        utt_id, rx = self.file_list[index]
+        feature = load_mat(rx)
+        spk = self.utt2spk.get(utt_id)
+        if spk and spk in self.spk_cmvn:
+            mean, std = self.spk_cmvn[spk]
+            feature = (feature - mean) / std
+        elif self.normalization:
+            feature = normalize_per_utterance(feature)
+        if self.additive_noise_std > 0.0:
+            noise_rng = self._rngs.spawn()
+            feature = feature + self.additive_noise_std * noise_rng.standard_normal(
+                feature.shape).astype(feature.dtype)
+        if self.apply_spec_augment:
+            feature = spec_augment_numpy(feature, rng=self._rngs.spawn(),
+                                         **self.spec_augment_config)
+        targets = self.targets_dict[utt_id]
+        return utt_id, feature.astype(np.float32), feature.shape[0], targets, len(targets)
+
+    def target_row(self, index: int):
+        """(utt_id, target ids) without reading the features (the
+        device-resident corpus holds them)."""
+        utt_id = self.file_list[index][0]
+        return utt_id, self.targets_dict[utt_id]
+
+    def index_length_pair(self) -> list[tuple[int, int]]:
+        """(index, frame count) from a ``feat-to-len`` file where given (an
+        utterance it lacks is read from its ark), else from the arks."""
+        if not self.lengths_file:
+            return [(i, load_mat(rx).shape[0]) for i, (_, rx) in enumerate(self.file_list)]
+        paths = (self.lengths_file if isinstance(self.lengths_file, (list, tuple))
+                 else [self.lengths_file])
+        lmap = {}
+        for p in paths:
+            with open(p, "r", encoding="utf-8") as f:
+                for line in f:
+                    u, n = line.strip().split()
+                    lmap[u] = int(n)
+        return [(i, lmap[u] if u in lmap else load_mat(rx).shape[0])
+                for i, (u, rx) in enumerate(self.file_list)]

@@ -144,3 +144,11 @@ def write_ark(path: str, items: dict[str, np.ndarray], scp_path: str | None = No
     if scp_path:
         with open(scp_path, "w", encoding="utf-8") as f:
             f.write("\n".join(scp_lines) + "\n")
+
+
+def cmvn_from_stats(stats: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Kaldi CMVN stats (2×(dim+1): sums/sumsq + count) → (mean, std)."""
+    count = stats[0, -1]
+    mean = stats[0, :-1] / count
+    var = stats[1, :-1] / count - mean ** 2
+    return mean.astype(np.float32), np.sqrt(np.maximum(var, 1e-10)).astype(np.float32)

@@ -1,16 +1,24 @@
 """Batches for training and evaluation
 (counterpart of ``opentransformer_tpu/data/loader.py``).
 
-``FeatureLoader`` builds the online dataset of one split, a length-sorted
-sampler of fixed-size batches whose order is reshuffled by ``set_epoch``,
-and yields collated batches from a background thread. A training split
-with ``extract_on_device`` yields padded waveforms
-(``device_pipeline.collate_waveforms``); an evaluation split yields padded
-host features (``collate_speech``). Targets are BOS ⧺ y ⧺ EOS ⧺ PAD…
-with ``targets_length = len(y) + 1``. Ported for ``dataset_type: online``
-only; the kaldi, espnet and text datasets, the bucketing sampler (a
-``bucket`` section), multi-host sharding and the device-resident corpus
-are not, and raise.
+``FeatureLoader`` builds the dataset of one split (``dataset_type``
+``online`` or ``kaldi``), a sampler whose batch order ``set_epoch`` draws
+again (the bucketing sampler of ``bucket.py`` when the config has a
+``bucket`` section, else length-sorted fixed-size batches), and yields
+collated batches from a background thread:
+
+  * a training split of the online dataset with ``extract_on_device``:
+    padded waveforms (``device_pipeline.collate_waveforms``);
+  * a training split of the kaldi dataset with ``device_resident``: the
+    ``[B]`` row indices ``corpus_idx`` into the corpus that
+    ``build_resident_corpus`` reads for ``data/resident.py``;
+  * otherwise padded host features (``collate_speech``), padded to the
+    batch's bucket boundary.
+
+Targets are BOS ⧺ y ⧺ EOS ⧺ PAD… with ``targets_length = len(y) + 1``. The
+espnet and text datasets and multi-host sharding are not ported, and raise.
+As in the JAX package, an evaluation split buckets too, so ``drop_last``
+drops its short batches.
 """
 
 from __future__ import annotations
@@ -23,14 +31,16 @@ from typing import Any, Iterator, Optional
 import numpy as np
 
 from . import BOS, EOS, PAD
-from .datasets import AudioDataset
+from .bucket import DEFAULT_BOUNDARIES, BySequenceLengthSampler
+from .datasets import WHAT_TRAINING_LACKS, AudioDataset, KaldiDataset
 from .device_pipeline import collate_waveforms
+
+DATASETS = {"online": AudioDataset, "kaldi": KaldiDataset}
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to opentransformer_tpu_torch yet "
-        "(see ROADMAP.md, Queue 1 item 6: the data pipeline)")
+        f"{what} is not ported to opentransformer_tpu_torch yet ({WHAT_TRAINING_LACKS})")
 
 
 def quantize(n: int, multiple: int) -> int:
@@ -158,23 +168,37 @@ class FeatureLoader:
     def __init__(self, params: Any, name: str = "train", is_eval: bool = False,
                  batch_size: Optional[int] = None, seed: int = 0):
         data_cfg = params["data"] if "data" in params else params
+        self.data_cfg = data_cfg
         dataset_type = data_cfg.get("dataset_type", "kaldi")
-        if dataset_type != "online":
+        if dataset_type not in DATASETS:
             raise _not_ported(f"dataset_type {dataset_type!r}")
-        if data_cfg.get("bucket"):
-            raise _not_ported("the bucketing sampler (data.bucket)")
-        if data_cfg.get("device_resident", False):
-            raise _not_ported("the device-resident corpus (data.device_resident)")
+        self.device_resident = bool(data_cfg.get("device_resident", False)) and not is_eval
+        if self.device_resident and dataset_type != "kaldi":
+            # the JAX package warns and streams from the host instead
+            raise _not_ported(f"data.device_resident with dataset_type {dataset_type!r}")
         self.target_pad_multiple = int(data_cfg.get("target_pad_multiple", 8))
         self.num_workers = int(data_cfg.get("num_workers", 0))
-        self.dataset = AudioDataset(data_cfg, data_cfg[name], is_eval=is_eval,
-                                    rng=np.random.default_rng(seed))
-        self.extract_on_device = self.dataset.return_waveform
+        self.dataset = DATASETS[dataset_type](data_cfg, data_cfg[name], is_eval=is_eval,
+                                              rng=np.random.default_rng(seed))
+        self.extract_on_device = getattr(self.dataset, "return_waveform", False)
         self.batch_size = int(batch_size or data_cfg.get("batch_size", 16))
         pairs = self.dataset.index_length_pair()
-        order = [i for i, _ in sorted(pairs, key=lambda p: p[1])]
-        self.sampler = _SimpleSampler(order, dict(pairs), self.batch_size, seed=seed,
-                                      frame_multiple=int(data_cfg.get("frame_pad_multiple", 32)))
+        bucket = data_cfg.get("bucket")
+        if bucket:
+            auto = bucket.get("audo_set_batch_size", bucket.get("auto_set_batch_size", False))
+            self.sampler = BySequenceLengthSampler(
+                pairs, bucket_boundaries=bucket.get("bucket_boundaries", DEFAULT_BOUNDARIES),
+                batch_size=self.batch_size,
+                bucket_batch_sizes=bucket.get("bucket_batch_size") or None,
+                max_frames_one_batch=bucket.get("max_frames_one_batch", 0) if auto else 0,
+                rm_the_long_sents=bucket.get("rm_the_long_sents", False),
+                drop_last=bucket.get("drop_last", False), seed=seed,
+                overlong_pad_multiple=bucket.get("overlong_pad_multiple", 256))
+        else:
+            order = [i for i, _ in sorted(pairs, key=lambda p: p[1])]
+            self.sampler = _SimpleSampler(
+                order, dict(pairs), self.batch_size, seed=seed,
+                frame_multiple=int(data_cfg.get("frame_pad_multiple", 32)))
 
     def __len__(self) -> int:
         return len(self.sampler)
@@ -182,7 +206,43 @@ class FeatureLoader:
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
 
+    def build_resident_corpus(self, storage_dtype: Optional[str] = None):
+        """The split's clean features (noise and SpecAugment off: they are
+        drawn on the device) as ``resident.build_corpus`` pads them, to the
+        largest bucket boundary (→ (corpus, frame counts))."""
+        from .resident import build_corpus
+
+        if not self.device_resident:
+            raise RuntimeError("the loader is not in device_resident mode")
+        storage_dtype = storage_dtype or str(self.data_cfg.get("device_resident_dtype",
+                                                               "float16"))
+        bucket = self.data_cfg.get("bucket")
+        if bucket:
+            pad_to = max(bucket.get("bucket_boundaries", DEFAULT_BOUNDARIES))
+            pad_multiple = int(bucket.get("overlong_pad_multiple", 256))
+        else:
+            pad_to, pad_multiple = 0, int(self.data_cfg.get("frame_pad_multiple", 32))
+        ds = self.dataset
+        saved = ds.apply_spec_augment, ds.additive_noise_std
+        ds.apply_spec_augment, ds.additive_noise_std = False, 0.0
+        try:
+            return build_corpus(ds, pad_to_frames=pad_to, pad_multiple=pad_multiple,
+                                storage_dtype=storage_dtype)
+        finally:
+            ds.apply_spec_augment, ds.additive_noise_std = saved
+
+    def _resident_batch(self, idxs):
+        """(utt_ids, {corpus_idx}, targets): the features stay on the card."""
+        rows = [self.dataset.target_row(i) for i in idxs]
+        tgts = [t for _, t in rows]
+        return ([u for u, _ in rows], {"corpus_idx": np.asarray(idxs, np.int32)},
+                collate_targets(tgts, [len(t) for t in tgts], self.target_pad_multiple))
+
     def _iter_batches(self):
+        if self.device_resident:
+            for _, idxs in self.sampler:
+                yield self._resident_batch(idxs)
+            return
         pool = ThreadPoolExecutor(self.num_workers) if self.num_workers > 1 else None
         try:
             for boundary, idxs in self.sampler:

@@ -13,11 +13,20 @@ labels than frames) costs a large *finite* value (~1e5 per missing
 frame), where ``F.ctc_loss`` gives ``inf``. The JAX package's
 ``isfinite`` guards therefore never fire, and the port keeps them for the
 same (never taken) case.
+
+Where every sequence of a batch has an alignment (at least as many valid
+frames as labels plus adjacent repeats), both compute the same sum over
+alignments, log(0) terms drop out, and ``ctc_loss`` takes PyTorch's
+``F.ctc_loss`` for the batch: one native kernel forward and one backward,
+where the recursion's Python loop launches some 45 small kernels a frame
+(0.2 s of a 0.24 s anchor update on the card). A batch with an infeasible
+sequence takes the recursion, for optax's finite values.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.nn import functional as F
 
 from ..data import PAD
 
@@ -100,6 +109,16 @@ def ctc_neg_log_likelihood(logits: torch.Tensor, logit_pad: torch.Tensor, labels
     return ctc_nll_from_logprobs(emit, blank, logit_pad, labels, label_pad)
 
 
+def all_aligned(logit_lengths: torch.Tensor, labels: torch.Tensor,
+                label_pad: torch.Tensor) -> bool:
+    """Whether every sequence has an alignment: valid frames ≥ labels +
+    adjacent repeats (a repeat needs a blank between). One host sync."""
+    valid = ~label_pad.bool()
+    repeats = (labels[:, 1:] == labels[:, :-1]) & valid[:, 1:]
+    need = valid.sum(dim=1) + repeats.sum(dim=1)
+    return bool((logit_lengths >= need).all())
+
+
 def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor, labels: torch.Tensor,
              label_lengths: torch.Tensor, blank_id: int = 0) -> torch.Tensor:
     """Mean over the batch of each sequence's CTC loss divided by its label
@@ -109,7 +128,12 @@ def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor, labels: torch.Te
     dev = logits.device
     logit_pad = torch.arange(t, device=dev)[None, :] >= logit_lengths[:, None]
     label_pad = torch.arange(u, device=dev)[None, :] >= label_lengths[:, None]
-    per_seq = ctc_neg_log_likelihood(logits, logit_pad, labels, label_pad, blank_id)
+    if all_aligned(logit_lengths, labels, label_pad):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        per_seq = F.ctc_loss(logp.transpose(0, 1), labels.long(), logit_lengths.long(),
+                             label_lengths.long(), blank=blank_id, reduction="none")
+    else:
+        per_seq = ctc_neg_log_likelihood(logits, logit_pad, labels, label_pad, blank_id)
     # the JAX package's zero_infinity guard; optax's values are always finite
     per_seq = torch.where(torch.isfinite(per_seq), per_seq, torch.zeros_like(per_seq))
     per_seq = per_seq / torch.clamp_min(label_lengths.float(), 1.0)

@@ -189,9 +189,10 @@ class _MultiStreamBase:
                 s.active = False
                 finalize = True
         if finalize:
-            s.on_final(text_of(s.tokens, self.idx2unit))
+            text, on_final = text_of(s.tokens, self.idx2unit), s.on_final
             with self._lock:
                 self._free.append(slot)
+            on_final(text)
 
     def free_slots(self) -> int:
         with self._lock:
@@ -276,13 +277,17 @@ class _MultiStreamBase:
                     finals.append((i, s))
                 elif changed:
                     partials.append(s)
-        # callbacks outside the locks (they may write to sockets)
+        # callbacks outside the locks (they may write to sockets); a slot is
+        # free before its FINAL goes out (the text and callback taken first,
+        # as the slot may be claimed again at once), so a client that has
+        # read its FINAL finds the slot free
         for s in partials:
             s.on_partial(text_of(s.tokens, self.idx2unit))
         for i, s in finals:
-            s.on_final(text_of(s.tokens, self.idx2unit))
+            text, on_final = text_of(s.tokens, self.idx2unit), s.on_final
             with self._lock:
                 self._free.append(i)
+            on_final(text)
         return len(plan)
 
     # ---------------------------------------------------------- convenience

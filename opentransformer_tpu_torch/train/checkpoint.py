@@ -9,10 +9,13 @@
   * ``optimizer.pt``: the torch optimizer's state dict;
   * ``extra.json``: the trainer's counters (global step, NaN skips).
 
-The run's config sits beside them as ``config.json``. ``save_params_only``
-writes a directory with ``params.npz`` alone (``model.best``). Orbax is
-not available on the card, so these are not orbax directories; resuming
-(``-ct``) and averaging are not ported yet.
+The run's config sits beside them as ``config.json`` (``load_config``).
+``save_params_only`` writes a directory with ``params.npz`` alone
+(``model.best``); ``average`` writes the mean of an epoch range's
+parameters as ``model.average.from{s}to{e}``, summed in float64 and
+written as float32, as the JAX package's does. Orbax is not available on
+the card, so these are not orbax directories; resuming (``-ct``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -79,6 +82,38 @@ class Checkpointer:
         """The JAX-layout parameter tree of a checkpoint directory (for
         ``compat.load_into``)."""
         return compat.load_npz(os.path.join(path, PARAMS))
+
+    def average(self, start_epoch: int, end_epoch: int, out_name: Optional[str] = None) -> str:
+        """Average the parameters of the epochs in [start_epoch, end_epoch]
+        (those that exist) into ``<expdir>/model.average.from{s}to{e}``;
+        returns its path."""
+        epochs = [e for e in self.list_epochs() if start_epoch <= e <= end_epoch]
+        if not epochs:
+            raise FileNotFoundError(
+                f"no checkpoints in [{start_epoch}, {end_epoch}] under {self.expdir}")
+        acc: dict = {}
+        for e in epochs:
+            with np.load(os.path.join(self.epoch_path(e), PARAMS)) as z:
+                for key in z.files:
+                    x = z[key].astype(np.float64)
+                    acc[key] = acc[key] + x if key in acc else x
+        out_name = out_name or f"model.average.from{start_epoch}to{end_epoch}"
+        path = os.path.join(self.expdir, out_name)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
+        n = float(len(epochs))
+        np.savez(os.path.join(path, PARAMS),
+                 **{k: (v / n).astype(np.float32) for k, v in acc.items()})
+        return path
+
+    def load_config(self) -> Optional[dict]:
+        """The run's ``config.json``, if it was written."""
+        p = os.path.join(self.expdir, "config.json")
+        if not os.path.exists(p):
+            return None
+        with open(p, encoding="utf-8") as f:
+            return json.load(f)
 
     def prune(self, keep_last_n: int) -> None:
         for e in self.list_epochs()[:-keep_last_n]:

@@ -32,7 +32,7 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], opt_cfg: Any,
     if opt_cfg.get("adam_m_dtype"):
         raise NotImplementedError(
             "train.optimizer.adam_m_dtype is not ported to opentransformer_tpu_torch yet "
-            "(see ROADMAP.md, Queue 1 item 5)")
+            "(see ROADMAP.md, Queue 1: What training and decoding still lack)")
     if opt_type == "adam":
         b1, b2 = (float(b) for b in opt_cfg.get("betas", (0.9, 0.999)))
         return torch.optim.Adam(params, lr=0.0, betas=(b1, b2),

@@ -1,12 +1,18 @@
 """The training loop (counterpart of ``opentransformer_tpu/train/trainer.py``,
-its single-step path).
+its single-step and multi-step paths).
 
-Per micro-batch: the device feature stage (``data/device_pipeline.py``:
-fbank kernel, CMVN, SpecAugment) runs without gradient, then the model's
-teacher-forced loss divided by ``accum_steps`` is back-propagated into the
-parameters' ``.grad`` (the accumulator). Every ``accum_steps`` micro-batches,
-and at the end of an epoch for a short last window (still divided by
-``accum_steps``), one update:
+Per micro-batch, the batch's kind picks the preprocess, which runs without
+gradient: padded waveforms go through the device feature stage
+(``data/device_pipeline.py``: fbank kernel, CMVN, SpecAugment), row indices
+into the device-resident corpus through its gather (``data/resident.py``:
+noise, SpecAugment), host features straight to the device
+(``feature_args``). Then the model's teacher-forced loss divided by
+``accum_steps`` is back-propagated into the parameters' ``.grad`` (the
+accumulator); with ``dtype: bfloat16`` the forward runs under
+``torch.autocast`` in bfloat16 over the float32 parameters, while the loss
+itself is float32 (``ops/loss.py``) and Adam's state stays float32. Every
+``accum_steps`` micro-batches, and at the end of an epoch for a short last
+window (still divided by ``accum_steps``), one update:
 
   * the global gradient norm, then clip by ``min(1, clip / (norm + 1e-6))``;
   * Gaussian gradient noise of std ``grad_noise / accum_steps``;
@@ -17,10 +23,18 @@ and at the end of an epoch for a short last window (still divided by
 
 ``global_step`` starts at 1 and counts updates, skipped ones too. The
 loader is reshuffled before each epoch; after it come the checkpoint, the
-deterministic dev loss and the best-epoch ``model.best``. Dropout, SpecAugment
-and gradient noise all draw from one ``torch.Generator`` on the model's
-device. The JAX trainer's other paths (fused update, multi-step execution,
-pipeline schedules, a mesh, MixSpeech) are not ported and raise.
+deterministic dev loss, the best-epoch ``model.best`` and the dev probe
+(``dev_probe_fn(model, epoch)``, e.g. the greedy CER of ``cli/run.py``).
+Dropout, noise, SpecAugment and gradient noise all draw from one
+``torch.Generator`` on the model's device.
+
+``steps_per_exec: N`` is the JAX trainer's multi-step execution, N updates
+scanned in one compiled program to spare the TPU's dispatch. The JAX
+program runs the single-step arithmetic, with accumulation windows that run
+on across a change of batch shape, so the same lr sequence, ``global_step``
+and history come from N single updates, which is how the port runs it. The
+JAX trainer's other paths (fused update, pipeline schedules, a mesh,
+MixSpeech, asynchronous saves) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -40,15 +54,15 @@ logger = logging.getLogger(__name__)
 
 # train-section options of the JAX trainer that are not ported, with the
 # value that means "off"
-_NOT_PORTED = {"fused_update": False, "steps_per_exec": 1, "pp_schedule": "sharded",
-               "pp_micro_batches": None, "async_save": False, "dtype": "float32",
-               "dev_cer_probe": False}
+_NOT_PORTED = {"fused_update": False, "pp_schedule": "sharded", "pp_micro_batches": None,
+               "async_save": False}
+AUTOCAST_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to opentransformer_tpu_torch yet "
-        "(see ROADMAP.md, Queue 1 item 5: training)")
+        "(see ROADMAP.md, Queue 1: What training and decoding still lack)")
 
 
 def _tensor(x, device, dtype=None):
@@ -65,16 +79,27 @@ def feature_args(batch, device):
 
 class Trainer:
     """Drives epochs over a loader of (utt_ids, inputs, targets) batches
-    whose inputs are padded waveforms, through ``frontend``."""
+    whose inputs are padded waveforms (through ``frontend``), row indices
+    into ``resident`` or padded host features."""
 
     def __init__(self, train_cfg: Any, model: torch.nn.Module, frontend,
                  generator: torch.Generator, checkpointer=None, log_interval: int = 10,
-                 keep_last_n: int = 30, dev_loader=None, is_debug: bool = False):
+                 keep_last_n: int = 30, dev_loader=None, is_debug: bool = False,
+                 resident=None, dev_probe_fn=None):
         for key, off in _NOT_PORTED.items():
             if train_cfg.get(key, off) != off:
                 raise _not_ported(f"train.{key}={train_cfg[key]!r}")
+        dtype = str(train_cfg.get("dtype", "float32"))
+        if dtype not in AUTOCAST_DTYPES:
+            raise ValueError(f"train.dtype {dtype!r} not in {sorted(AUTOCAST_DTYPES)}")
+        self.autocast_dtype = AUTOCAST_DTYPES[dtype]
+        self.steps_per_exec = int(train_cfg.get("steps_per_exec", 1))
+        if self.steps_per_exec < 1:
+            raise ValueError(f"train.steps_per_exec must be >= 1, got {self.steps_per_exec}")
         self.model = model
         self.frontend = frontend
+        self.resident = resident
+        self.dev_probe_fn = dev_probe_fn
         self.device = next(model.parameters()).device
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"the generator lives on {generator.device}, the model on "
@@ -98,32 +123,52 @@ class Trainer:
         self.global_epoch = 0
         self.nan_skips = 0
         self.mean_loss = MeanLoss()
-        # one record per update: epoch, step, lr, micro-batch losses, grad
-        # norm, whether it was applied, host time at its end
+        # one record per update: epoch, step, lr, micro-batch losses (and the
+        # hybrid loss' parts under "aux"), grad norm, whether it was applied,
+        # host time at its end
         self.history: list[dict] = []
         self.dev_losses: list[float] = []
         self._window: list[torch.Tensor] = []
+        self._window_aux: list[dict] = []
 
     # ------------------------------------------------------------ one step
-    def wave_args(self, batch):
-        """A waveform batch → (feats, mask, targets, targets_length) on the
-        model's device, training features from the device frontend (no
-        gradient)."""
+    def autocast(self):
+        """The forward's precision context: bfloat16 autocast with
+        ``dtype: bfloat16``, else a no-op."""
+        return torch.autocast(self.device.type, dtype=self.autocast_dtype or torch.bfloat16,
+                              enabled=self.autocast_dtype is not None)
+
+    def batch_args(self, batch, train: bool = True):
+        """A batch → (feats, mask, targets, targets_length) on the model's
+        device, by the batch's kind (no gradient): waveforms through the
+        device frontend, ``corpus_idx`` through the resident gather, host
+        features as they are. ``train`` draws the augmentation."""
         _, inputs, targets = batch
         with torch.no_grad():
-            feats, mask = self.frontend(_tensor(inputs["waveforms"], self.device),
-                                        _tensor(inputs["wave_lengths"], self.device),
-                                        self.generator, train=True)
-        return (feats, mask, _tensor(targets["targets"], self.device, torch.long),
-                _tensor(targets["targets_length"], self.device, torch.long))
+            if "waveforms" in inputs:
+                feats, mask = self.frontend(_tensor(inputs["waveforms"], self.device),
+                                            _tensor(inputs["wave_lengths"], self.device),
+                                            self.generator, train=train)
+                return (feats, mask, _tensor(targets["targets"], self.device, torch.long),
+                        _tensor(targets["targets_length"], self.device, torch.long))
+            if "corpus_idx" in inputs:
+                if self.resident is None:
+                    raise ValueError("a device-resident batch needs the trainer's resident "
+                                     "corpus")
+                return self.resident(inputs["corpus_idx"], targets["targets"],
+                                     targets["targets_length"], self.generator, train=train)
+        return feature_args(batch, self.device)
 
     def micro_step(self, batch) -> torch.Tensor:
         """Forward and backward of one micro-batch; its gradient, scaled by
         1/accum_steps, adds to the parameters' ``.grad``. Returns the
         (unscaled) loss."""
-        loss, _ = self.model(*self.wave_args(batch))
+        args = self.batch_args(batch)
+        with self.autocast():
+            loss, aux = self.model(*args)
         (loss / self.accum_steps).backward()
         self._window.append(loss.detach())
+        self._window_aux.append({k: v.detach() for k, v in aux.items()})
         return loss.detach()
 
     def update(self, epoch: int = 0) -> dict:
@@ -144,8 +189,13 @@ class Trainer:
                 noise = torch.randn(g.shape, generator=self.generator, device=g.device,
                                     dtype=g.dtype)
                 g.add_(noise * self.grad_noise / self.accum_steps)
-        values = torch.stack([gnorm, *self._window]).tolist()  # one host sync per update
-        gnorm_val, losses = values[0], values[1:]
+        aux_keys = sorted(self._window_aux[0]) if self._window_aux else []
+        aux_vals = [a[k].float() for a in self._window_aux for k in aux_keys]
+        # one host sync per update
+        values = torch.stack([gnorm, *self._window, *aux_vals]).tolist()
+        n = len(self._window)
+        gnorm_val, losses = values[0], values[1 : 1 + n]
+        aux = {k: values[1 + n + i :: len(aux_keys)] for i, k in enumerate(aux_keys)}
         applied = math.isfinite(gnorm_val)
         lr = self.schedule(self.global_step, self.global_epoch)
         if applied:
@@ -155,9 +205,11 @@ class Trainer:
         else:
             self.nan_skips += 1
         self.optimizer.zero_grad(set_to_none=True)
-        self._window = []
+        self._window, self._window_aux = [], []
         record = {"epoch": epoch, "step": self.global_step, "lr": lr, "losses": losses,
                   "gnorm": gnorm_val, "applied": applied, "time": time.time()}
+        if aux:
+            record["aux"] = aux
         self.history.append(record)
         self.mean_loss.update(sum(losses) / max(len(losses), 1))
         self.global_step += 1
@@ -167,7 +219,7 @@ class Trainer:
     def train_one_epoch(self, epoch: int, train_loader) -> None:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        self._window = []
+        self._window, self._window_aux = [], []
         n_batches = len(train_loader)
         span_t0 = time.time()
         micro = 0
@@ -178,12 +230,14 @@ class Trainer:
                 rec = self.update(epoch)
                 micro = 0
                 if rec["step"] % self.log_interval == 0:
+                    parts = "".join(f", {k}:{sum(v) / len(v):.5f}"
+                                    for k, v in rec.get("aux", {}).items())
                     logger.info(
                         "-Training-Epoch-%d(%.5f%%), Global Step:%d, lr:%.8f, Loss:%.5f, "
-                        "AvgLoss: %.5f, Run Time:%.3f, GNorm:%.3f%s", epoch,
+                        "AvgLoss: %.5f, Run Time:%.3f%s, GNorm:%.3f%s", epoch,
                         (step + 1) / max(n_batches, 1) * 100, rec["step"], rec["lr"],
                         sum(rec["losses"]) / len(rec["losses"]), self.mean_loss.mean(),
-                        time.time() - span_t0, rec["gnorm"],
+                        time.time() - span_t0, parts, rec["gnorm"],
                         f", NaNSkips:{self.nan_skips}" if self.nan_skips else "")
                     span_t0 = time.time()
             if self.is_debug and step > 30:
@@ -207,14 +261,20 @@ class Trainer:
                 if best.update(epoch, dev_loss) and self.checkpointer is not None:
                     self.checkpointer.save_params_only("model.best", self.model)
                     logger.info("new best epoch %d (dev loss %.5f)", epoch, dev_loss)
+            if self.dev_probe_fn is not None:
+                self.model.eval()
+                with self.autocast():
+                    self.dev_probe_fn(self.model, epoch)
+                self.model.train()
 
     def evaluate(self, dev_loader) -> float:
-        """Mean deterministic loss over a loader of host-feature batches."""
+        """Mean deterministic loss over a loader of host-feature batches,
+        in the training forward's precision."""
         self.model.eval()
         meter = AverageMeter()
-        with torch.no_grad():
+        with torch.no_grad(), self.autocast():
             for batch in dev_loader:
-                loss, _ = self.model(*feature_args(batch, self.device))
+                loss, _ = self.model(*self.batch_args(batch, train=False))
                 meter.update(float(loss))
         self.model.train()
         return meter.avg

@@ -164,6 +164,29 @@ def test_ctc_loss_and_gradient_match_jax():
                                    err_msg=f"row {row}")
 
 
+def test_aligned_batches_take_the_native_loss_and_match_jax():
+    """Without the infeasible row every sequence aligns: ``ctc_loss`` takes
+    ``F.ctc_loss`` and still gives JAX's loss and gradient to 1e-5; with it,
+    the recursion (the test above)."""
+    from opentransformer_tpu_torch.ops.loss import all_aligned
+
+    logits, labels, logit_lens, label_lens = (np.delete(a, 3, axis=0) for a in ctc_case())
+    pad = lambda lens, n: torch.arange(n)[None] >= torch.from_numpy(lens)[:, None]  # noqa: E731
+    assert all_aligned(torch.from_numpy(logit_lens), torch.from_numpy(labels),
+                       pad(label_lens, labels.shape[1]))
+    full = ctc_case()
+    assert not all_aligned(torch.from_numpy(full[2]), torch.from_numpy(full[1]),
+                           pad(full[3], full[1].shape[1]))
+    args = [jnp.asarray(a) for a in (logit_lens, labels, label_lens)]
+    loss_j, grad_j = jax.value_and_grad(lambda x: jax_ctc_loss(x, *args))(jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_()
+    loss_t = ctc_loss(x, *(torch.from_numpy(a) for a in (logit_lens, labels, label_lens)))
+    loss_t.backward()
+    assert abs(loss_t.item() - float(loss_j)) <= 1e-5 * abs(float(loss_j))
+    scale = np.abs(np.asarray(grad_j)).max()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(grad_j), rtol=0, atol=1e-5 * scale)
+
+
 # -------------------------------------------------------------- CTC head
 @pytest.mark.parametrize("lookahead", [0, 2])
 def test_ctc_head_of_speech2text_matches_jax(lookahead):

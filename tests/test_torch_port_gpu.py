@@ -406,11 +406,12 @@ def test_ctc_model_runs_through_kernel(cuda):
 
 @pytest.mark.gpu
 def test_ctc_loss_and_rescoring_on_card_match_cpu(cuda):
-    """The CTC recursion (loss, gradient, joint rescoring) on the card
-    equals the CPU's to 1e-5 relative (the same float32 operations; the
-    loss's rows are feasible, the rescored list holds an infeasible
-    hypothesis, whose score is optax's finite ~1e5)."""
-    from opentransformer_tpu_torch.ops.loss import ctc_loss
+    """The CTC loss and gradient on the card equal the CPU's to 1e-5
+    relative, for a batch where every row aligns (``F.ctc_loss`` on each
+    device) and for one with an infeasible row (optax's recursion, whose
+    loss is finite, ~1e5); and so does the joint rescoring (the recursion),
+    whose list holds an infeasible hypothesis."""
+    from opentransformer_tpu_torch.ops.loss import all_aligned, ctc_loss
     from opentransformer_tpu_torch.recognize.base import ctc_rescore_scores
     from opentransformer_tpu_torch.recognize.beam import BeamHypotheses
 
@@ -418,15 +419,21 @@ def test_ctc_loss_and_rescoring_on_card_match_cpu(cuda):
     logits = torch.from_numpy((2 * rng.normal(size=(4, 30, 50))).astype(np.float32))
     labels = torch.from_numpy(rng.integers(1, 50, size=(4, 8)))
     args = (torch.tensor([30, 24, 17, 5]), labels, torch.tensor([8, 5, 3, 2]))
-    grads = []
-    for dev in ("cpu", cuda):
-        x = logits.to(dev, copy=True).requires_grad_()
-        loss = ctc_loss(x, *(a.to(dev) for a in args))
-        loss.backward()
-        grads.append((loss.item(), x.grad.cpu()))
-    assert abs(grads[1][0] - grads[0][0]) <= 1e-5 * abs(grads[0][0])
-    torch.testing.assert_close(grads[1][1], grads[0][1], rtol=0,
-                               atol=1e-5 * float(grads[0][1].abs().max()))
+    # the last row's 7 labels cannot fit its 5 frames
+    infeasible = (args[0], labels, torch.tensor([8, 5, 3, 7]))
+    for case, aligned in ((args, True), (infeasible, False)):
+        label_pad = torch.arange(labels.shape[1])[None] >= case[2][:, None]
+        assert all_aligned(case[0], labels, label_pad) is aligned
+        grads = []
+        for dev in ("cpu", cuda):
+            x = logits.to(dev, copy=True).requires_grad_()
+            loss = ctc_loss(x, *(a.to(dev) for a in case))
+            loss.backward()
+            grads.append((loss.item(), x.grad.cpu()))
+        assert np.isfinite(grads[0][0]) and (grads[0][0] > 1e3) is not aligned
+        assert abs(grads[1][0] - grads[0][0]) <= 1e-5 * abs(grads[0][0])
+        torch.testing.assert_close(grads[1][1], grads[0][1], rtol=0,
+                                   atol=1e-5 * float(grads[0][1].abs().max()))
     tokens = torch.ones(4, 3, 10, dtype=torch.long)
     tokens[:, :, 1:7] = torch.from_numpy(rng.integers(2, 50, size=(4, 3, 6)))
     hyp = BeamHypotheses(tokens, torch.tensor([[-1.0, -2.0, -3.0]] * 4),
@@ -528,3 +535,29 @@ def test_transducer_greedy_runs_through_kernel(cuda):
     assert got["cuda"][:3] == got["cpu"][:3]
     assert sum(got["cpu"][1]) > 0
     assert got["cpu"][3] == 0 and got["cuda"][3] == got["cuda"][4] > 0
+
+
+@pytest.mark.gpu
+def test_resident_gather_on_card_matches_cpu(cuda):
+    """The device-resident corpus gathered on the card: without noise the
+    CPU's rows exactly; with noise 0.3 the pads stay 0 and the valid
+    frames move."""
+    from opentransformer_tpu_torch.data.resident import ResidentCorpus
+
+    rng = np.random.default_rng(4)
+    lens = rng.integers(20, 64, size=16).astype(np.int32)
+    corpus = torch.zeros(16, 64, 40, dtype=torch.float16)
+    for i, n in enumerate(lens):
+        corpus[i, :n] = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float16))
+    cfg = {"additive_noise_std": 0.3}
+    idx = np.array([3, 0, 15, 7], np.int32)
+    y, yl = np.ones((4, 8), np.int32), np.full(4, 3, np.int32)
+    got = ResidentCorpus(cfg, corpus, lens, cuda)
+    want = ResidentCorpus(cfg, corpus, lens, "cpu")(idx, y, yl, train=False)
+    clean = got(idx, y, yl, train=False)
+    for a, b in zip(clean, want):
+        assert torch.equal(a.cpu(), b)
+    noisy, mask, _, _ = got(idx, y, yl, torch.Generator(device=cuda).manual_seed(0), train=True)
+    resid = noisy - clean[0]
+    assert torch.count_nonzero(resid[~mask]) == 0 and torch.count_nonzero(resid[mask]) > 0
+    assert got.nbytes == 16 * 64 * 40 * 2

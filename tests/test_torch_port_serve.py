@@ -149,7 +149,8 @@ def test_feature_extractor_and_streaming_fbank_match_jax(tmp_path, cmvn):
 
 
 def test_psf_features_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1: What training and decoding still lack"):
         serve.FeatureExtractor({"feature_extractor": "psf"})
 
 

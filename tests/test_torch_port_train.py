@@ -437,9 +437,9 @@ def test_cli_needs_a_card_unless_told_the_cpu(corpus):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-mp"], ["-ct"], ["-im", "x"], ["-ios", "x"], ["--tp", "2"], ["--pp", "2"],
+    ["-ct"], ["-ios", "x"], ["--tp", "2"], ["--pp", "2"],
     ["--pp-schedule", "1f1b"], ["--pp-micro-batches", "2"], ["--ep", "2"], ["--multihost"],
-    ["--supervise", "1"], ["--steps-per-exec", "2"], ["--async-save"], ["--visual"],
+    ["--supervise", "1"], ["--async-save"], ["--visual"],
     ["--profile", "x"], ["-ms"], ["-tfe", "1"], ["-tfs", "3"], ["-n", "2"]],
     ids=lambda f: f[0])
 def test_flags_not_ported_raise(flags):
@@ -447,14 +447,33 @@ def test_flags_not_ported_raise(flags):
         run_cli.run(["-c", "never-read.json", "--device", "cpu", *flags])
 
 
+@pytest.mark.parametrize("form", ["dir", "file"])
+def test_init_model_warm_starts_the_weights(trained, corpus, tmp_path, form):
+    """``-im`` (not ported before the anchor recipe) loads a checkpoint
+    directory's params.npz, or an npz, over the seeded initial weights."""
+    _, expdir = trained
+    src = os.path.join(expdir, "model.epoch.1")
+    _, _, cfg = corpus
+    cfg = json.loads(json.dumps(cfg))
+    cfg["train"]["epochs"] = 0
+    conf = str(tmp_path / "conf.json")
+    with open(conf, "w") as f:
+        json.dump(cfg, f)
+    argv = ["-c", conf, "--expdir", str(tmp_path / "exp"), "--device", "cpu", "-s", "7"]
+    fresh = run_cli.run(argv).model.state_dict()
+    warm = run_cli.run(argv + ["-im", src if form == "dir" else
+                               os.path.join(src, "params.npz")]).model.state_dict()
+    want = compat.load_into(build_model(MODEL_CFG, device="cpu"),
+                            compat.load_npz(os.path.join(src, "params.npz"))).state_dict()
+    assert all(torch.equal(warm[k], v) for k, v in want.items())
+    assert not all(torch.equal(fresh[k], v) for k, v in want.items())
+
+
 @pytest.mark.parametrize("section,key,value", [
-    ("train", "dev_cer_probe", True), ("train", "fused_update", True),
-    ("train", "steps_per_exec", 2), ("train", "dtype", "bfloat16"),
-    ("train", "async_save", True), ("train", "pp_schedule", "1f1b"),
-    ("model", "ctc_weight", 0.3), ("model", "type", "transformer_lm"),
-    ("data", "bucket", {"bucket_boundaries": [100, 200]}), ("data", "dataset_type", "kaldi"),
-    ("data", "extract_on_device", False), ("data", "gaussian_noise", 0.1),
-    ("data", "feature_extractor", "psf"), ("data", "device_resident", True),
+    ("train", "fused_update", True), ("train", "async_save", True),
+    ("train", "pp_schedule", "1f1b"), ("model", "type", "transformer_lm"),
+    ("data", "gaussian_noise", 0.1), ("data", "feature_extractor", "psf"),
+    ("data", "device_resident", True),
 ], ids=lambda v: str(v) if not isinstance(v, dict) else "dict")
 def test_config_options_not_ported_raise(corpus, tmp_path, section, key, value):
     _, _, cfg = corpus
@@ -466,6 +485,87 @@ def test_config_options_not_ported_raise(corpus, tmp_path, section, key, value):
         json.dump(cfg, f)
     with pytest.raises(NotImplementedError, match="not ported"):
         run_cli.run(["-c", conf, "--expdir", str(tmp_path / "exp"), "--device", "cpu"])
+
+
+def kaldi_copy(cfg, root):
+    """The online corpus' splits as kaldi arks of their host log-fbank."""
+    from opentransformer_tpu_torch.data.datasets import AudioDataset
+    from opentransformer_tpu_torch.data.kaldi_io import write_ark
+
+    out = json.loads(json.dumps(cfg))
+    out["data"].update(dataset_type="kaldi", extract_on_device=False)
+    for split in ("train", "dev"):
+        ds = AudioDataset(cfg["data"], cfg["data"][split], is_eval=True)
+        ark, scp = os.path.join(root, f"{split}.ark"), os.path.join(root, f"{split}.scp")
+        write_ark(ark, {ds[i][0]: ds[i][1] for i in range(len(ds))}, scp)
+        out["data"][split]["feat"] = [scp]
+    return out
+
+
+def _probe_ran(t, cfg):
+    return [r["epoch"] for r in t.dev_probe_fn.records] == [0] and t.dev_probe_fn.records[0][
+        "utts"] > 0
+
+
+def _host_features(t, cfg):
+    return t.frontend is None and t.resident is None
+
+
+def _bucketed(t, cfg):
+    from opentransformer_tpu_torch.data.bucket import BySequenceLengthSampler
+
+    loader = FeatureLoader(cfg, "train", seed=7)
+    boundaries = {b for b, _ in loader.sampler}
+    return (isinstance(loader.sampler, BySequenceLengthSampler) and boundaries == {100, 200}
+            and t.frontend is not None)
+
+
+def _hybrid(t, cfg):
+    return hasattr(t.model, "ctc") and all(set(r["aux"]) == {"ctc_loss", "att_loss"}
+                                           for r in t.history)
+
+
+# each option that the training CLI raised on before the anchor recipe was
+# ported: its flags or config overrides, and what it now does
+OPTIONS_NOW_PORTED = {
+    "-mp": (["-mp"], {}, lambda t, c: t.autocast_dtype == torch.bfloat16),
+    "--steps-per-exec": (["--steps-per-exec", "2"], {}, lambda t, c: t.steps_per_exec == 2),
+    "dev_cer_probe": ([], {"train": {"dev_cer_probe": True},
+                           "data": {"extract_on_device": False}}, _probe_ran),
+    "steps_per_exec": ([], {"train": {"steps_per_exec": 2}},
+                       lambda t, c: t.steps_per_exec == 2 and t.global_step == 3),
+    "dtype": ([], {"train": {"dtype": "bfloat16"}},
+              lambda t, c: t.autocast_dtype == torch.bfloat16),
+    "ctc_weight": ([], {"model": {"ctc_weight": 0.3}}, _hybrid),
+    "bucket": ([], {"data": {"bucket": {"bucket_boundaries": [100, 200]}}}, _bucketed),
+    "dataset_type_kaldi": ([], "kaldi", _host_features),
+    "extract_on_device_false": ([], {"data": {"extract_on_device": False}}, _host_features),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS_NOW_PORTED))
+def test_options_once_not_ported_now_train(corpus, tmp_path, option):
+    """One epoch through the CLI with the option: finite losses, and the
+    option's effect on the trainer."""
+    flags, overrides, check = OPTIONS_NOW_PORTED[option]
+    _, _, cfg = corpus
+    if overrides == "kaldi":
+        cfg = kaldi_copy(cfg, str(tmp_path))
+    else:
+        cfg = json.loads(json.dumps(cfg))
+        for section, values in overrides.items():
+            cfg[section].update(values)
+    cfg["train"]["epochs"] = 1
+    conf = str(tmp_path / "conf.json")
+    with open(conf, "w") as f:
+        json.dump(cfg, f)
+    trainer = run_cli.run(["-c", conf, "--expdir", str(tmp_path / "exp"), "--device", "cpu",
+                           "-s", "7", *flags])
+    losses = [x for r in trainer.history for x in r["losses"]]
+    n_batches = len(FeatureLoader(cfg, "train", seed=7))
+    assert len(trainer.history) == n_batches >= 2
+    assert np.isfinite(losses).all() and trainer.nan_skips == 0
+    assert check(trainer, cfg)
 
 
 def test_adam_moment_dtype_and_yaml_configs_raise(tmp_path):
