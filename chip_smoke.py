@@ -133,7 +133,32 @@ each of which raises on failure:
      version, and timed; the average of epochs 0-1 through the averaging and
      eval CLIs over the 500 test utterances at beam 5, ``-ml 32`` (n-best
      sorted; CER recorded, not gated); seconds per update, peak memory and
-     the resident upload recorded.
+     the resident upload recorded;
+  13. training every model family the port decodes (float32 unless said):
+     (a) the JAX package's tiny transducer test (its corpus of 40 utterances
+     and its d32 config, 40 epochs at a constant 3e-3) through the training
+     CLI, then ``cli/eval.py`` greedy from the last checkpoint: CER below
+     20% (the JAX test's gate), kernel-1 launches = the greedy loop's
+     iterations; (b) ``conf/transducer.json`` at full width on the first
+     1,024 synthetic train utterances, batch 8, 100 updates with the full
+     joint (``joint_t_block: -1``) and 20 with T-blocks of 32: seconds per
+     update, peak memory and the RNN-T loss's own forward + backward time of
+     each, and a checkpoint that reloads to the same greedy ids; (c)
+     ``conformer_baseline`` with BatchNorm conv modules through the CLI on
+     phase 7's wavs (phase 7's checks: one kernel-3 launch a micro-batch, a
+     reload, with its batch_stats, to the same beam-5 ids through kernel 1
+     at D = 384), every block's running statistics moved, and one
+     micro-batch's statistics update on the card within 1e-4 relative of
+     the CPU's; (d) phase 8a's ``ctc`` model warm-started from the anchor
+     (``-im``) for 50 updates, reloaded to the same greedy ids, decoded by
+     the eval CLI (one launch a batch); (e) ``conf/rnn_lm.json`` and
+     ``conf/transformer_lm.json`` at full width, one epoch of the 20,000
+     train lines each through the CLI (batch 16, accum 4): held-out NLL of
+     the 500 test lines, the RNN LM's at most 6.0 nats, the transformer
+     LM's below its untrained value; the anchor decoded with the trained
+     transformer LM's checkpoint directory at ``-lmw 0.3`` through kernel 2 alone
+     (CER recorded); and each family at width 64 halving its loss in 40
+     updates on 8 samples.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -1211,13 +1236,19 @@ def train_config(paths: dict, epochs: int = 2, model_cfg=None, conf: str = TRAIN
 
 
 def overfit_model_cfg(model_cfg: dict) -> dict:
-    """The baseline model at width 64 with 2 + 1 blocks."""
+    """A speech model config at width 64 with 2 encoder blocks (and 1
+    decoder block; a transducer's predictor of 1 layer and joint of 64)."""
     o = OVERFIT
+    d = o["d_model"]
     cfg = json.loads(json.dumps(model_cfg))
-    cfg["frontend"]["output_size"] = o["d_model"]
-    cfg["encoder"].update(d_model=o["d_model"], n_blocks=o["enc_blocks"], d_ff=o["d_ff"])
-    cfg["decoder"].update(d_model=o["d_model"], memory_dim=o["d_model"], n_blocks=o["dec_blocks"],
-                          d_ff=o["d_ff"])
+    cfg["frontend"]["output_size"] = d
+    blocks = "nblocks" if "nblocks" in cfg["encoder"] else "n_blocks"
+    cfg["encoder"].update({"d_model": d, "d_ff": o["d_ff"], blocks: o["enc_blocks"]})
+    if "decoder" in cfg:
+        cfg["decoder"].update(d_model=d, memory_dim=d, n_blocks=o["dec_blocks"], d_ff=o["d_ff"])
+    if cfg["type"] == "transducer":
+        cfg["predictor"] = dict(cfg.get("predictor") or {}, d_model=d, num_layers=1)
+        cfg["d_joint"] = d
     return cfg
 
 
@@ -1229,14 +1260,15 @@ def reset_launch_counts():
 
 
 def cli_train(tag: str, workdir: str, paths: dict, device: str = "cuda", model_cfg=None,
-              conf: str = TRAIN_CONF):
+              conf: str = TRAIN_CONF, name: str | None = None):
     """Train ``conf`` (cut to ``model_cfg`` if given) on the seeded corpus
     through the training CLI for 2 epochs, then check the run: one fbank
     launch per training micro-batch (none on the CPU), no top-k launch,
     finite losses, no NaN skip, both checkpoints, and the newest one
     reloaded into a fresh model decoding a dev batch to the same ids; last,
-    the steady-state seconds per update. Returns (trainer, config, fbank
-    launches)."""
+    the steady-state seconds per update. ``name`` (default: the config's
+    file name) names the run's files under ``workdir``. Returns (trainer,
+    config, fbank launches)."""
     from opentransformer_tpu_torch import compat
     from opentransformer_tpu_torch.cli import run as run_cli
     from opentransformer_tpu_torch.data.loader import FeatureLoader
@@ -1249,7 +1281,7 @@ def cli_train(tag: str, workdir: str, paths: dict, device: str = "cuda", model_c
 
     cuda = device == "cuda"
     cfg = train_config(paths, model_cfg=model_cfg, conf=conf)
-    name = os.path.splitext(os.path.basename(conf))[0]
+    name = name or os.path.splitext(os.path.basename(conf))[0]
     conf_path = os.path.join(workdir, f"train_{name}.json")
     with open(conf_path, "w") as f:
         json.dump(cfg, f)
@@ -2929,6 +2961,657 @@ def phase_anchor_recipe(workdir: str, data: str, device: str = "cuda"):
             timing)
 
 
+# ---------------------------------------------------------------- phase 13
+# the tiny corpus and transducer of the JAX package's
+# tests/test_transducer.py::test_transducer_cli_train_and_decode
+CTC_CORPUS = dict(units=6, feat_dim=16, vocab=9, utts=40)
+
+
+def make_ctc_corpus(root: str, n_utts: int = CTC_CORPUS["utts"], seed: int = 0) -> None:
+    """40 seeded utterances of 2-3 units (a, b, ...; no unit twice in a
+    row), each a 16-dim pattern held 12 frames plus noise at 0.1, as kaldi
+    arks (``feats.scp``), a ``text`` and a ``vocab`` under ``root`` (the
+    JAX package's ``tests/test_ctc_e2e.py:make_ctc_corpus``, the same
+    draws)."""
+    from opentransformer_tpu_torch.data import write_vocab
+    from opentransformer_tpu_torch.data.kaldi_io import write_ark
+
+    c = CTC_CORPUS
+    rng = np.random.default_rng(seed)
+    units = [chr(ord("a") + i) for i in range(c["units"])]
+    write_vocab({"<PAD>": 0, "<S/E>": 1, "<UNK>": 2, **{u: 3 + i for i, u in enumerate(units)}},
+                os.path.join(root, "vocab"))
+    patterns = rng.normal(size=(c["units"], c["feat_dim"])).astype(np.float32) * 2.0
+    feats, lines = {}, []
+    for i in range(n_utts):
+        n_tok = int(rng.integers(2, 4))
+        toks = [int(rng.integers(0, c["units"]))]
+        while len(toks) < n_tok:
+            t = int(rng.integers(0, c["units"]))
+            if t != toks[-1]:
+                toks.append(t)
+        frames = np.concatenate([np.tile(patterns[t], (12, 1)) for t in toks])
+        frames = frames + 0.1 * rng.normal(size=frames.shape).astype(np.float32)
+        feats[f"utt{i:03d}"] = frames.astype(np.float32)
+        lines.append(f"utt{i:03d} " + " ".join(units[t] for t in toks))
+    write_ark(os.path.join(root, "feats.ark"), feats, os.path.join(root, "feats.scp"))
+    with open(os.path.join(root, "text"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def tiny_transducer_cfg() -> dict:
+    """The JAX test's ``_tiny_cfg``: d32, 2 blocks, a 1-layer predictor."""
+    return {"type": "transducer", "frontend_type": "conv",
+            "frontend": {"input_size": CTC_CORPUS["feat_dim"], "output_size": 32,
+                         "mid_channel": 8, "out_channel": 16, "kernel_size": [[3, 3], [3, 3]],
+                         "stride": [2, 2]},
+            "encoder_type": "transformer",
+            "encoder": {"d_model": 32, "n_heads": 2, "d_ff": 64, "n_blocks": 2,
+                        "residual_dropout": 0.0},
+            "vocab_size": CTC_CORPUS["vocab"], "predictor": {"num_layers": 1}, "d_joint": 32}
+
+
+def ctc_corpus_config(root: str, epochs: int = 40) -> dict:
+    """The JAX test's training config for the tiny corpus (kaldi features,
+    batch 8, Adam at a constant 3e-3, clip 5; test = train), model unset."""
+    split = {"feat": [os.path.join(root, "feats.scp")], "text": [os.path.join(root, "text")]}
+    return {"data": {"dataset_type": "kaldi", "vocab": os.path.join(root, "vocab"),
+                     "batch_size": 8, "train": split, "test": split},
+            "model": None,
+            "train": {"optimizer_type": "adam", "optimizer": {"lr": 3e-3},
+                      "scheduler_type": "constant", "scheduler": {"lr": 3e-3},
+                      "clip_grad": 5, "epochs": epochs, "save_name": "tiny"}}
+
+
+# the sizes of phase 13 (a CPU rehearsal cuts them)
+FAMILIES = dict(
+    tiny_epochs=40, tiny_cer_limit=20.0,
+    transducer_utts=1024, transducer_batch=8, transducer_updates=100, blocked_updates=20,
+    t_block=32, loss_reps=3, ctc_utts=800, ctc_batch=16, lm_lines=None, lm_test_lines=None,
+    rnn_lm_nll_limit=6.0, lm_weight=0.3, stats_rtol=1e-4, cut_width=False)
+FAMILY_OVERFIT_LR = 3e-3  # phase 7's overfit at this lr
+TRANSDUCER_CONF = os.path.join(CONF_DIR, "transducer.json")
+LM_CONFS = {name: os.path.join(CONF_DIR, f"{name}.json") for name in ("rnn_lm", "transformer_lm")}
+
+
+def subset_split(data: str, split: str, n, root: str) -> dict:
+    """The first ``n`` utterances (all with ``None``) of a synthetic split
+    as a kaldi ``{feat, text}`` section under ``root`` (the arks are
+    shared)."""
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    for key, name in (("feat", "feats.scp"), ("text", "text")):
+        with open(os.path.join(data, split, name), encoding="utf-8") as f:
+            lines = f.read().splitlines()[:n]
+        out[key] = [os.path.join(root, f"{split}.{name}")]
+        with open(out[key][0], "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    return out
+
+
+def kaldi_cfg(data: str, train: dict, batch: int, conf: str, **data_extra) -> dict:
+    """``conf``'s model and train sections over the synthetic corpus's kaldi
+    features: batch ``batch``, its vocab, ``train`` as the train split."""
+    with open(conf, encoding="utf-8") as f:
+        cfg = json.load(f)
+    cfg["data"] = {"dataset_type": "kaldi", "vocab": os.path.join(data, "vocab"),
+                   "batch_size": batch, "train": train, **data_extra}
+    return cfg
+
+
+def write_conf(workdir: str, name: str, cfg: dict) -> str:
+    path = os.path.join(workdir, f"{name}.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def run_checks(tag: str, trainer, updates: int) -> list:
+    """Every loss finite, no NaN skip, ``updates`` updates: the losses."""
+    losses = [x for r in trainer.history for x in r["losses"]]
+    if not (np.isfinite(losses).all() and trainer.nan_skips == 0
+            and len(trainer.history) == updates):
+        raise AssertionError(f"{tag}: {len(trainer.history)} updates (want {updates}), NaN skips "
+                             f"{trainer.nan_skips}, finite losses {np.isfinite(losses).all()}")
+    return losses
+
+
+def seconds_per_update(history, skip: int = 2) -> float:
+    """Median host seconds between update records, after the first ``skip``."""
+    gaps = [b["time"] - a["time"] for a, b in zip(history, history[1:])][skip:]
+    return float(np.median(gaps)) if gaps else float("nan")
+
+
+def overfit_family(tag: str, model_cfg: dict, batch, device: str, frontend=None) -> list:
+    """A family's width-64 model on one batch of 8: 40 updates at a
+    constant lr from a seeded init; the last loss must be under half the
+    first (phase 7's gate)."""
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.train.trainer import Trainer
+
+    o, lr = OVERFIT, FAMILY_OVERFIT_LR
+    torch.manual_seed(3)
+    model = build_model(model_cfg, device=device).train()
+    trainer = Trainer({"accum_steps": 1, "clip_grad": 5, "optimizer_type": "adam",
+                       "optimizer": {"lr": lr}, "scheduler_type": "constant",
+                       "scheduler": {"lr": lr}},
+                      model, frontend, torch.Generator(device=device).manual_seed(3))
+    curve = []
+    for _ in range(o["updates"]):
+        trainer.micro_step(batch)
+        curve.append(trainer.update()["losses"][0])
+    ok = np.isfinite(curve).all() and curve[-1] < 0.5 * curve[0] and trainer.nan_skips == 0
+    log(f"{tag} overfit width {o['d_model']}, {len(batch[0])} samples, lr {lr}, "
+        f"{o['updates']} updates: loss {curve[0]:.4f} -> {curve[-1]:.4f} (every 10th: "
+        f"{[round(x, 3) for x in curve[::10]]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the width-{o['d_model']} model did not halve its loss")
+    return curve
+
+
+def phase13a_tiny_transducer(workdir: str, device: str) -> int:
+    """13a: the JAX package's tiny transducer test on the card: its corpus
+    and config through the training CLI (40 epochs, constant lr 3e-3),
+    then ``cli/eval.py`` greedy from the last checkpoint directory. Gates:
+    CER below 20% (the JAX test's gate), kernel-1 launches = the greedy
+    loop iterations of the same decode in process > 0, finite losses, no
+    NaN skip. Returns the CLI decode's kernel-1 launches."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.cli import eval as eval_cli
+    from opentransformer_tpu_torch.cli import run as run_cli
+    from opentransformer_tpu_torch.data import load_idx2unit_map
+    from opentransformer_tpu_torch.data.kaldi_io import load_mat, read_scp
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+    from opentransformer_tpu_torch.recognize.base import build_recognizer
+
+    cuda = device == "cuda"
+    dev_args = [] if cuda else ["--device", device]
+    root = os.path.join(workdir, "tiny_transducer")
+    os.makedirs(root, exist_ok=True)
+    make_ctc_corpus(root)
+    cfg = ctc_corpus_config(root, epochs=FAMILIES["tiny_epochs"])
+    cfg["model"] = tiny_transducer_cfg()
+    expdir = os.path.join(root, "exp")
+    t0 = time.time()
+    trainer = run_cli.run(["-c", write_conf(root, "tiny_transducer", cfg), "--expdir", expdir,
+                           "--log_interval", "1000", "-s", "1234", *dev_args])
+    wall = time.time() - t0
+    n_batches = -(-CTC_CORPUS["utts"] // cfg["data"]["batch_size"])
+    losses = run_checks("phase13a", trainer, n_batches * FAMILIES["tiny_epochs"])
+    ckpt = os.path.join(expdir, f"model.epoch.{FAMILIES['tiny_epochs'] - 1}")
+    out = os.path.join(root, "decode_greedy")
+    project_logp_topk.launches = 0
+    rc = eval_cli.main(["--npz", os.path.join(ckpt, "params.npz"),
+                        "--model_cfg", os.path.join(expdir, "config.json"),
+                        "--feats", os.path.join(root, "feats.scp"),
+                        "--text", os.path.join(root, "text"), "--vocab", os.path.join(root, "vocab"),
+                        "-md", "greedy", "--decode_dir", out, *dev_args])
+    cli_launches = project_logp_topk.launches
+    with open(os.path.join(out, "RESULT"), encoding="utf-8") as f:
+        result = f.read().splitlines()
+    cer = float(result[0].split()[1].rstrip("%"))
+    # the same decode in process, for its loop iterations
+    model = compat.load_into(build_model(cfg["model"], device=device),
+                             compat.load_npz(os.path.join(ckpt, "params.npz")))
+    rec = build_recognizer("transducer", model, args={"beam_width": 1, "max_len": 100},
+                           idx2unit=load_idx2unit_map(os.path.join(root, "vocab")))
+    feats = [load_mat(rx) for rx in read_scp(os.path.join(root, "feats.scp")).values()]
+    for s in range(0, len(feats), 16):  # the eval CLI's batches
+        x, m, _ = eval_cli.collate(feats[s : s + 16])
+        rec.recognize(torch.from_numpy(x).to(device), torch.from_numpy(m).to(device))
+    iterations = model.greedy_iterations
+    ok = (rc == 0 and cer < FAMILIES["tiny_cer_limit"] and iterations > 0
+          and cli_launches == (iterations if cuda else 0))
+    log(f"phase13a tiny transducer ({sum(p.numel() for p in trainer.model.parameters())} "
+        f"parameters) {FAMILIES['tiny_epochs']} epochs through the training CLI in {wall:.1f} s: "
+        f"{len(trainer.history)} updates, loss {losses[0]:.3f} -> {losses[-1]:.3f}, NaN skips "
+        f"{trainer.nan_skips}; cli/eval.py -md greedy from {os.path.basename(ckpt)}: "
+        f"{' | '.join(result)}; CER {cer}% < {FAMILIES['tiny_cer_limit']}% (the JAX test's "
+        f"gate), kernel-1 launches {cli_launches} = greedy loop iterations {iterations} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase13a: a gate failed (see above)")
+    return cli_launches
+
+
+def loss_seconds(trainer, batch, device: str, reps: int) -> dict:
+    """On one batch, for the full joint and for T-blocks: the RNN-T loss
+    alone, forward + backward, over the joint's log-probs or its two slices
+    (made beforehand, without gradient), and one whole update (forward,
+    backward, clip, Adam) with that joint; median host seconds of ``reps``
+    runs after a warm-up, each ending in a synchronize."""
+    from opentransformer_tpu_torch.data import BLK
+    from opentransformer_tpu_torch.ops.masks import mask_to_length
+    from opentransformer_tpu_torch.ops.rnnt_loss import rnnt_loss_from_blank_emit, rnnt_loss_mean
+    from opentransformer_tpu_torch.train.trainer import feature_args
+
+    model = trainer.model
+    feats, mask, targets, tlen = feature_args(batch, device)
+    with torch.no_grad():
+        memory, memory_mask = model.encode(feats, mask)
+        pred = model.predictor(targets[:, :-1])
+        frame_len = mask_to_length(memory_mask)
+        log_probs = torch.log_softmax(model.joint(memory, pred), dim=-1)
+        u_max = pred.shape[1] - 1
+        slices = model.joint.blank_emit_log_probs(memory, pred, targets[:, 1 : 1 + u_max],
+                                                  blank=BLK, t_block=FAMILIES["t_block"])
+
+    def timed(fn):
+        secs = []
+        for _ in range(reps + 1):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            start = time.time()
+            fn()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            secs.append(time.time() - start)
+        return float(np.median(secs[1:]))
+
+    def update():
+        trainer.micro_step(batch)
+        trainer.update()
+
+    def full_loss():
+        x = log_probs.detach().requires_grad_()
+        rnnt_loss_mean(x, targets[:, 1:], frame_len, tlen - 1, BLK).backward()
+
+    def blocked_loss():
+        xs = [x.detach().requires_grad_() for x in slices]
+        rnnt_loss_from_blank_emit(xs[0], xs[1], frame_len, tlen - 1).mean().backward()
+
+    out = {"shape": tuple(log_probs.shape)}
+    for name, t_block, loss_fn in (("full", 0, full_loss), ("blocked", FAMILIES["t_block"],
+                                                            blocked_loss)):
+        model.joint_t_block = t_block
+        model.train()
+        out[name] = {"loss": timed(loss_fn), "update": timed(update)}
+    return out
+
+
+def phase13b_full_transducer(workdir: str, data: str, device: str):
+    """13b: ``conf/transducer.json`` at full width on the first 1,024 train
+    utterances of the synthetic corpus (kaldi features, batch 8, one
+    micro-batch an update), 100 updates with ``joint_t_block`` -1 then 20
+    with 32; for each, seconds per update and peak memory, and on the
+    longest batch the RNN-T loss's own forward + backward time beside a
+    whole update's; a checkpoint that reloads to the same greedy ids
+    (kernel 1, launches = iterations). Returns (the reload check's kernel-1
+    launches, a batch of 8 for the overfit gate, the model config)."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+    from opentransformer_tpu_torch.train.checkpoint import Checkpointer
+    from opentransformer_tpu_torch.train.trainer import Trainer, feature_args
+
+    cuda = device == "cuda"
+    f = FAMILIES
+    root = os.path.join(workdir, "full_transducer")
+    train = subset_split(data, "train", f["transducer_utts"], root)
+    cfg = kaldi_cfg(data, train, f["transducer_batch"], TRANSDUCER_CONF)
+    cfg["train"]["accum_steps"] = 1
+    if f["cut_width"]:
+        cfg["model"] = overfit_model_cfg(cfg["model"])
+    torch.manual_seed(1234)
+    model = build_model(cfg["model"], device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(cfg["train"], model, None,
+                      torch.Generator(device=device).manual_seed(1234), log_interval=10 ** 9)
+    batches = list(FeatureLoader(cfg, "train", seed=1234))
+    model.train()
+    runs = {}
+    done = 0
+    for t_block, n in ((-1, f["transducer_updates"]), (f["t_block"], f["blocked_updates"])):
+        model.joint_t_block = t_block
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        first = len(trainer.history)
+        for batch in [batches[(done + i) % len(batches)] for i in range(n)]:
+            trainer.micro_step(batch)
+            trainer.update()
+        if cuda:
+            torch.cuda.synchronize()
+        done += n
+        hist = trainer.history[first:]
+        runs[t_block] = {"updates": n, "spu": seconds_per_update(hist),
+                         "peak": torch.cuda.max_memory_allocated() if cuda else 0,
+                         "loss": [hist[0]["losses"][0], hist[-1]["losses"][0]]}
+    run_checks("phase13b", trainer, f["transducer_updates"] + f["blocked_updates"])
+    for t_block, r in runs.items():
+        log(f"phase13b transducer ({n_params} parameters) joint_t_block {t_block}: "
+            f"{r['updates']} updates of {f['transducer_batch']} utterances, loss "
+            f"{r['loss'][0]:.3f} -> {r['loss'][1]:.3f}, seconds per update (host clock, median "
+            f"after 2) {r['spu']:.4f}, peak memory {r['peak']} bytes "
+            f"[{card_line() if cuda else device}]")
+    longest = max(batches, key=lambda b: b[1]["inputs"].shape[1])
+    timed = loss_seconds(trainer, longest, device, f["loss_reps"])
+    for key, what in (("full", "the full joint's log-probs"),
+                      ("blocked", f"the blank and label slices of T-blocks of {f['t_block']}")):
+        t = timed[key]
+        log(f"phase13b the longest batch {timed['shape']}, {what}: the RNN-T loss alone "
+            f"(forward + backward) {t['loss']:.4f} s, a whole update {t['update']:.4f} s, the "
+            f"loss's share {t['loss'] / t['update']:.1%} (host clock, median of "
+            f"{f['loss_reps']} after a warm-up) [{card_line() if cuda else device}]")
+    # a checkpoint of the trained model reloads to the same greedy ids
+    ck = Checkpointer(os.path.join(root, "exp"), config=cfg)
+    ck.save(0, model, trainer.optimizer)
+    fresh = compat.load_into(build_model(cfg["model"], device=device),
+                             ck.load_params(ck.epoch_path(0)))
+    feats, mask, _, _ = feature_args(batches[0], device)
+    project_logp_topk.launches = 0
+    ids = []
+    for m in (model.eval(), fresh):
+        m.greedy_iterations = 0
+        tokens, n = m.greedy_decode(feats, mask)
+        ids.append([tokens[i, :k].tolist() for i, k in enumerate(n.tolist())])
+    iterations = model.greedy_iterations + fresh.greedy_iterations
+    launches = project_logp_topk.launches
+    ok = ids[0] == ids[1] and iterations > 0 and launches == (iterations if cuda else 0)
+    log(f"phase13b checkpoint reloaded into a fresh model: greedy ids of a batch of "
+        f"{feats.shape[0]} equal ({sum(map(len, ids[0]))} tokens), kernel-1 launches {launches} "
+        f"= greedy loop iterations {iterations} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase13b: the reloaded checkpoint decodes differently")
+    return launches, batches[0], cfg["model"]
+
+
+def bn_stats_update(model, feats, mask, targets, tlen) -> list:
+    """One forward with only the BatchNorm modules in training mode (no
+    dropout), from the model's weights and running statistics: the moved
+    (running_mean, running_var) of every BatchNorm, as float64 numpy."""
+    from opentransformer_tpu_torch.models.modules import BatchNorm
+
+    model.eval()
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.train()
+    with torch.no_grad():
+        model(feats, mask, targets, tlen)
+    model.eval()
+    return [(bn.running_mean.double().cpu().numpy(), bn.running_var.double().cpu().numpy())
+            for bn in bns]
+
+
+def phase13c_batch_norm_conformer(workdir: str, corpus: dict, device: str):
+    """13c: ``conf/conformer_baseline.json`` with ``conv_norm_type: batch``
+    at full width through the training CLI on phase 7's wavs (``cli_train``:
+    one kernel-3 launch a micro-batch, a checkpoint that reloads, with its
+    batch_stats, to the same beam-5 ids through kernel 1 at D = 384); every
+    block's running statistics moved off (0, 1); one micro-batch's update
+    of them on the card within 1e-4 relative of the CPU's from the same
+    weights and features. Returns (kernel-3 launches, kernel-1 launches of
+    the reload check, the trainer's device frontend, config)."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.modules import BatchNorm
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+
+    conf = os.path.join(CONF_DIR, "conformer_baseline.json")
+    model_cfg = conformer_model_cfg("conformer_baseline")
+    model_cfg["encoder"]["conv_norm_type"] = "batch"
+    if FAMILIES["cut_width"]:
+        model_cfg = overfit_model_cfg(model_cfg)
+    trainer, cfg, fbank_launches = cli_train("phase13c", workdir, corpus, device,
+                                             model_cfg=model_cfg, conf=conf,
+                                             name="conformer_batch_norm")
+    beam_launches = project_logp_topk.launches
+    model = trainer.model
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    moved = min(min(float((bn.running_mean).abs().max()),
+                    float((bn.running_var - 1).abs().max())) for bn in bns)
+    # one micro-batch's statistics update, card against CPU
+    _, inputs, tg = next(iter(FeatureLoader(cfg, "train", seed=7)))
+    w = torch.as_tensor(inputs["waveforms"]).to(device)
+    wl = torch.as_tensor(inputs["wave_lengths"]).to(device)
+    with torch.no_grad():
+        feats, mask = trainer.frontend(w, wl, trainer.generator, train=False)
+    targets = torch.as_tensor(tg["targets"]).long()
+    tlen = torch.as_tensor(tg["targets_length"]).long()
+    tree = compat.params_to_jax(model)
+    on_cpu = compat.load_into(build_model(cfg["model"], device="cpu"), tree)
+    got = bn_stats_update(model, feats, mask, targets.to(device), tlen.to(device))
+    want = bn_stats_update(on_cpu, feats.cpu(), mask.cpu(), targets, tlen)
+    compat.load_into(model, tree)  # the trained statistics back
+    rel = max(float(np.abs(g - w_).max() / np.abs(w_).max())
+              for pair_g, pair_w in zip(got, want) for g, w_ in zip(pair_g, pair_w))
+    ok = (moved > 1e-3 and rel <= FAMILIES["stats_rtol"]
+          and (beam_launches > 0) == (device == "cuda"))
+    log(f"phase13c BatchNorm conformer: {len(bns)} BatchNorm modules, each block's running "
+        f"statistics off (0, 1) by at least {moved:.3e}; one micro-batch's statistics update "
+        f"({tuple(feats.shape)}) on {device} against the CPU from the same weights and features: "
+        f"max relative difference {rel:.2e} (limit {FAMILIES['stats_rtol']:.0e}); the reload "
+        f"check's beam-5 decode took {beam_launches} kernel-1 launches (D = "
+        f"{model_cfg['encoder']['d_model']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase13c: a gate failed (see above)")
+    return fbank_launches, beam_launches, trainer.frontend, cfg
+
+
+def phase13d_ctc(workdir: str, data: str, device: str):
+    """13d: the anchor's ``ctc`` model (phase 8a's), warm-started from the
+    anchor's weights with ``-im`` (the decoder left out), trained through
+    the CLI for 50 updates of 16 synthetic utterances (the anchor's train
+    section, float32, one update an execution); finite losses, no NaN
+    skip; the checkpoint reloads to the same greedy ids on a test batch (one
+    kernel-1 launch a batch), and ``cli/eval.py -md greedy`` decodes the
+    test split from it (one launch a batch of 100). Returns (kernel-1
+    launches of the CLI decode, the model config, a batch of 8)."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.cli import eval as eval_cli
+    from opentransformer_tpu_torch.cli import run as run_cli
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+    from opentransformer_tpu_torch.train.trainer import feature_args
+
+    cuda = device == "cuda"
+    f = FAMILIES
+    root = os.path.join(workdir, "ctc_warm")
+    with open(ANCHOR + ".manifest.json", encoding="utf-8") as fh:
+        model_cfg = ctc_model_cfg(json.load(fh)["model_cfg"])
+    cfg = kaldi_cfg(data, subset_split(data, "train", f["ctc_utts"], root), f["ctc_batch"],
+                    ANCHOR_CONF, bucket={"bucket_boundaries": [1152], "drop_last": True})
+    cfg["model"] = model_cfg
+    cfg["train"].update(epochs=1, dtype="float32", steps_per_exec=1, dev_cer_probe=False)
+    expdir = os.path.join(root, "exp")
+    t0 = time.time()
+    trainer = run_cli.run(["-c", write_conf(root, "ctc_warm", cfg), "--expdir", expdir,
+                           "-im", ANCHOR + ".npz", "-s", "1234", "--log_interval", "1000",
+                           *([] if cuda else ["--device", device])])
+    wall = time.time() - t0
+    losses = run_checks("phase13d", trainer, f["ctc_utts"] // f["ctc_batch"])
+    ckpt = os.path.join(expdir, "model.epoch.0")
+    fresh = compat.load_into(build_model(model_cfg, device=device),
+                             compat.load_npz(os.path.join(ckpt, "params.npz")))
+    test = FeatureLoader({"data": dict(cfg["data"], test={
+        "feat": [os.path.join(data, "test", "feats.scp")],
+        "text": [os.path.join(data, "test", "text")]}, bucket=None)}, "test", is_eval=True,
+        batch_size=100)
+    feats, mask, _, _ = feature_args(next(iter(test)), device)
+    project_logp_topk.launches = 0
+    with torch.no_grad():
+        ids = [m.eval().recognize_argmax(feats, mask)[0] for m in (trainer.model, fresh)]
+    reload_launches = project_logp_topk.launches
+    out = os.path.join(root, "decode_greedy")
+    project_logp_topk.launches = 0
+    rc = eval_cli.main(["--npz", os.path.join(ckpt, "params.npz"),
+                        "--model_cfg", os.path.join(expdir, "config.json"),
+                        "--feats", os.path.join(data, "test", "feats.scp"),
+                        "--text", os.path.join(data, "test", "text"),
+                        "--vocab", os.path.join(data, "vocab"), "-b", "100", "-md", "greedy",
+                        "--decode_dir", out, *([] if cuda else ["--device", device])])
+    cli_launches = project_logp_topk.launches
+    with open(os.path.join(out, "RESULT"), encoding="utf-8") as fh:
+        result = fh.read().splitlines()
+    with open(os.path.join(data, "test", "feats.scp"), encoding="utf-8") as fh:
+        batches = -(-sum(1 for line in fh if line.strip()) // 100)
+    ok = (rc == 0 and torch.equal(ids[0], ids[1])
+          and reload_launches == (2 if cuda else 0) and cli_launches == (batches if cuda else 0))
+    log(f"phase13d ctc model warm-started from the anchor (-im), {len(trainer.history)} updates "
+        f"in {wall:.1f} s: loss {losses[0]:.4f} -> {losses[-1]:.4f}, NaN skips "
+        f"{trainer.nan_skips}; model.epoch.0 reloaded: greedy ids of {feats.shape[0]} test "
+        f"utterances equal ({reload_launches} kernel-1 launches, one a batch); cli/eval.py -md "
+        f"greedy: {' | '.join(result)}, kernel-1 launches {cli_launches} (one a batch of 100) "
+        f"{'ok' if ok else 'FAIL'} [{card_line() if cuda else device}]")
+    if not ok:
+        raise AssertionError("phase13d: a gate failed (see above)")
+    return cli_launches, model_cfg
+
+
+def lm_nll(model, loader, device: str) -> float:
+    """Mean negative log-likelihood per target token (EOS included, PAD
+    not), unsmoothed, over a text loader's batches."""
+    from opentransformer_tpu_torch.train.trainer import text_args
+
+    total, count = 0.0, 0
+    model.eval()
+    with torch.no_grad():
+        for batch in loader:
+            src, tgt, _ = text_args(batch, device)
+            logp = torch.log_softmax(model.logits(src).float(), dim=-1)
+            nll = -torch.gather(logp, 2, tgt[..., None])[..., 0]
+            keep = tgt != 0
+            total += float(nll[keep].sum())
+            count += int(keep.sum())
+    return total / count
+
+
+def phase13e_lms(workdir: str, data: str, device: str):
+    """13e: ``conf/rnn_lm.json`` (2 x 1024) and ``conf/transformer_lm.json``
+    (d256, 6 blocks) at full width, one epoch each over the synthetic
+    corpus's 20,000 train lines (batch 16, accum_steps 4) through the
+    training CLI; finite losses, no NaN skip; the held-out NLL over the 500
+    test lines (unsmoothed, per token with EOS) before and after: the RNN
+    LM's at most 6.0 nats, the transformer LM's below its untrained value
+    (its 12,000-update warm-up keeps the lr near 1e-5). Then the anchor
+    decoded through ``cli/eval.py`` with the trained transformer LM's run
+    directory at ``-lmw 0.3``: kernel 2 launched, kernel 1 not; the CER is
+    recorded. Returns (kernel-2 launches, {name: trainer})."""
+    from opentransformer_tpu_torch.cli import run as run_cli
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    cuda = device == "cuda"
+    f = FAMILIES
+    root = os.path.join(workdir, "lms")
+    vocab = os.path.join(data, "vocab")
+    texts = {}
+    for split, n in (("train", f["lm_lines"]), ("test", f["lm_test_lines"])):
+        texts[split] = subset_split(data, split, n, os.path.join(root, "text"))["text"]
+    trainers, expdirs = {}, {}
+    for name, conf in LM_CONFS.items():
+        with open(conf, encoding="utf-8") as fh:
+            cfg = json.load(fh)
+        cfg["data"].update(vocab=vocab, src_vocab=vocab, tgt_vocab=vocab,
+                           train={"src": texts["train"], "tgt": texts["train"]},
+                           test={"src": texts["test"], "tgt": texts["test"]})
+        cfg["train"]["epochs"] = 1
+        test = FeatureLoader(cfg, "test", is_eval=True)
+        torch.manual_seed(1234)  # the CLI's initial weights
+        before = lm_nll(build_model(cfg["model"], device=device), test, device)
+        expdirs[name] = os.path.join(root, f"exp_{name}")
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        trainer = run_cli.run(["-c", write_conf(root, name, cfg), "--expdir", expdirs[name],
+                               "-s", "1234", "--log_interval", "1000",
+                               *([] if cuda else ["--device", device])])
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        n_batches = len(FeatureLoader(cfg, "train", seed=1234))
+        accum = cfg["train"]["accum_steps"]
+        losses = run_checks(f"phase13e {name}", trainer, -(-n_batches // accum))
+        after = lm_nll(trainer.model, test, device)
+        limit = f["rnn_lm_nll_limit"] if name == "rnn_lm" else before
+        ok = after <= limit if name == "rnn_lm" else after < before
+        log(f"phase13e {name} ({sum(p.numel() for p in trainer.model.parameters())} parameters) "
+            f"1 epoch of {n_batches} batches of {cfg['data']['batch_size']} lines, accum "
+            f"{accum}: {len(trainer.history)} updates in {wall:.1f} s, seconds per update (host "
+            f"clock, median) {seconds_per_update(trainer.history):.4f}, peak memory {peak} "
+            f"bytes, loss {np.mean(losses[:accum * 10]):.4f} (first 10 updates) -> "
+            f"{np.mean(losses[-accum * 10:]):.4f} (last 10), lr {trainer.history[-1]['lr']:.3e} "
+            f"at the end, NaN skips {trainer.nan_skips}; held-out NLL per token "
+            f"({len(test.dataset)} lines, unsmoothed, EOS in) {before:.4f} -> {after:.4f} nats "
+            f"({'<= ' + str(limit) if name == 'rnn_lm' else '< the untrained value'}) "
+            f"{'ok' if ok else 'FAIL'} [{card_line() if cuda else device}]")
+        if not ok:
+            raise AssertionError(f"phase13e {name}: the held-out NLL gate failed")
+        trainers[name] = trainer
+    # the anchor with the trained transformer LM, handed over as its checkpoint directory
+    from opentransformer_tpu_torch.cli import eval as eval_cli
+    from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
+
+    out = os.path.join(root, "decode_anchor_lm")
+    project_logp_topk.launches = project2_logp_topk.launches = 0
+    t0 = time.time()
+    rc = eval_cli.main(["--npz", ANCHOR + ".npz", "--model_cfg", ANCHOR + ".manifest.json",
+                        "--feats", os.path.join(data, "test", "feats.scp"),
+                        "--text", os.path.join(data, "test", "text"), "--vocab", vocab,
+                        "-b", "100", "-bw", "5", "-pn", "0.6", "-ml", "32",
+                        "-lm", os.path.join(expdirs["transformer_lm"], "model.epoch.0"), "-lmw", str(f["lm_weight"]),
+                        "--decode_dir", out, *([] if cuda else ["--device", device])])
+    one, two = project_logp_topk.launches, project2_logp_topk.launches
+    with open(os.path.join(out, "RESULT"), encoding="utf-8") as fh:
+        result = fh.read().splitlines()
+    ok = rc == 0 and one == 0 and (two > 0) == cuda
+    log(f"phase13e the anchor (f32, beam 5, -ml 32) with the trained transformer LM at -lmw "
+        f"{f['lm_weight']}, handed to cli/eval.py as its checkpoint directory: {' | '.join(result)} "
+        f"(CER recorded, not gated), kernel-2 launches {two}, kernel-1 launches {one}, wall "
+        f"{time.time() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase13e: the fused decode did not go through kernel 2 alone")
+    return two, trainers
+
+
+def phase_train_families(workdir: str, data: str, corpus: dict, device: str = "cuda"):
+    """Phase 13 (module docstring): ``data`` holds phase 12's synthetic
+    corpus (train, dev) and phase 2's test split, ``corpus`` phase 7's wavs.
+    Returns ({path: kernel-1 launches}, {path: kernel-2 launches},
+    {path: kernel-3 launches})."""
+    from opentransformer_tpu_torch.data.loader import FeatureLoader, collate_text
+    from opentransformer_tpu_torch.data.datasets import TextDataset
+
+    t_phase = time.time()
+    k1, k2, k3 = {}, {}, {}
+    k1["phase13a tiny transducer, cli/eval.py greedy (k=1)"] = phase13a_tiny_transducer(
+        workdir, device)
+    launches, speech8, transducer_cfg = phase13b_full_transducer(workdir, data, device)
+    k1["phase13b transducer checkpoint greedy (k=1)"] = launches
+    fbank, beam, frontend, bn_cfg = phase13c_batch_norm_conformer(workdir, corpus, device)
+    k3["phase13c BatchNorm conformer training"] = fbank
+    k1["phase13c BatchNorm conformer checkpoint beam 5 (D=384)"] = beam
+    launches, ctc_cfg = phase13d_ctc(workdir, data, device)
+    k1["phase13d ctc checkpoint, cli/eval.py greedy (k=1)"] = launches
+    two, _ = phase13e_lms(workdir, data, device)
+    k2["phase13e anchor + the trained transformer LM"] = two
+
+    # the overfit gates: each family at width 64 on 8 samples
+    o = OVERFIT
+    speech8 = (speech8[0][: o["utts"]], speech8[1], speech8[2])
+    overfit_family("phase13 transducer", overfit_model_cfg(transducer_cfg), speech8, device)
+    overfit_family("phase13 ctc", overfit_model_cfg(ctc_cfg), speech8, device)
+    wave8 = next(iter(FeatureLoader(bn_cfg, "train", batch_size=o["utts"], seed=3)))
+    overfit_family("phase13 BatchNorm conformer", overfit_model_cfg(bn_cfg["model"]), wave8, device,
+                   frontend=frontend)
+    vocab = os.path.join(data, "vocab")
+    text = os.path.join(data, "train", "text")
+    ds = TextDataset({"src_vocab": vocab, "tgt_vocab": vocab}, {"src": [text], "tgt": [text]})
+    text8 = collate_text([ds[i] for i in range(o["utts"])])
+    d = o["d_model"]
+    overfit_family("phase13 rnn_lm", {"type": "rnn_lm", "vocab_size": 4233, "num_layers": 2,
+                                      "hidden_size": d}, text8, device)
+    overfit_family("phase13 transformer_lm", {"type": "transformer_lm", "vocab_size": 4233,
+                                              "num_blocks": 2, "d_model": d, "n_heads": 4,
+                                              "d_ff": 256}, text8, device)
+    log(f"phase13 wall {time.time() - t_phase:.1f} s")
+    return k1, k2, k3
+
+
 def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
     """The kernel's entry of the JSON line: ``launches`` on its first main
     path, ``launches_by_path`` on each path that launches it."""
@@ -2965,13 +3648,16 @@ def main() -> int:
         stream_launches, stream_launches2 = phase_streaming(workdir, data, corpus)
         transducer_launches = phase_transducer(workdir, corpus)
         recipe_launches, _ = phase_anchor_recipe(workdir, data)
+        family_launches, family_launches2, family_launches3 = phase_train_families(
+            workdir, data, corpus)
 
     # launches: each kernel's count on its own main paths (phase 3 without an
     # LM, phase 8's CTC decodes, phase 9's conformer decodes, phase 10's
-    # serving paths, phase 11's transducer paths and phase 12's dev CER
-    # probe and averaged-checkpoint decode, phases 5 and 10d with an
-    # LM, phases 7 and 9d's training runs); times at the flagship bf16
-    # beam-step shape and at the 16 x 10 s training batch
+    # serving paths, phase 11's transducer paths, phase 12's dev CER
+    # probe and averaged-checkpoint decode and phase 13's decodes of the
+    # trained families, phases 5, 10d and 13e with an LM, phases 7, 9d and
+    # 13c's training runs); times at the flagship bf16 beam-step shape and at
+    # the 16 x 10 s training batch
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:96", launches, max_err,
@@ -2981,16 +3667,18 @@ def main() -> int:
                        "phase8b anchor CTC prefix beam (k=32 + lse)": ctc_launches["beam"],
                        "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"],
                        **conformer_launches, **stream_launches, **transducer_launches,
-                       **recipe_launches}),
+                       **recipe_launches, **family_launches}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
                       timings2["flagship bf16"],
                       {"phase5 flagship decode + LM": launches2,
-                       "phase10d batcher, anchor + LM at -lmw 0.0": stream_launches2}),
+                       "phase10d batcher, anchor + LM at -lmw 0.0": stream_launches2,
+                       **family_launches2}),
         kernel_record("fbank_spec_mel", "opentransformer_tpu_torch/csrc/fbank_spec_mel.cu",
                       "opentransformer_tpu/ops/fbank_pallas.py:60", launches3, max_err3, timing3,
                       {"phase7 training": launches3,
-                       "phase9d conformer_baseline training": conformer_train_launches}),
+                       "phase9d conformer_baseline training": conformer_train_launches,
+                       **family_launches3}),
     ]}
     log(f"chip_smoke ran every phase in {time.time() - t0:.1f} s")
     print(json.dumps(record))

@@ -17,7 +17,7 @@ hybrid loss, the ``ctc`` model, greedy and native prefix-beam CTC decoding
 with n-gram fusion, and joint CTC/attention rescoring; and the Conformer
 family (rel-pos attention, the conv module, conformer blocks and encoders,
 chunked attention encoded offline, the concat frontend, BatchNorm conv
-modules for inference); and streaming and serving: the streamed encode
+modules); and streaming and serving: the streamed encode
 (``encode_step`` with per-block KV caches and causal-conv state), the
 online CTC and attention recognizers, the long-form (windowed) recognizer,
 the multi-stream server core and ``cli/serve.py`` (dynamic batcher, TCP
@@ -27,10 +27,13 @@ fusion, the online and multi-stream transducer recognizers, the eval and
 serve CLIs); and the anchor recipe: the kaldi feature dataset with
 load-time noise, the bucketing sampler, the device-resident corpus, bf16
 autocast, ``steps_per_exec``, CLI training with the hybrid CTC loss, the
-per-epoch dev greedy-CER probe and checkpoint averaging (``cli/average.py``).
-Transducer training (the RNNT loss), ``ctc`` models in the training CLI,
-BatchNorm training, MoE and the espnet and text datasets are still to port
-(``ROADMAP.md``).
+per-epoch dev greedy-CER probe and checkpoint averaging (``cli/average.py``);
+and training every model family the port decodes: the RNN-T loss
+(``ops/rnnt_loss.py``) and the transducer's blocked joint, BatchNorm conv
+modules in training (flax's batch statistics), ``ctc`` models and both
+language models in the training CLI (the text dataset and collate), and
+an LM checkpoint directory for the eval CLI's ``-lm``. MoE, the espnet
+dataset and parallelism are still to port (``ROADMAP.md``).
 
 The Pallas kernels of the JAX package become hand-written CUDA kernels
 under ``csrc/``, built with ``nvcc`` at first use (``ops/cuda_build.py``):

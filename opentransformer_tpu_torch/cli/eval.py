@@ -5,10 +5,13 @@ format) with its model config (a JSON file, or an export manifest carrying
 ``model_cfg``), decodes a kaldi feature scp with batched beam search and
 writes the JAX CLI's artifacts into ``--decode_dir``: ``predict.txt``
 (1-best), ``predict.log`` (n-best with scores) and ``RESULT`` (corpus CER,
-oracle CER, RTF). With ``-lm LM.npz --lm_cfg LM.json`` an external language
-model (``transformer_lm`` or ``rnn_lm``, same npz format) joins the beam by
-shallow fusion at weight ``-lmw``; ``-lm_resc W`` also rescores the n-best
-list by the LM's mean token log-prob; ``-ctcw W`` rescores it jointly with
+oracle CER, RTF). With ``-lm LM.npz --lm_cfg LM.json``, or ``-lm`` and a
+training checkpoint directory of ``cli/run.py`` (``model.epoch.N``, whose
+run's ``config.json`` sits beside it), an external language model
+(``transformer_lm`` or ``rnn_lm``) joins the beam by shallow fusion at
+weight ``-lmw``;
+``-lm_resc W`` also rescores the n-best list by the LM's mean token
+log-prob; ``-ctcw W`` rescores it jointly with
 the model's CTC head (a hybrid-trained model such as the anchor).
 
 A ``ctc`` model config decodes with the CTC head alone: greedy at ``-bw 1``
@@ -30,6 +33,7 @@ an LM fused at ``-lmw``); ``-ml`` caps the tokens an utterance.
 
     # with LM shallow fusion
     python -m opentransformer_tpu_torch.cli.eval ... -lm LM.npz --lm_cfg LM.json -lmw 0.1
+    python -m opentransformer_tpu_torch.cli.eval ... -lm LM_EXP/model.epoch.0 -lmw 0.1
     # joint CTC/attention rescoring
     python -m opentransformer_tpu_torch.cli.eval ... -ctcw 0.3
     # the anchor's CTC head as a ctc model (CTC.json: type ctc, the anchor's
@@ -111,10 +115,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-prune", "--prune_k", type=int, default=32,
                    help="candidates per frame for the CTC prefix beam, taken on the device")
     p.add_argument("-lm", "--load_language_model", default=None,
-                   help="flattened float16 npz of an LM's JAX params (needs --lm_cfg)")
+                   help="flattened npz of an LM's JAX params (needs --lm_cfg), or a training "
+                        "checkpoint directory (model.epoch.N) of cli/run.py (its run's "
+                        "config.json is read)")
     p.add_argument("--lm_cfg", default=None,
                    help="JSON config of the LM (type transformer_lm or rnn_lm), or a "
-                        "manifest with a model_cfg key")
+                        "manifest with a model_cfg key (default with a directory -lm: the "
+                        "run's config.json)")
     p.add_argument("-lmw", "--lm_weight", type=float, default=0.1,
                    help="shallow-fusion weight of the LM's log-probs in the beam")
     p.add_argument("-lm_resc", "--lm_rescore_weight", type=float, default=0.0,
@@ -161,6 +168,20 @@ def load_model_cfg(path: str) -> dict:
     return cfg
 
 
+def lm_checkpoint(path: str, lm_cfg: str | None) -> tuple[str, str]:
+    """(params npz, config path) of ``-lm``: an npz with ``--lm_cfg``, or a
+    checkpoint directory ``model.*`` with its run's ``config.json`` beside
+    it (``--lm_cfg`` overrides that)."""
+    if not os.path.isdir(path):
+        if not lm_cfg:
+            raise SystemExit("error: -lm with an npz needs --lm_cfg (the LM's JSON config)")
+        return path, lm_cfg
+    cfg = lm_cfg or os.path.join(os.path.dirname(os.path.abspath(path)), "config.json")
+    if not os.path.exists(cfg):
+        raise SystemExit(f"error: no config.json beside {path}; pass --lm_cfg")
+    return os.path.join(path, "params.npz"), cfg
+
+
 def read_text(path: str) -> dict[str, list[str]]:
     out = {}
     with open(path, encoding="utf-8") as f:
@@ -188,8 +209,9 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
-    if args.load_language_model and not args.lm_cfg:
-        raise SystemExit("error: -lm needs --lm_cfg (the LM's JSON config)")
+    lm_npz = lm_cfg = None
+    if args.load_language_model:
+        lm_npz, lm_cfg = lm_checkpoint(args.load_language_model, args.lm_cfg)
     if args.mode == "greedy":
         args.beam_width = 1
     dev = resolve_device(args.device)
@@ -202,9 +224,9 @@ def main(argv=None) -> int:
     else:
         load_into(model, tree)
     lm = None
-    if args.load_language_model:
-        lm = build_model(load_model_cfg(args.lm_cfg), dtype=DTYPES[args.dtype], device=dev)
-        load_into(lm, load_npz(args.load_language_model))
+    if lm_npz is not None:
+        lm = build_model(load_model_cfg(lm_cfg), dtype=DTYPES[args.dtype], device=dev)
+        load_into(lm, load_npz(lm_npz))
 
     unit2idx = load_vocab(args.vocab)
     idx2unit = load_idx2unit_map(args.vocab)

@@ -1,7 +1,12 @@
 """Training CLI (counterpart of ``opentransformer_tpu/cli/run.py``).
 
-Trains a ``speech2text`` model, with the hybrid CTC loss when
-``model.ctc_weight`` > 0, from either input the JAX package takes:
+Trains every model type the port decodes: a ``speech2text`` model (with
+the hybrid CTC loss when ``model.ctc_weight`` > 0), a ``ctc`` model and a
+``transducer`` (the RNN-T loss) from either speech input the JAX package
+takes, and the language models ``transformer_lm`` and ``rnn_lm`` from a
+text dataset (``dataset_type: text``: src/tgt token files, batches of
+src = BOS ⧺ tokens and tgt = tokens ⧺ EOS; no device frontend). Speech
+comes as:
 
   * raw waveforms (``dataset_type: online`` with ``data.extract_on_device:
     true``): the feature stage (fused fbank kernel, CMVN, SpecAugment) runs
@@ -15,15 +20,19 @@ Trains a ``speech2text`` model, with the hybrid CTC loss when
 bfloat16`` (or ``-mp``) runs the forward under bfloat16 autocast over
 float32 weights; ``train.steps_per_exec`` (or ``--steps-per-exec``) is
 accepted and runs as that many single updates (``train/trainer.py``);
-``train.dev_cer_probe`` decodes the first ``dev_cer_batches`` dev batches
-greedily after every epoch and logs ``epoch N dev greedy CER``; ``-im``
-warm-starts the weights from a ``params.npz`` (or a checkpoint directory).
+``train.dev_cer_probe`` decodes a ``speech2text`` model's first
+``dev_cer_batches`` dev batches greedily after every epoch and logs
+``epoch N dev greedy CER``; ``-im`` warm-starts the weights from a
+``params.npz`` (or a checkpoint directory; a ``ctc`` model takes a hybrid
+speech2text's, its decoder left out).
 Checkpoints go to ``<expdir>/model.epoch.N`` with the config beside them
 (``train/checkpoint.py``); the dev split, if the config has one, is scored
 by its mean loss after every epoch.
 
     python -m opentransformer_tpu_torch.cli.run \\
         -c opentransformer_tpu_torch/conf/anchor.json --expdir EXP
+    python -m opentransformer_tpu_torch.cli.run \\
+        -c opentransformer_tpu_torch/conf/rnn_lm.json --expdir LM_EXP
 
 The config is JSON with the JAX package's sections and keys. It runs on the
 CUDA card unless ``--device cpu`` is given. The JAX CLI's other options
@@ -44,7 +53,7 @@ import time
 
 import torch
 
-from ..compat import load_into, load_npz
+from ..compat import load_ctc_from_speech2text, load_into, load_npz
 from ..config import load_config
 from ..data import load_idx2unit_map
 from ..data.device_pipeline import make_device_frontend
@@ -81,9 +90,6 @@ _NOT_PORTED = [
     (("-tfe", "--from_epoch"), 0, STILL_LACKING),
     (("-tfs", "--from_step"), 0, STILL_LACKING),
 ]
-# the ROADMAP.md Queue 1 item of each model type the CLI does not train
-_TYPES_NOT_TRAINED = {"transducer": "Transducer training", "transformer_lm": "LM training",
-                      "rnn_lm": "LM training", "ctc": STILL_LACKING}
 
 
 def _dest(flags) -> str:
@@ -91,7 +97,7 @@ def _dest(flags) -> str:
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Train a speech2text model on the port")
+    p = argparse.ArgumentParser(description="Train a model on the port")
     p.add_argument("-c", "--config", type=str, required=True, help="JSON config")
     p.add_argument("-s", "-se", "--seed", type=int, default=1234)
     p.add_argument("--expdir", type=str, default=None)
@@ -200,11 +206,6 @@ def run(argv=None) -> Trainer:
     _check_not_ported(args)
     cfg = load_config(args.config)
     model_cfg, data_cfg, train_cfg = cfg["model"], cfg["data"], dict(cfg["train"])
-    if model_cfg.get("type") != "speech2text":
-        item = _TYPES_NOT_TRAINED.get(model_cfg.get("type"), STILL_LACKING)
-        raise NotImplementedError(
-            f"training model type {model_cfg.get('type')!r} is not ported to "
-            f"opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: {item})")
     if args.mixed_precision:
         train_cfg["dtype"] = "bfloat16"
     if args.steps_per_exec:
@@ -221,7 +222,11 @@ def run(argv=None) -> Trainer:
         path = args.init_model
         if os.path.isdir(path):
             path = os.path.join(path, "params.npz")
-        load_into(model, load_npz(path))
+        tree = load_npz(path)
+        if model_cfg["type"] == "ctc" and "decoder" in tree.get("params", tree):
+            load_ctc_from_speech2text(model, tree)  # a hybrid speech2text's weights
+        else:
+            load_into(model, tree)
         logger.info("initialized model weights from %s", path)
     logger.info("model: %d parameters on %s", sum(p.numel() for p in model.parameters()), device)
     loader = FeatureLoader(cfg, "train", seed=args.seed)
@@ -239,6 +244,7 @@ def run(argv=None) -> Trainer:
         logger.info("dev loader: %d batches", len(dev_loader))
     probe = None
     if (dev_loader is not None and not loader.extract_on_device
+            and model_cfg["type"] == "speech2text"
             and bool(train_cfg.get("dev_cer_probe", False))):
         probe = DevCerProbe(cfg, model, dev_loader, device,
                             max_batches=int(train_cfg.get("dev_cer_batches", 4)))

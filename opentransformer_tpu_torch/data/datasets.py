@@ -1,5 +1,5 @@
-"""The online audio and the kaldi feature datasets (counterpart of the
-``AudioDataset`` and ``KaldiDataset`` parts of
+"""The online audio, the kaldi feature and the text datasets (counterpart of
+the ``AudioDataset``, ``KaldiDataset`` and ``TextDataset`` parts of
 ``opentransformer_tpu/data/datasets.py``).
 
 ``AudioDataset`` reads a ``wav.scp`` and a transcript file. A training
@@ -19,6 +19,10 @@ Both yield ``(utt_id, array, length, target ids, target count)`` and draw
 every random number from child generators of the numpy generator they are
 given, one locked draw a child, in the JAX package's order, so the same
 seed gives the same arrays.
+
+``TextDataset`` reads parallel ``utt unit unit ...`` src and tgt files for
+LM training and yields ``(utt_id, src ids, tgt ids)``, both reversed with
+``reverse``; unknown units map to each vocabulary's UNK.
 """
 
 from __future__ import annotations
@@ -53,15 +57,19 @@ class _RngSpawner:
 
 def read_targets(text_files, unit2idx) -> dict[str, list[int]]:
     """``utt unit unit ...`` lines → {utt: ids}, unknown units to UNK."""
-    targets: dict[str, list[int]] = {}
+    return dict(_read_token_lines(text_files, unit2idx))
+
+
+def _read_token_lines(paths, unit2idx):
+    """(utt, ids) of every non-empty ``utt unit unit ...`` line, in file
+    order, unknown units to the vocabulary's UNK."""
     unk = unit2idx.get(UNK_TOKEN, 2)
-    for path in text_files:
+    for path in paths:
         with open(path, "r", encoding="utf-8") as f:
             for line in f:
                 parts = line.strip().split()
                 if parts:
-                    targets[parts[0]] = [unit2idx.get(c, unk) for c in parts[1:]]
-    return targets
+                    yield parts[0], [unit2idx.get(c, unk) for c in parts[1:]]
 
 
 def _read_wav(path: str) -> tuple[int, np.ndarray]:
@@ -256,3 +264,29 @@ class KaldiDataset:
                     lmap[u] = int(n)
         return [(i, lmap[u] if u in lmap else load_mat(rx).shape[0])
                 for i, (u, rx) in enumerate(self.file_list)]
+
+
+class TextDataset:
+    """Parallel src/tgt token files for LM training (``dataset_type: text``)."""
+
+    def __init__(self, params: Any, datadict: Any, is_eval: bool = False,
+                 rng: Optional[np.random.Generator] = None):
+        self.src_unit2idx = load_vocab(params["src_vocab"])
+        self.tgt_unit2idx = load_vocab(params["tgt_vocab"])
+        self.reverse = bool(params.get("reverse", False))
+        self.src_list = list(_read_token_lines(datadict["src"], self.src_unit2idx))
+        self.tgt_dict = read_targets(datadict["tgt"], self.tgt_unit2idx)
+
+    def __len__(self) -> int:
+        return len(self.src_list)
+
+    def __getitem__(self, index: int):
+        utt_id, src = self.src_list[index]
+        tgt = self.tgt_dict[utt_id]
+        if self.reverse:
+            src, tgt = src[::-1], tgt[::-1]
+        return utt_id, src, tgt
+
+    def index_length_pair(self) -> list[tuple[int, int]]:
+        return [(i, len(s)) for i, (_, s) in enumerate(self.src_list)]
+

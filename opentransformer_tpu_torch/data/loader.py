@@ -2,21 +2,23 @@
 (counterpart of ``opentransformer_tpu/data/loader.py``).
 
 ``FeatureLoader`` builds the dataset of one split (``dataset_type``
-``online`` or ``kaldi``), a sampler whose batch order ``set_epoch`` draws
-again (the bucketing sampler of ``bucket.py`` when the config has a
-``bucket`` section, else length-sorted fixed-size batches), and yields
-collated batches from a background thread:
+``online``, ``kaldi`` or ``text``), a sampler whose batch order
+``set_epoch`` draws again (the bucketing sampler of ``bucket.py`` when the
+config has a ``bucket`` section and the data is speech, else length-sorted
+fixed-size batches), and yields collated batches from a background thread:
 
   * a training split of the online dataset with ``extract_on_device``:
     padded waveforms (``device_pipeline.collate_waveforms``);
   * a training split of the kaldi dataset with ``device_resident``: the
     ``[B]`` row indices ``corpus_idx`` into the corpus that
     ``build_resident_corpus`` reads for ``data/resident.py``;
+  * a text split: src = BOS ⧺ tokens and tgt = tokens ⧺ EOS
+    (``collate_text``, the LMs' training pairs);
   * otherwise padded host features (``collate_speech``), padded to the
     batch's bucket boundary.
 
-Targets are BOS ⧺ y ⧺ EOS ⧺ PAD… with ``targets_length = len(y) + 1``. The
-espnet and text datasets and multi-host sharding are not ported, and raise.
+Speech targets are BOS ⧺ y ⧺ EOS ⧺ PAD… with ``targets_length = len(y) +
+1``. The espnet dataset and multi-host sharding are not ported, and raise.
 As in the JAX package, an evaluation split buckets too, so ``drop_last``
 drops its short batches.
 """
@@ -32,10 +34,10 @@ import numpy as np
 
 from . import BOS, EOS, PAD
 from .bucket import DEFAULT_BOUNDARIES, BySequenceLengthSampler
-from .datasets import WHAT_TRAINING_LACKS, AudioDataset, KaldiDataset
+from .datasets import WHAT_TRAINING_LACKS, AudioDataset, KaldiDataset, TextDataset
 from .device_pipeline import collate_waveforms
 
-DATASETS = {"online": AudioDataset, "kaldi": KaldiDataset}
+DATASETS = {"online": AudioDataset, "kaldi": KaldiDataset, "text": TextDataset}
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -77,6 +79,29 @@ def collate_speech(samples, pad_to_frames: Optional[int] = None, target_pad_mult
     inputs = {"inputs": x, "inputs_length": np.asarray(tlens, np.int32), "mask": x_mask}
     return utt_ids, inputs, collate_targets([s[3] for s in samples], [s[4] for s in samples],
                                             target_pad_multiple)
+
+
+def collate_text(samples, target_pad_multiple: int = 8):
+    """[(utt, src ids, tgt ids)] → (utt_ids, inputs, targets) with src = BOS
+    ⧺ tokens and tgt = tokens ⧺ EOS, PAD-filled to a multiple of
+    ``target_pad_multiple`` (both dicts share the mask and the lengths,
+    which count EOS)."""
+    b = len(samples)
+    u_max = quantize(max(len(s[1]) for s in samples) + 1, target_pad_multiple)
+    src = np.full((b, u_max), PAD, np.int32)
+    tgt = np.full((b, u_max), PAD, np.int32)
+    mask = np.zeros((b, u_max), bool)
+    lens = np.zeros((b,), np.int32)
+    for i, (_, s_ids, t_ids) in enumerate(samples):
+        n = len(s_ids)
+        src[i, 0] = BOS
+        src[i, 1 : 1 + n] = s_ids
+        tgt[i, :n] = t_ids
+        tgt[i, n] = EOS
+        mask[i, : n + 1] = True
+        lens[i] = n + 1
+    return ([s[0] for s in samples], {"inputs": src, "inputs_length": lens, "mask": mask},
+            {"targets": tgt, "targets_length": lens, "mask": mask})
 
 
 class _Prefetcher:
@@ -181,10 +206,11 @@ class FeatureLoader:
         self.dataset = DATASETS[dataset_type](data_cfg, data_cfg[name], is_eval=is_eval,
                                               rng=np.random.default_rng(seed))
         self.extract_on_device = getattr(self.dataset, "return_waveform", False)
+        self.is_text = dataset_type == "text"
         self.batch_size = int(batch_size or data_cfg.get("batch_size", 16))
         pairs = self.dataset.index_length_pair()
         bucket = data_cfg.get("bucket")
-        if bucket:
+        if bucket and not self.is_text:
             auto = bucket.get("audo_set_batch_size", bucket.get("auto_set_batch_size", False))
             self.sampler = BySequenceLengthSampler(
                 pairs, bucket_boundaries=bucket.get("bucket_boundaries", DEFAULT_BOUNDARIES),
@@ -250,7 +276,9 @@ class FeatureLoader:
                     samples = list(pool.map(self.dataset.__getitem__, idxs))
                 else:
                     samples = [self.dataset[i] for i in idxs]
-                if self.extract_on_device:
+                if self.is_text:
+                    yield collate_text(samples, self.target_pad_multiple)
+                elif self.extract_on_device:
                     yield collate_waveforms(samples)
                 else:
                     yield collate_speech(samples, pad_to_frames=boundary,

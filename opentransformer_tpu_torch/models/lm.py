@@ -15,8 +15,12 @@ follow the flax modules so ``compat.params_from_jax`` maps their weights.
 
 The transformer LM's decode step takes a scalar position (the lockstep
 beam) or one position a row (the transducer beam's per-hypothesis LM
-state). Not ported: the training ``__call__`` and its loss, and the MoE
-feed-forward (``moe_experts > 0`` raises).
+state). ``forward(src, tgt, tgt_length)`` is the training loss over the
+text collate's pairs (src = BOS ⧺ tokens, tgt = tokens ⧺ EOS): label
+smoothing with PAD targets dropped, with dropout at the JAX positions in
+training (after each residual branch of a transformer block; between
+LSTM layers). Not ported: the MoE feed-forward (``moe_experts > 0``
+raises).
 """
 
 from __future__ import annotations
@@ -24,11 +28,15 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..data import PAD
+from ..ops.loss import label_smoothing_loss
 from ..ops.masks import causal_mask
 from .modules import (
     Dense,
+    Dropout,
     MultiHeadSelfAttention,
     PositionwiseFeedForward,
     layer_norm,
@@ -40,9 +48,11 @@ class _VocabHead(nn.Module):
     """The output projection both LMs share: the embedding matrix with a
     separate ``output_bias`` when tied, an ``output_layer`` otherwise."""
 
-    def __init__(self, vocab_size: int, width: int, share_embedding: bool):
+    def __init__(self, vocab_size: int, width: int, share_embedding: bool,
+                 smoothing: float = 0.1):
         super().__init__()
         self.vocab_size = vocab_size
+        self.smoothing = smoothing
         self.share_embedding = share_embedding
         self.embedding = nn.Embedding(vocab_size, width)
         if share_embedding:
@@ -66,21 +76,30 @@ class _VocabHead(nn.Module):
         h, state = self.decode_hidden(token_t, state, index)
         return torch.log_softmax(self._project(h), dim=-1), state
 
+    def forward(self, src, tgt, tgt_length):
+        """The training loss: (label-smoothed loss over the non-PAD targets,
+        {}). ``tgt_length`` is part of the text batch and not read (the PAD
+        targets mark the lengths)."""
+        return label_smoothing_loss(self.logits(src), tgt, self.smoothing, pad_id=PAD), {}
+
 
 class TransformerLMLayer(nn.Module):
     """Self-attention and feed-forward, each followed by its LayerNorm
-    (the JAX model never sets its layers' ``normalize_before``)."""
+    (the JAX model never sets its layers' ``normalize_before``), with
+    ``residual_dropout`` on each branch's output in training."""
 
-    def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str = "glu"):
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str = "glu",
+                 residual_dropout: float = 0.0):
         super().__init__()
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
         self.slf_attn = MultiHeadSelfAttention(n_heads, d_model)
         self.ffn = PositionwiseFeedForward(d_model, d_ff, activation)
+        self.res_dropout = Dropout(residual_dropout)
 
     def forward(self, x, attn_mask):
-        x = self.norm1(x + self.slf_attn(x, attn_mask))
-        return self.norm2(x + self.ffn(x))
+        x = self.norm1(x + self.res_dropout(self.slf_attn(x, attn_mask)))
+        return self.norm2(x + self.res_dropout(self.ffn(x)))
 
     def decode_step(self, x_t, cache, index, src=None):
         """x_t: [N, 1, D]; writes position ``index`` (an int, or int[N]) of
@@ -90,14 +109,15 @@ class TransformerLMLayer(nn.Module):
 
 
 class TransformerLanguageModel(_VocabHead):
-    # config keys of the JAX model that only training reads
-    TRAINING_FIELDS = ("residual_dropout", "smoothing", "moe_top_k", "moe_capacity_factor",
-                       "moe_router_jitter", "moe_aux_weight")
+    # config keys of the JAX model's MoE feed-forward, which is not ported
+    TRAINING_FIELDS = ("moe_top_k", "moe_capacity_factor", "moe_router_jitter",
+                       "moe_aux_weight")
 
     def __init__(self, vocab_size: int, num_blocks: int = 6, d_model: int = 256,
                  n_heads: int = 4, d_ff: int = 1024, share_embedding: bool = True,
-                 activation: str = "glu", moe_experts: int = 0):
-        super().__init__(vocab_size, d_model, share_embedding)
+                 activation: str = "glu", moe_experts: int = 0,
+                 residual_dropout: float = 0.1, smoothing: float = 0.1):
+        super().__init__(vocab_size, d_model, share_embedding, smoothing)
         if moe_experts > 0:
             raise NotImplementedError(
                 "the MoE feed-forward (moe_experts > 0) is not ported to "
@@ -107,7 +127,7 @@ class TransformerLanguageModel(_VocabHead):
         self.n_heads = n_heads
         self.layers = []
         for i in range(num_blocks):
-            layer = TransformerLMLayer(d_model, n_heads, d_ff, activation)
+            layer = TransformerLMLayer(d_model, n_heads, d_ff, activation, residual_dropout)
             self.add_module(f"block_{i}", layer)
             self.layers.append(layer)
 
@@ -167,7 +187,8 @@ class TransformerLanguageModel(_VocabHead):
 
 class LSTMCell(nn.Module):
     """flax ``OptimizedLSTMCell``: input kernels ``ii, if, ig, io`` without
-    bias, hidden kernels ``hi, hf, hg, ho`` with bias; the carry is (c, h)."""
+    bias, hidden kernels ``hi, hf, hg, ho`` with bias; the carry is (c, h).
+    As there, the four gates' kernels act as one stacked matrix."""
 
     GATES = "ifgo"
 
@@ -177,37 +198,52 @@ class LSTMCell(nn.Module):
             self.add_module("i" + g, Dense(input_size, hidden_size, bias=False))
             self.add_module("h" + g, Dense(hidden_size, hidden_size))
 
-    def forward(self, carry, x):
+    def stacked(self):
+        """(input kernel [4H, D_in], hidden kernel [4H, H], hidden bias
+        [4H]), the gates in ``GATES`` order."""
+        return (torch.cat([getattr(self, "i" + g).weight for g in self.GATES]),
+                torch.cat([getattr(self, "h" + g).weight for g in self.GATES]),
+                torch.cat([getattr(self, "h" + g).bias for g in self.GATES]))
+
+    @staticmethod
+    def step(carry, x_proj, w_h, b_h):
+        """One step from the input's projection ``x_proj`` [N, 4H]."""
         c, h = carry
-        i, f, g, o = (getattr(self, "i" + n)(x) + getattr(self, "h" + n)(h) for n in self.GATES)
+        i, f, g, o = (x_proj + F.linear(h, w_h, b_h)).chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         return (c, h), h
 
+    def forward(self, carry, x):
+        w_i, w_h, b_h = self.stacked()
+        return self.step(carry, F.linear(x, w_i), w_h, b_h)
+
 
 class RNN(nn.Module):
-    """flax ``nn.RNN`` over one cell: scans [B, T, D] from a carry."""
+    """flax ``nn.RNN`` over one cell: scans [B, T, D] from a carry, the
+    input projections of every step taken in one product first."""
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
         self.cell = LSTMCell(input_size, hidden_size)
 
     def forward(self, x, carry):
+        w_i, w_h, b_h = self.cell.stacked()
+        x_proj = F.linear(x, w_i)
         outs = []
         for t in range(x.shape[1]):
-            carry, y = self.cell(carry, x[:, t])
+            carry, y = self.cell.step(carry, x_proj[:, t], w_h, b_h)
             outs.append(y)
         return carry, torch.stack(outs, dim=1)
 
 
 class RecurrentLanguageModel(_VocabHead):
-    # config keys of the JAX model that only training reads (inter-layer
-    # dropout is off in inference)
-    TRAINING_FIELDS = ("dropout", "residual_dropout", "smoothing")
+    # a config key the JAX model accepts and never reads
+    TRAINING_FIELDS = ("residual_dropout",)
 
     def __init__(self, vocab_size: int, num_layers: int = 2, hidden_size: int = 1024,
-                 share_embedding: bool = True):
-        super().__init__(vocab_size, hidden_size, share_embedding)
+                 share_embedding: bool = True, dropout: float = 0.1, smoothing: float = 0.1):
+        super().__init__(vocab_size, hidden_size, share_embedding, smoothing)
         self.num_layers = num_layers
         self.hidden_size = hidden_size
         self.rnns = []
@@ -215,6 +251,7 @@ class RecurrentLanguageModel(_VocabHead):
             rnn = RNN(hidden_size, hidden_size)
             self.add_module(f"lstm_{i}", rnn)
             self.rnns.append(rnn)
+        self.drop = Dropout(dropout)
 
     def init_hidden(self, batch: int):
         """Per-layer (c, h) of [batch, hidden] zeros."""
@@ -225,8 +262,10 @@ class RecurrentLanguageModel(_VocabHead):
 
     def _run(self, x, hidden):
         finals = []
-        for rnn, carry in zip(self.rnns, hidden):
+        for i, (rnn, carry) in enumerate(zip(self.rnns, hidden)):
             carry, x = rnn(x, carry)
+            if i + 1 < self.num_layers:
+                x = self.drop(x)
             finals.append(carry)
         return x, finals
 

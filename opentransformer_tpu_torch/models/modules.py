@@ -400,12 +400,18 @@ class PositionwiseFeedForward(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` over the last axis, for inference only:
-    ``(x − mean) · rsqrt(var + 1e-5) · scale + bias`` with the running
-    averages of the JAX ``batch_stats`` collection (``running_mean`` /
-    ``running_var`` buffers here). Training raises: flax keeps
-    ``ra = 0.99·ra + 0.01·batch`` with the biased variance, torch's
-    ``BatchNorm1d`` momentum 0.1 and the unbiased one."""
+    """flax ``nn.BatchNorm`` over the last axis (flax 0.12.3's semantics):
+    ``(x − mean) · rsqrt(var + 1e-5) · scale + bias``, computed in float32
+    and returned in x's dtype. In training, mean and variance are those of
+    the batch over every position of the leading axes (pads included), in
+    float32 whatever the autocast, the variance ``E[x²] − E[x]²`` clipped
+    at 0 (biased), and the running averages of the JAX ``batch_stats``
+    collection (the ``running_mean`` / ``running_var`` buffers) move in
+    place as ``ra = 0.99·ra + 0.01·batch``; in eval mode they normalize.
+    torch's ``BatchNorm1d`` (momentum 0.1, unbiased running variance) is
+    not this."""
+
+    MOMENTUM = 0.99
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -416,13 +422,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
 
     def forward(self, x):
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "training a conformer with conv_norm_type 'batch' is not ported to "
-                "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: BatchNorm training); "
-                "use conv_norm_type 'layer'")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean.to(x.dtype)) * mul.to(x.dtype) + self.bias.to(x.dtype)
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
 
 
 class ConformerConvModule(nn.Module):
@@ -431,7 +443,7 @@ class ConformerConvModule(nn.Module):
     ``causal``, else ((k − 1)//2, k//2) (XLA's SAME); the depthwise conv is a
     grouped ``Conv1d`` (flax kernel [k, 1, D] ↔ weight [D, 1, k]), which the
     JAX package computes outside any kernel as a shift-multiply.
-    ``norm_type`` is ``layer`` or ``batch`` (inference only, ``BatchNorm``)."""
+    ``norm_type`` is ``layer`` or ``batch`` (``BatchNorm``)."""
 
     def __init__(self, d_model: int, kernel_size: int = 15, norm_type: str = "layer",
                  dropout_rate: float = 0.0, causal: bool = False):

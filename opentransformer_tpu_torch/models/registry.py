@@ -85,7 +85,7 @@ def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
             model_cfg["frontend"], model_cfg["encoder"], int(model_cfg["vocab_size"]),
             predictor_cfg=model_cfg.get("predictor") or {},
             d_joint=int(model_cfg.get("d_joint", model_cfg["encoder"].get("d_model", 256))),
-            **types)
+            joint_t_block=int(model_cfg.get("joint_t_block", -1)), **types)
     elif mtype == "ctc":
         model = CTCModel(model_cfg["frontend"], model_cfg["encoder"],
                          int(model_cfg["vocab_size"]), lookahead_steps=lookahead, **types)

@@ -9,26 +9,30 @@
     through the fused projection → log-softmax → top-k (kernel 1 at k = 1
     on the card), so the [B, V] logits are never written.
   * ``TransducerModel``: frontend → encoder → prediction and joint
-    networks; the frame-synchronous greedy decode (``greedy_frames``,
-    resumable across chunks for streaming) and the time-synchronous mAES
-    beam with optional LM shallow fusion (``beam_decode``).
+    networks; the training loss (``forward``: the RNN-T loss of
+    ``ops/rnnt_loss.py`` over the full joint, or over the blank and label
+    slices of T-blocks of it, ``blank_emit_log_probs``), the
+    frame-synchronous greedy decode (``greedy_frames``, resumable across
+    chunks for streaming) and the time-synchronous mAES beam with optional
+    LM shallow fusion (``beam_decode``).
 
 Blank = PAD = 0. The greedy lattice loop checks on the host, once an
 iteration, whether any row still has frames; ``greedy_iterations`` counts
-the iterations, each of which launches kernel 1 once. Not ported: the
-training loss (``forward`` raises; the RNNT loss and the blocked joint
-``blank_emit_log_probs`` wait in ROADMAP.md, Queue 1).
+the iterations, each of which launches kernel 1 once.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data import BLK, BOS
 from ..ops.masks import mask_to_length
 from ..ops.project_topk import project_logp_topk, topk_smallest_id
+from ..ops.rnnt_loss import rnnt_loss_from_blank_emit, rnnt_loss_mean
 from .lm import RNN
+from .modules import Dropout
 from .speech2text import ENCODERS, FRONTENDS, _build
 
 NEG = -1.0e30
@@ -45,10 +49,11 @@ def tree_map(fn, *trees):
 
 
 class TransducerPredictionNetwork(nn.Module):
-    """Label-history encoder: embedding → ``num_layers`` LSTMs (the JAX
-    config's inter-layer ``dropout`` acts only in training)."""
+    """Label-history encoder: embedding → ``num_layers`` LSTMs, with
+    ``dropout`` between them in training."""
 
-    def __init__(self, vocab_size: int, d_model: int = 256, num_layers: int = 1):
+    def __init__(self, vocab_size: int, d_model: int = 256, num_layers: int = 1,
+                 dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.num_layers = num_layers
@@ -58,6 +63,7 @@ class TransducerPredictionNetwork(nn.Module):
             rnn = RNN(d_model, d_model)
             self.add_module(f"lstm_{i}", rnn)
             self.rnns.append(rnn)
+        self.drop = Dropout(dropout)
 
     def init_hidden(self, batch: int):
         """Per-layer (c, h) of [batch, d_model] zeros."""
@@ -69,8 +75,10 @@ class TransducerPredictionNetwork(nn.Module):
     def forward(self, tokens):
         """tokens int[B, U1] (BOS ⧺ labels) → states [B, U1, D]."""
         x = self.embedding(tokens)
-        for rnn, carry in zip(self.rnns, self.init_hidden(tokens.shape[0])):
+        for i, (rnn, carry) in enumerate(zip(self.rnns, self.init_hidden(tokens.shape[0]))):
             _, x = rnn(x, carry)
+            if i + 1 < self.num_layers:
+                x = self.drop(x)
         return x
 
     def decode_step(self, token_t, hidden):
@@ -112,24 +120,58 @@ class TransducerJointNetwork(nn.Module):
         _, idx = project_logp_topk(h, self.output_layer.weight, self.output_layer.bias, 1)
         return idx[:, 0].long()
 
+    def _block_log_probs(self, eh_blk, ph, labels, blank: int):
+        h = torch.tanh(eh_blk[:, :, None, :] + ph[:, None, :, :])
+        logits = self.output_layer(h).float()  # [B, TB, U1, V]
+        lse = torch.logsumexp(logits, dim=-1)
+        lp_blank = logits[..., blank] - lse
+        emit = torch.gather(logits[:, :, :-1, :], 3, labels[:, None, :, None].expand(
+            -1, logits.shape[1], -1, 1))[..., 0] - lse[:, :, :-1]
+        return lp_blank, emit
+
+    def blank_emit_log_probs(self, enc, pred, labels, blank: int = 0, t_block: int = 16):
+        """The two slices of the joint's log-probs that the RNN-T loss
+        reads, T-block by T-block: enc [B, T, De], pred [B, U1, Dp], labels
+        int[B, U1 − 1] → (lp_blank f32[B, T, U1], emit f32[B, T, U1 − 1]).
+        T is padded to whole blocks of ``t_block``; each block's [B, TB,
+        U1, V] logits are reduced to the slices and dropped, and recomputed
+        in the backward pass (activation checkpointing), so peak memory is
+        O(B·TB·U1·V) both ways."""
+        eh = self.enc_proj(enc)
+        ph = self.pred_proj(pred)
+        t = eh.shape[1]
+        t_pad = -(-t // t_block) * t_block
+        eh = nn.functional.pad(eh, (0, 0, 0, t_pad - t))
+        labels = labels.long()
+        parts = [checkpoint(self._block_log_probs, eh[:, s : s + t_block], ph, labels, blank,
+                            use_reentrant=False)
+                 for s in range(0, t_pad, t_block)]
+        return (torch.cat([p[0] for p in parts], dim=1)[:, :t],
+                torch.cat([p[1] for p in parts], dim=1)[:, :t])
+
 
 class TransducerModel(nn.Module):
-    """frontend → encoder → prediction and joint networks (inference). The
-    JAX config's training-only keys (``joint_t_block``, ``moe_aux_weight``)
-    are not read."""
+    """frontend → encoder → prediction and joint networks.
+    ``joint_t_block`` picks how the loss evaluates the joint: −1 the full
+    joint while its f32 logits take at most 2 GiB, else T-blocks of 32; 0
+    the full joint; N > 0 T-blocks of N. The JAX config's
+    ``moe_aux_weight`` weighs an MoE encoder's load-balance loss, which the
+    port does not have (an MoE encoder raises in the registry)."""
 
     def __init__(self, frontend_cfg: dict, encoder_cfg: dict, vocab_size: int,
                  predictor_cfg: dict | None = None, d_joint: int | None = None,
-                 frontend_type: str = "conv", encoder_type: str = "transformer"):
+                 frontend_type: str = "conv", encoder_type: str = "transformer",
+                 joint_t_block: int = -1):
         super().__init__()
         self.vocab_size = int(vocab_size)
+        self.joint_t_block = int(joint_t_block)
         self.frontend = _build(FRONTENDS[frontend_type], frontend_cfg)
         self.encoder = _build(ENCODERS[encoder_type], encoder_cfg)
         pc = dict(predictor_cfg or {})
         pc.setdefault("d_model", self.encoder.d_model)
         self.predictor = TransducerPredictionNetwork(
             self.vocab_size, **{k: v for k, v in pc.items()
-                                if k in ("d_model", "num_layers")})
+                                if k in ("d_model", "num_layers", "dropout")})
         self.joint = TransducerJointNetwork(
             self.encoder.d_model, self.predictor.d_model, self.vocab_size,
             self.encoder.d_model if d_joint is None else int(d_joint))
@@ -144,10 +186,29 @@ class TransducerModel(nn.Module):
         x, mask = self.frontend(feats.to(self.dtype), feat_mask)
         return self.encoder(x, mask)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the transducer's training loss (the RNNT loss) is not ported to "
-            "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: transducer training)")
+    def forward(self, feats, feat_mask, targets, targets_length):
+        """The RNN-T loss: (scalar float32 batch mean, {}). Targets as the
+        collate writes them (BOS ⧺ y ⧺ EOS ⧺ PAD…, ``targets_length`` =
+        len(y) + 1): the predictor reads ``targets[:, :-1]``, the labels are
+        ``targets[:, 1:]`` with ``targets_length − 1`` of them."""
+        memory, memory_mask = self.encode(feats, feat_mask)
+        pred_in = targets[:, :-1]
+        pred = self.predictor(pred_in)
+        frame_len = mask_to_length(memory_mask)
+        t_block = self.joint_t_block
+        if t_block < 0:
+            b, t = memory.shape[0], memory.shape[1]
+            t_block = 0 if 4 * b * t * pred_in.shape[1] * self.vocab_size <= (2 << 30) else 32
+        if t_block > 0:
+            u_max = pred_in.shape[1] - 1
+            lp_blank, emit = self.joint.blank_emit_log_probs(
+                memory, pred, targets[:, 1 : 1 + u_max], blank=BLK, t_block=t_block)
+            loss = rnnt_loss_from_blank_emit(lp_blank, emit, frame_len, targets_length - 1).mean()
+        else:
+            log_probs = torch.log_softmax(self.joint(memory, pred), dim=-1)
+            loss = rnnt_loss_mean(log_probs, targets[:, 1:], frame_len, targets_length - 1,
+                                  blank=BLK)
+        return loss, {}
 
     def init_decode_state(self, batch: int):
         """(prediction state [B, D], hidden) primed with BOS: the carry of

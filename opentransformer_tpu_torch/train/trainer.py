@@ -6,7 +6,8 @@ gradient: padded waveforms go through the device feature stage
 (``data/device_pipeline.py``: fbank kernel, CMVN, SpecAugment), row indices
 into the device-resident corpus through its gather (``data/resident.py``:
 noise, SpecAugment), host features straight to the device
-(``feature_args``). Then the model's teacher-forced loss divided by
+(``feature_args``), and a text batch (2-d ``inputs``: an LM's src, tgt and
+lengths) likewise (``text_args``). Then the model's loss divided by
 ``accum_steps`` is back-propagated into the parameters' ``.grad`` (the
 accumulator); with ``dtype: bfloat16`` the forward runs under
 ``torch.autocast`` in bfloat16 over the float32 parameters, while the loss
@@ -20,6 +21,11 @@ window (still divided by ``accum_steps``), one update:
     adds one to ``nan_skips``;
   * otherwise the optimizer steps at ``lr = schedule(global_step,
     global_epoch)``.
+
+A BatchNorm conformer's running averages (buffers, outside the optimizer
+and the clipping) move on every training micro-batch's forward, skipped
+updates included, as the JAX trainer threads ``batch_stats`` out of each
+gradient step; ``evaluate`` and the probe normalize with them.
 
 ``global_step`` starts at 1 and counts updates, skipped ones too. The
 loader is reshuffled before each epoch; after it come the checkpoint, the
@@ -77,10 +83,18 @@ def feature_args(batch, device):
             _tensor(targets["targets_length"], device, torch.long))
 
 
+def text_args(batch, device):
+    """A text batch → (src, tgt, tgt_length) on ``device``."""
+    _, inputs, targets = batch
+    return (_tensor(inputs["inputs"], device, torch.long),
+            _tensor(targets["targets"], device, torch.long),
+            _tensor(targets["targets_length"], device, torch.long))
+
+
 class Trainer:
     """Drives epochs over a loader of (utt_ids, inputs, targets) batches
     whose inputs are padded waveforms (through ``frontend``), row indices
-    into ``resident`` or padded host features."""
+    into ``resident``, padded host features or token ids."""
 
     def __init__(self, train_cfg: Any, model: torch.nn.Module, frontend,
                  generator: torch.Generator, checkpointer=None, log_interval: int = 10,
@@ -139,10 +153,11 @@ class Trainer:
                               enabled=self.autocast_dtype is not None)
 
     def batch_args(self, batch, train: bool = True):
-        """A batch → (feats, mask, targets, targets_length) on the model's
-        device, by the batch's kind (no gradient): waveforms through the
-        device frontend, ``corpus_idx`` through the resident gather, host
-        features as they are. ``train`` draws the augmentation."""
+        """A batch → the model's arguments on its device, by the batch's
+        kind (no gradient): (feats, mask, targets, targets_length) from
+        waveforms through the device frontend, ``corpus_idx`` through the
+        resident gather, or host features as they are; (src, tgt,
+        tgt_length) from a text batch. ``train`` draws the augmentation."""
         _, inputs, targets = batch
         with torch.no_grad():
             if "waveforms" in inputs:
@@ -157,6 +172,8 @@ class Trainer:
                                      "corpus")
                 return self.resident(inputs["corpus_idx"], targets["targets"],
                                      targets["targets_length"], self.generator, train=train)
+        if inputs["inputs"].ndim == 2:
+            return text_args(batch, self.device)
         return feature_args(batch, self.device)
 
     def micro_step(self, batch) -> torch.Tensor:

@@ -49,7 +49,8 @@ from opentransformer_tpu_torch.models import encoder, frontend, modules
 from opentransformer_tpu_torch.models.registry import build_model
 from opentransformer_tpu_torch.ops import masks
 from opentransformer_tpu_torch.recognize.base import make_memory_search
-from opentransformer_tpu_torch.train.trainer import Trainer
+from opentransformer_tpu_torch.data.loader import FeatureLoader
+from opentransformer_tpu_torch.train.trainer import Trainer, feature_args
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -239,9 +240,26 @@ def test_conv_module_matches_jax(norm_type, causal):
 
 
 def test_batch_norm_training_raises():
-    tm = modules.ConformerConvModule(D, 5, "batch").train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.zeros(1, 4, D))
+    """Training a batch-norm conv module used to raise: it now gives the JAX
+    module's output with ``train=True`` (batch statistics over every
+    position, pads included) within 1e-5 of the output's scale (dividing by
+    the batch's own deviation amplifies the two convs' rounding), and moves
+    the running averages to flax's mutable ``batch_stats`` within 1e-6."""
+    x = np.random.default_rng(7).normal(size=(3, 11, D)).astype(np.float32)
+    pad = pad_mask([11, 7, 1], 11)
+    jm = jax_modules.ConformerConvModule(D, kernel_size=5, norm_type="batch")
+    variables = batch_stats_like(init(jm, x, pad))
+    tm = port(modules.ConformerConvModule(D, 5, "batch"), variables).train()
+    want, new = jm.apply(variables, jnp.asarray(x), jnp.asarray(pad), train=True,
+                         mutable=["batch_stats"])
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), torch.from_numpy(pad))
+    close(got, want, scaled=True)
+    stats = compat.params_to_jax(tm)["batch_stats"]["bn"]
+    for key in ("mean", "var"):
+        assert not np.allclose(stats[key], variables["batch_stats"]["bn"][key], atol=1e-3)
+        np.testing.assert_allclose(stats[key], np.asarray(new["batch_stats"]["bn"][key]),
+                                   rtol=0, atol=1e-6)
 
 
 # ------------------------------------------------- blocks and encoders
@@ -584,11 +602,27 @@ def test_cli_trains_a_layer_norm_conformer_and_refuses_batch_norm(tmp_path, norm
     with open(conf, "w") as f:
         json.dump(cfg, f)
     argv = ["-c", conf, "--expdir", str(tmp_path / "exp"), "--device", "cpu"]
-    if norm_type == "batch":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_cli.run(argv)
-        return
     trainer = run_cli.run(argv)
     assert trainer.nan_skips == 0 and len(trainer.history) == 1
     assert all(np.isfinite(r["losses"]).all() for r in trainer.history)
     assert isinstance(trainer.model.encoder, encoder.ConformerEncoder)
+    if norm_type == "batch":
+        # the batch norm conformer used to be refused: now its running
+        # averages move off (0, 1), the checkpoint carries them under
+        # batch_stats, and it reloads into the same beam decode
+        ck = str(tmp_path / "exp" / "model.epoch.0" / "params.npz")
+        tree = compat.load_npz(ck)
+        assert sorted(tree) == ["batch_stats", "params"]
+        for block in trainer.model.encoder.layers:
+            bn = block.conv_module.bn
+            assert not torch.allclose(bn.running_mean, torch.zeros_like(bn.running_mean))
+            assert not torch.allclose(bn.running_var, torch.ones_like(bn.running_var))
+        fresh = compat.load_into(build_model(cfg["model"], device="cpu"), tree)
+        feats, mask, _, _ = feature_args(next(iter(FeatureLoader(cfg, "dev", is_eval=True))),
+                                         "cpu")
+        ids = []
+        for m in (trainer.model.eval(), fresh):
+            with torch.no_grad():
+                memory, memory_mask = m.encode(feats, mask)
+            ids.append(make_memory_search(m, 3, 6)(memory, memory_mask).tokens)
+        assert torch.equal(ids[0], ids[1])

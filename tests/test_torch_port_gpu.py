@@ -561,3 +561,62 @@ def test_resident_gather_on_card_matches_cpu(cuda):
     resid = noisy - clean[0]
     assert torch.count_nonzero(resid[~mask]) == 0 and torch.count_nonzero(resid[mask]) > 0
     assert got.nbytes == 16 * 64 * 40 * 2
+
+
+@pytest.mark.gpu
+def test_rnnt_loss_and_gradient_on_card_match_cpu(cuda):
+    """The RNN-T loss and its gradient w.r.t. the log-probs on the card
+    against the CPU's, at 1e-5 (relative for the loss, absolute for the
+    gradient), on a ragged lattice with a U = 0 row and a one-frame row."""
+    from opentransformer_tpu_torch.ops.rnnt_loss import rnnt_loss
+
+    rng = np.random.default_rng(5)
+    b, t, u, v = 4, 48, 12, 40
+    logits = torch.from_numpy((rng.normal(size=(b, t, u + 1, v)) * 3).astype(np.float32))
+    lp = torch.log_softmax(logits, dim=-1)
+    labels = torch.from_numpy(rng.integers(1, v, size=(b, u)))
+    t_lens, u_lens = torch.tensor([48, 30, 1, 17]), torch.tensor([12, 0, 5, 9])
+    out = {}
+    for dev in ("cpu", cuda):
+        x = lp.clone().to(dev).requires_grad_()
+        loss = rnnt_loss(x, labels.to(dev), t_lens.to(dev), u_lens.to(dev))
+        loss.sum().backward()
+        out[str(dev)] = (loss.detach().cpu(), x.grad.cpu())
+    (loss_c, grad_c), (loss_g, grad_g) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(loss_g, loss_c, rtol=1e-5, atol=0)
+    torch.testing.assert_close(grad_g, grad_c, rtol=0, atol=1e-5)
+    assert torch.isfinite(grad_g).all()
+
+
+@pytest.mark.gpu
+def test_batch_norm_statistics_update_on_card_matches_cpu(cuda):
+    """One training forward moves the running averages on the card as on
+    the CPU (1e-6 absolute): a BatchNorm conv module in float32, and the
+    BatchNorm alone on the same bfloat16 input under bf16 autocast (its
+    statistics in float32)."""
+    from opentransformer_tpu_torch.models.modules import BatchNorm, ConformerConvModule
+    from opentransformer_tpu_torch.utils import disable_tf32
+
+    disable_tf32()
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(4, 37, 64)).astype(np.float32))
+    pad = torch.from_numpy(np.arange(37)[None] < np.array([37, 30, 9, 1])[:, None])
+    torch.manual_seed(0)
+    cpu = ConformerConvModule(64, 15, "batch").train()
+    card = ConformerConvModule(64, 15, "batch").to(cuda).train()
+    card.load_state_dict(cpu.state_dict())
+    bn_cpu, bn_card = BatchNorm(64).train(), BatchNorm(64).to(cuda).train()
+    xb = (x * 2 + 0.5).to(torch.bfloat16)
+    for (m_cpu, m_card), args, autocast in (((cpu, card), (x, pad), False),
+                                            ((bn_cpu, bn_card), (xb,), True)):
+        got = []
+        for m, dev in ((m_cpu, "cpu"), (m_card, cuda)):
+            with torch.no_grad(), torch.autocast(torch.device(dev).type, dtype=torch.bfloat16,
+                                                 enabled=autocast):
+                m(*(a.to(dev) for a in args))
+            bn = m.bn if isinstance(m, ConformerConvModule) else m
+            got.append((bn.running_mean.cpu(), bn.running_var.cpu()))
+        assert got[1][0].dtype == torch.float32
+        for a, b in zip(got[0], got[1]):
+            assert not torch.equal(a, torch.zeros_like(a))
+            torch.testing.assert_close(b, a, rtol=0, atol=1e-6)

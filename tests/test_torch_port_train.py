@@ -471,7 +471,7 @@ def test_init_model_warm_starts_the_weights(trained, corpus, tmp_path, form):
 
 @pytest.mark.parametrize("section,key,value", [
     ("train", "fused_update", True), ("train", "async_save", True),
-    ("train", "pp_schedule", "1f1b"), ("model", "type", "transformer_lm"),
+    ("train", "pp_schedule", "1f1b"), ("train", "pp_micro_batches", 2),
     ("data", "gaussian_noise", 0.1), ("data", "feature_extractor", "psf"),
     ("data", "device_resident", True),
 ], ids=lambda v: str(v) if not isinstance(v, dict) else "dict")

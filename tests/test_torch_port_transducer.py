@@ -172,8 +172,25 @@ def test_joint_network_matches_jax(pair, what):
 
 
 def test_forward_raises_and_names_the_roadmap(pair, inputs):
+    """The forward used to raise: it is now the RNN-T loss, JAX's to 1e-5
+    relative on the ragged inputs (eval mode: no predictor dropout). An MoE
+    encoder still raises and names the roadmap."""
+    model, jm, variables, _ = pair
+    rng = np.random.default_rng(8)
+    ulens = np.array([5, 0, 9])
+    targets = np.zeros((len(LENS), 12), np.int32)
+    targets[:, 0] = 1
+    for i, u in enumerate(ulens):
+        targets[i, 1 : 1 + u] = rng.integers(3, V, size=u)
+        targets[i, 1 + u] = 1
+    tlen = (ulens + 1).astype(np.int32)
+    want, _ = jm.apply(variables, *map(jnp.asarray, (*inputs, targets, tlen)))
+    with torch.no_grad():
+        got, aux = model(*port_inputs(inputs), torch.from_numpy(targets), torch.from_numpy(tlen))
+    assert aux == {} and abs(got.item() - float(want)) <= 1e-5 * abs(float(want))
+    moe = dict(CFG, encoder=dict(CFG["encoder"], moe_experts=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pair[0](*port_inputs(inputs), None, None)
+        build_model(moe, device="cpu")
 
 
 def test_params_round_trip_and_match_the_jax_tree(pair, inputs):
