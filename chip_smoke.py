@@ -158,7 +158,35 @@ each of which raises on failure:
      LM's below its untrained value; the anchor decoded with the trained
      transformer LM's checkpoint directory at ``-lmw 0.3`` through kernel 2 alone
      (CER recorded); and each family at width 64 halving its loss in 40
-     updates on 8 samples.
+     updates on 8 samples;
+  14. the reference user's round trip: (a) the committed anchor exported by
+     ``tools/torch_export_reference.py`` to a reference ``anchor.pt`` and
+     imported back by ``tools/torch_import_reference.py`` (every array bitwise
+     the npz's as float32), then decoded anchor.sh's way, ``cli/eval.py -m
+     anchor.pt -c <conf/anchor.json on the synthetic dir> -bw 5 -pn 0.6 -ml 32
+     -b 100 -d test``: CER at most 0.75%, at most 5 of 500 1-best ids off the
+     JAX fixture, one kernel-1 launch a beam step (counted apart, as calls of
+     the cached top-k step), no kernel-2 launch, and JAX's directory name
+     ``decode_test_bw5_pn0.6_ml32``; again with phase 4's seeded LM as a
+     reference LM ``.pt`` at ``-lmw 0.0`` (CER at most 0.75%, kernel 2 only),
+     and with ``-ns 100 -sba -s sba`` (100 utterances, each n-best ranked by
+     score / length); (b) seeded full-width ``conformer_baseline`` (BatchNorm,
+     ``ref_compat``, rel-pos; seeded BatchNorm statistics) and
+     ``transformer_baseline`` (``concat_after`` in encoder and decoder,
+     ``front_end_layer_norm``) through the port's export to ``.pt`` and its
+     import (bitwise), then ``cli/eval.py -m x.pt -c`` at beam 5 on 16 seeded
+     utterances (80 and 40 mel): 1-bests equal to the in-process decode of the
+     unexported model, kernel 1 at D = 384 and D = 256; (c)
+     ``transformer_baseline`` from phase 7's wavs for 3 epochs with ``-ms``,
+     ``train.fused_update``, ``adam_m_dtype: bfloat16``, ``--async-save`` and
+     ``--supervise 1`` with the fault armed at epoch 1's update: the fault
+     fires once, every epoch's checkpoint exists, kernel 3 launches once a
+     micro-batch across both child processes (each appends its ``--record``
+     line), losses finite with no NaN skip, the resumed child starting at the
+     saved global step; then ``cli/eval.py -m EXP -d dev --profile`` (kernel 1,
+     a trace with device kernels) equal to an ``--npz`` decode of the same
+     checkpoint, and seconds per update of the unfused and fused updates in
+     turns.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -3612,6 +3640,436 @@ def phase_train_families(workdir: str, data: str, corpus: dict, device: str = "c
     return k1, k2, k3
 
 
+# ---------------------------------------------------------------- phase 14
+# reference checkpoints in and out, the eval CLI's -m/-c/-d, resumed and
+# supervised MixSpeech training with the fused update
+REFERENCE = dict(anchor_utts=500, sba_utts=100, ref_utts=16, ref_max_len=16, ref_seed=23,
+                 fault_step=3, epochs=3, time_reps=4, cut_width=False)
+
+
+def counting(cls, name: str):
+    """Wrap ``cls.name`` to count its calls → (the count list, an undo)."""
+    orig = getattr(cls, name)
+    count = [0]
+
+    def wrapped(self, *args, **kwargs):
+        count[0] += 1
+        return orig(self, *args, **kwargs)
+
+    setattr(cls, name, wrapped)
+    return count, lambda: setattr(cls, name, orig)
+
+
+def flat_arrays(tree) -> dict:
+    """{"//"-joined path: float32 array} of a variables tree."""
+    from opentransformer_tpu_torch import compat
+
+    return {"//".join(k): np.asarray(v, np.float32) for k, v in compat._flatten(tree)}
+
+
+def cli_decode(tag: str, argv: list, decode_dir: str, device: str):
+    """``cli/eval.py argv`` → (RESULT lines, kernel-1 launches, kernel-2
+    launches, beam steps: calls of the speech2text cached top-k step);
+    raises unless it wrote ``decode_dir``."""
+    from opentransformer_tpu_torch.cli import eval as eval_cli
+    from opentransformer_tpu_torch.models.speech2text import SpeechToText
+    from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
+
+    project_logp_topk.launches = project2_logp_topk.launches = 0
+    steps, undo = counting(SpeechToText, "decode_step_topk")
+    t0 = time.time()
+    try:
+        rc = eval_cli.main([*argv, *([] if device == "cuda" else ["--device", device])])
+    finally:
+        undo()
+    if rc != 0 or not os.path.isdir(decode_dir):
+        raise AssertionError(f"{tag}: the eval CLI returned {rc} without {decode_dir}")
+    with open(os.path.join(decode_dir, "RESULT")) as f:
+        result = f.read().splitlines()
+    one, two = project_logp_topk.launches, project2_logp_topk.launches
+    log(f"{tag}: {' | '.join(result)} | kernel launches one-head {one} two-head {two}, beam "
+        f"steps {steps[0]} | {os.path.basename(decode_dir)} | wall {time.time() - t0:.1f} s")
+    return result, one, two, steps[0]
+
+
+def anchor_conf(workdir: str, data: str) -> str:
+    """``conf/anchor.json`` with its data paths on the synthetic dir."""
+    with open(ANCHOR_CONF, encoding="utf-8") as f:
+        cfg = json.load(f)
+    cfg["data"]["vocab"] = os.path.join(data, "vocab")
+    for split in ("train", "dev", "test"):
+        cfg["data"][split] = {"feat": [os.path.join(data, split, "feats.scp")],
+                              "text": [os.path.join(data, split, "text")]}
+    return write_conf(workdir, "anchor_synth", cfg)
+
+
+def sba_sorted(decode_dir: str) -> int:
+    """Utterances of ``predict.log``; raises unless each n-best list is in
+    descending score / (tokens + 1) and ``predict.txt`` holds its head."""
+    nbest: dict[str, list] = {}
+    with open(os.path.join(decode_dir, "predict.log")) as f:
+        for line in f:
+            utt, _, score, *units = line.split()
+            nbest.setdefault(utt, []).append((float(score.split("=")[1]), units))
+    with open(os.path.join(decode_dir, "predict.txt")) as f:
+        best = {u: rest for u, *rest in (line.split() for line in f)}
+    for utt, hyps in nbest.items():
+        avg = [s / (len(units) + 1) for s, units in hyps]
+        if avg != sorted(avg, reverse=True) or best[utt] != hyps[0][1]:
+            raise AssertionError(f"{decode_dir}: {utt}'s n-best is not ranked by score / length")
+    return len(nbest)
+
+
+def phase14a_anchor_pt(workdir: str, data: str, device: str):
+    """The committed anchor through a reference .pt: export, import
+    (bitwise), anchor.sh's decode with -m anchor.pt, with a reference LM
+    .pt at -lmw 0.0, and -ns/-sba/-s. Returns (k1 launches, k2 launches)."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import torch_export_reference
+    import torch_import_reference
+
+    c = REFERENCE
+    dev_flags = [] if device == "cuda" else ["--device", device]
+    ref = os.path.join(workdir, "ref")
+    pt = os.path.join(ref, "anchor.pt")
+    t0 = time.time()
+    torch_export_reference.main([ANCHOR + ".npz", pt, "--model_cfg", ANCHOR + ".manifest.json",
+                                 *dev_flags])
+    conf = anchor_conf(workdir, data)
+    torch_import_reference.main([pt, os.path.join(workdir, "imported"), "-c", conf, *dev_flags])
+    got = flat_arrays(compat.load_npz(os.path.join(workdir, "imported", "model.imported",
+                                                   "params.npz")))
+    want = flat_arrays(compat.load_npz(ANCHOR + ".npz"))
+    same = got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
+    log(f"phase14a anchor npz -> tools/torch_export_reference.py -> anchor.pt "
+        f"({os.path.getsize(pt) / 1e6:.1f} MB) -> tools/torch_import_reference.py: {len(got)} "
+        f"arrays, bitwise equal to the npz as float32: {same} ({time.time() - t0:.1f} s)")
+    if not same:
+        raise AssertionError("phase14a: the reference round trip changed the anchor's arrays")
+
+    base = ["-m", pt, "-c", conf, "-bw", "5", "-pn", "0.6", "-ml", "32", "-b", "100",
+            "-d", "test"]
+    out = os.path.join(ref, "decode_test_bw5_pn0.6_ml32")
+    result, one, two, steps = cli_decode("phase14a anchor.pt -m/-c/-d decode", base, out, device)
+    cer = float(result[0].split()[1].rstrip("%"))
+    differ = ids_differing_from_jax(out, os.path.join(data, "vocab"))
+    ok = (cer <= ANCHOR_CER_LIMIT and differ <= ANCHOR_ID_LIMIT and two == 0 and steps > 0
+          and one == (steps if device == "cuda" else 0))
+    log(f"phase14a anchor.pt: CER {cer}% (limit {ANCHOR_CER_LIMIT}%), 1-best ids differ from "
+        f"the JAX package's on {differ} of {c['anchor_utts']} (limit {ANCHOR_ID_LIMIT}), kernel-1 "
+        f"launches {one} = beam steps {steps}, kernel-2 launches {two} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase14a: the anchor.pt decode failed its gates (see above)")
+    k1 = {"phase14a anchor.pt, cli/eval.py -m -c -d test (k=5)": one}
+
+    # phase 4's seeded LM as a reference LM .pt, at weight 0
+    d_model = ANCHOR_LM_CFG["d_model"]
+    lm = build_model(ANCHOR_LM_CFG, device=device)
+    compat.load_into(lm, seeded_params(lm, seed=11, embedding_std=d_model ** -0.5))
+    lm_pt = os.path.join(ref, "lm.pt")
+    torch.save(compat.export_reference_checkpoint(lm, {"model": ANCHOR_LM_CFG}), lm_pt)
+    out = os.path.join(ref, "decode_test_bw5_pn0.6_ml32_lm0.0")
+    result, one, two, steps = cli_decode("phase14a anchor.pt + lm.pt at -lmw 0.0",
+                                         [*base, "-lm", lm_pt, "-lmw", "0.0"], out, device)
+    cer = float(result[0].split()[1].rstrip("%"))
+    ok = cer <= ANCHOR_CER_LIMIT and one == 0 and (two > 0 if device == "cuda" else two == 0)
+    log(f"phase14a anchor.pt + reference LM .pt at weight 0: CER {cer}% (limit "
+        f"{ANCHOR_CER_LIMIT}%), kernel-1 launches {one}, kernel-2 launches {two} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase14a: the decode with the reference LM failed its gates")
+    k2 = {"phase14a anchor.pt + reference lm.pt at -lmw 0.0": two}
+
+    out = os.path.join(ref, "decode_test_bw5_pn0.6_ml32_sba")
+    result, one, _, steps = cli_decode(
+        "phase14a anchor.pt -ns 100 -sba -s sba",
+        [*base, "-ns", str(c["sba_utts"]), "-sba", "-s", "sba"], out, device)
+    n = sba_sorted(out)
+    utts = int(result[3].split()[1])
+    if not (n == utts == c["sba_utts"] and one == (steps if device == "cuda" else 0)):
+        raise AssertionError(f"phase14a -ns/-sba: {utts} utterances decoded, {n} in predict.log")
+    log(f"phase14a -ns {c['sba_utts']} -sba: {n} utterances, every n-best ranked by score / "
+        "length ok")
+    k1["phase14a anchor.pt -ns 100 -sba (k=5)"] = one
+    return k1, k2
+
+
+def reference_models() -> dict:
+    """The two full-width reference-layout models of phase 14b: a
+    ``ref_compat`` BatchNorm conformer_baseline and a transformer_baseline
+    with concat_after and front_end_layer_norm (cut to 2 + 1 blocks with
+    ``cut_width``)."""
+    conformer = conformer_model_cfg("conformer_baseline")
+    conformer["encoder"].update(conv_norm_type="batch", ref_compat=True)
+    with open(TRAIN_CONF, encoding="utf-8") as f:
+        transformer = json.load(f)["model"]
+    transformer["encoder"]["concat_after"] = True
+    transformer["decoder"]["concat_after"] = True
+    transformer["frontend"]["front_end_layer_norm"] = True
+    if REFERENCE["cut_width"]:
+        conformer["encoder"]["nblocks"] = transformer["encoder"]["n_blocks"] = 2
+        conformer["decoder"]["n_blocks"] = transformer["decoder"]["n_blocks"] = 1
+    return {"conformer_baseline": conformer, "transformer_baseline": transformer}
+
+
+def write_feature_split(root: str, feats, mask, targets, vocab: str) -> dict:
+    """Seeded features and targets as a kaldi test split (arks, text)."""
+    from opentransformer_tpu_torch.data import load_idx2unit_map
+    from opentransformer_tpu_torch.data.kaldi_io import write_ark
+
+    os.makedirs(root, exist_ok=True)
+    idx2unit = load_idx2unit_map(vocab)
+    utts = {f"ref{i:02d}": feats[i, : int(mask[i].sum())] for i in range(len(feats))}
+    write_ark(os.path.join(root, "feats.ark"), utts, os.path.join(root, "feats.scp"))
+    with open(os.path.join(root, "text"), "w", encoding="utf-8") as f:
+        for i, utt in enumerate(utts):
+            units = [idx2unit[int(t)] for t in targets[i, 1:] if t > 2]
+            f.write(f"{utt} {' '.join(units)}\n")
+    return {"feat": [os.path.join(root, "feats.scp")], "text": [os.path.join(root, "text")]}
+
+
+def phase14b_reference_models(workdir: str, data: str, device: str) -> dict:
+    """Seeded full-width reference models: the port's export to .pt and
+    import (bitwise), then ``cli/eval.py -m x.pt -c`` at beam 5 against the
+    in-process decode of the unexported model. Returns {path: k1 launches}."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.recognize.base import SpeechToTextRecognizer
+    from opentransformer_tpu_torch.data import load_idx2unit_map
+
+    c = REFERENCE
+    vocab = os.path.join(data, "vocab")
+    idx2unit = load_idx2unit_map(vocab)
+    k1 = {}
+    for name, cfg in reference_models().items():
+        t0 = time.time()
+        mel = cfg["frontend"]["input_size"]
+        model = build_model(cfg, dtype=torch.float32, device=device)
+        tree = seeded_params(model, c["ref_seed"])
+        rng = np.random.default_rng(c["ref_seed"])
+        for path, leaf in compat._flatten(tree.get("batch_stats", {})):
+            node = tree["batch_stats"]
+            for p in path[:-1]:
+                node = node[p]
+            node[path[-1]] = (rng.uniform(0.5, 1.5, leaf.shape) if path[-1] == "var"
+                              else rng.normal(0.0, 0.1, leaf.shape)).astype(np.float32)
+        compat.load_into(model, tree)
+        root = os.path.join(workdir, f"ref_{name}")
+        os.makedirs(root, exist_ok=True)
+        pt = os.path.join(root, f"{name}.pt")
+        torch.save(compat.export_reference_checkpoint(model, {"model": cfg}), pt)
+        back, _ = compat.load_reference_any(pt)
+        state = model.state_dict()
+        same = sorted(back) == sorted(state) and all(
+            torch.equal(back[k], v.cpu()) for k, v in state.items())
+        feats, mask, targets = conformer_inputs(
+            CONFORMER_INPUTS["inputs_seed"], c["ref_utts"], CONFORMER_INPUTS["frames"],
+            CONFORMER_INPUTS["min_frames"], CONFORMER_INPUTS["min_units"],
+            CONFORMER_INPUTS["max_units"], mel)
+        split = write_feature_split(os.path.join(root, "data"), feats, mask, targets, vocab)
+        run_cfg = {"data": {"dataset_type": "kaldi", "vocab": vocab, "batch_size": c["ref_utts"],
+                            "test": split}, "model": cfg, "train": {}}
+        conf = write_conf(root, "conf", run_cfg)
+        out = os.path.join(root, f"decode_test_bw5_pn0.6_ml{c['ref_max_len']}")
+        _, one, _, steps = cli_decode(
+            f"phase14b {name} .pt", ["-m", pt, "-c", conf, "-bw", "5", "-ml",
+                                     str(c["ref_max_len"]), "-d", "test"], out, device)
+        with open(os.path.join(out, "predict.txt"), encoding="utf-8") as f:
+            got = dict(line.rstrip("\n").split(" ", 1) for line in f)
+        # the unexported model, in-process, on the loader's same batches
+        model.eval()
+        rec = SpeechToTextRecognizer(model, beam_width=5, max_len=c["ref_max_len"],
+                                     idx2unit=idx2unit)
+        want = {}
+        for utt_ids, inputs, _ in FeatureLoader(run_cfg, "test", is_eval=True):
+            texts, _ = rec.recognize(torch.as_tensor(inputs["inputs"]).to(device),
+                                     torch.as_tensor(inputs["mask"]).to(device))
+            want.update({u: t[0] for u, t in zip(utt_ids, texts)})
+        ok = (same and got == want and len(got) == c["ref_utts"]
+              and one == (steps if device == "cuda" else 0) and steps > 0)
+        d_model = cfg["encoder"]["d_model"]
+        log(f"phase14b {name} (d {d_model}, {sum(p.numel() for p in model.parameters())} "
+            f"parameters): export -> .pt -> import bitwise {same}; cli/eval.py -m .pt -c beam 5 "
+            f"1-bests equal to the in-process decode on {sum(got[u] == want[u] for u in want)} "
+            f"of {len(want)}; kernel-1 launches {one} at D = {d_model} "
+            f"({time.time() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase14b {name}: the reference round trip failed its gates")
+        k1[f"phase14b {name} reference .pt decode (k=5, D={d_model})"] = one
+    return k1
+
+
+def supervised_train(tag: str, workdir: str, paths: dict, device: str):
+    """phase 7's config for 3 epochs with MixSpeech, the fused update with
+    a bfloat16 first moment, asynchronous saves and ``--supervise 1``, the
+    fault armed at ``fault_step`` (epoch 1's update): → (expdir, the
+    children's records, the config)."""
+    from opentransformer_tpu_torch.cli import run as run_cli
+
+    c = REFERENCE
+    cfg = train_config(paths, epochs=c["epochs"])
+    cfg["train"]["fused_update"] = True
+    cfg["train"]["optimizer"]["adam_m_dtype"] = "bfloat16"
+    if c["cut_width"]:
+        cfg["model"] = overfit_model_cfg(cfg["model"])
+    conf = write_conf(workdir, "supervised", cfg)
+    expdir = os.path.join(workdir, "exp_supervised")
+    marker, record = os.path.join(workdir, "fault.marker"), os.path.join(workdir, "record.jsonl")
+    env = {"OT_FAULT_INJECT_STEP": str(c["fault_step"]), "OT_FAULT_INJECT_MARKER": marker,
+           "PYTHONPATH": REPO}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.time()
+    try:
+        rc = run_cli.main(["-c", conf, "--expdir", expdir, "--log_interval", "1", "-s", "7",
+                           "-ms", "--async-save", "--supervise", "1", "--record", record,
+                           *([] if device == "cuda" else ["--device", device])])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with open(record, encoding="utf-8") as f:
+        runs = [json.loads(line) for line in f]
+    with open(marker, encoding="utf-8") as f:
+        fired = f.read()
+    log(f"{tag} supervised run (2 children) returned {rc} in {time.time() - t0:.1f} s; fault "
+        f"marker {fired!r}; child records: {json.dumps(runs)}")
+    if rc != 0:
+        raise AssertionError(f"{tag}: the supervised training returned {rc}")
+    return expdir, runs, cfg
+
+
+def update_timing(tag: str, cfg: dict, device: str) -> dict:
+    """Seconds per update of phase 7's config from float32 weights, the
+    unfused and the fused update in turns on the same window of
+    micro-batches (host clock, synchronised)."""
+    from opentransformer_tpu_torch.data.device_pipeline import make_device_frontend
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.train.trainer import Trainer
+
+    window = list(FeatureLoader(cfg, "train", seed=7))[: cfg["train"]["accum_steps"]]
+    frontend = make_device_frontend(cfg["data"], device)
+    trainers = {}
+    for fused in (False, True):
+        torch.manual_seed(0)
+        model = build_model(cfg["model"], device=device).train()
+        trainers[fused] = Trainer(dict(cfg["train"], fused_update=fused), model, frontend,
+                                  torch.Generator(device=device).manual_seed(0))
+    secs = {False: [], True: []}
+    for fused in [False, True, True, False] * REFERENCE["time_reps"]:
+        tr = trainers[fused]
+        start = time.time()
+        for b in window:
+            tr.micro_step(b)
+        tr.update()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs[fused].append(time.time() - start)
+    med = {k: sorted(v[1:])[len(v[1:]) // 2] for k, v in secs.items()}
+    log(f"{tag} seconds per update ({len(window)} micro-batches of {cfg['data']['batch_size']}, "
+        f"host clock, the first of each dropped), in turns unfused/fused/fused/unfused: unfused "
+        f"{[round(x, 4) for x in secs[False]]} median {med[False]:.4f} s, fused "
+        f"{[round(x, 4) for x in secs[True]]} median {med[True]:.4f} s "
+        f"[{card_line() if device == 'cuda' else device}]")
+    return med
+
+
+def phase14c_supervised_training(workdir: str, paths: dict, device: str):
+    """transformer_baseline from phase 7's waveforms: resumed, supervised,
+    mixed and fused training, then the trained expdir decoded by ``-m EXP
+    -d dev --profile`` and the same checkpoint by ``--npz``. Returns
+    (k3 launches of the children, k1 launches of the -m decode)."""
+    from opentransformer_tpu_torch.cli import eval as eval_cli
+    from opentransformer_tpu_torch.data.datasets import AudioDataset
+    from opentransformer_tpu_torch.data.kaldi_io import write_ark
+
+    c = REFERENCE
+    cuda = device == "cuda"
+    expdir, runs, cfg = supervised_train("phase14c", workdir, paths, device)
+    crashed, resumed = runs if len(runs) == 2 else (None, None)
+    with open(os.path.join(expdir, "model.epoch.0", "extra.json"), encoding="utf-8") as f:
+        saved_step = json.load(f)["global_step"]
+    micro = sum(len(r["losses"]) for r in runs)
+    fbank = sum(r["launches"]["fbank_spec_mel"] for r in runs)
+    per_epoch = -(-TRAIN_CORPUS["train"] // cfg["data"]["batch_size"])
+    epochs = sorted(int(n.split(".")[-1]) for n in os.listdir(expdir)
+                    if re.fullmatch(r"model\.epoch\.\d+", n))
+    ok = (crashed is not None and "fault injection" in (crashed["error"] or "")
+          and resumed["error"] is None and resumed["resumed_from"] == 0
+          and resumed["first_step"] == saved_step
+          and epochs == list(range(c["epochs"]))
+          and micro == per_epoch * (len(crashed["epochs"]) + len(resumed["epochs"]))
+          and fbank == (micro if cuda else 0)
+          and all(np.isfinite(r["losses"]).all() and r["nan_skips"] == 0 for r in runs))
+    log(f"phase14c: the fault fired once (child 1 ended with {crashed and crashed['error']!r} "
+        f"at step {crashed and crashed['next_step']}), child 2 resumed at step "
+        f"{resumed and resumed['first_step']} after the saved {saved_step}, epochs {epochs}; "
+        f"kernel-3 launches {fbank} over {micro} micro-batches of both children; losses finite, "
+        f"no NaN skip {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase14c: the supervised run failed its gates (see above)")
+
+    # -m EXP -d dev with a profiler trace, and the same checkpoint by --npz
+    prof = os.path.join(workdir, "profile_decode")
+    out = os.path.join(expdir, "decode_dev_bw5_pn0.6_ml16")
+    _, one, _, steps = cli_decode("phase14c -m EXP -d dev --profile",
+                                  ["-m", expdir, "-d", "dev", "-bw", "5", "-ml", "16", "-b", "16",
+                                   "--profile", prof], out, device)
+    with open(os.path.join(prof, "trace.json"), encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    ds = AudioDataset(cfg["data"], cfg["data"]["dev"], is_eval=True)
+    feats_dir = os.path.join(workdir, "dev_feats")
+    os.makedirs(feats_dir, exist_ok=True)
+    write_ark(os.path.join(feats_dir, "feats.ark"), {ds[i][0]: ds[i][1] for i in range(len(ds))},
+              os.path.join(feats_dir, "feats.scp"))
+    npz_out = os.path.join(workdir, "decode_dev_npz")
+    last = os.path.join(expdir, f"model.epoch.{c['epochs'] - 1}")
+    eval_cli.main(["--npz", os.path.join(last, "params.npz"),
+                   "--model_cfg", os.path.join(expdir, "config.json"),
+                   "--feats", os.path.join(feats_dir, "feats.scp"),
+                   "--text", cfg["data"]["dev"]["text"][0], "--vocab", cfg["data"]["vocab"],
+                   "-bw", "5", "-ml", "16", "-b", "16", "--decode_dir", npz_out,
+                   *([] if cuda else ["--device", device])])
+    preds = []
+    for d in (out, npz_out):
+        with open(os.path.join(d, "predict.txt"), encoding="utf-8") as f:
+            preds.append(dict(line.rstrip("\n").split(" ", 1) for line in f))
+    ok = (preds[0] == preds[1] and len(preds[0]) == TRAIN_CORPUS["dev"] and len(events) > 0
+          and one == (steps if cuda else 0) and (kernels > 0 or not cuda))
+    log(f"phase14c -m EXP -d dev: {len(preds[0])} utterances, predict.txt equal to the --npz "
+        f"decode of model.epoch.{c['epochs'] - 1}: {preds[0] == preds[1]}; torch.profiler trace "
+        f"{len(events)} events, {kernels} device kernel events; kernel-1 launches {one} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase14c: the -m EXP decode failed its gates (see above)")
+    timing_cfg = train_config(paths, epochs=1)
+    if c["cut_width"]:
+        timing_cfg["model"] = overfit_model_cfg(timing_cfg["model"])
+    update_timing("phase14c transformer_baseline", timing_cfg, device)
+    return fbank, one
+
+
+def phase_reference(workdir: str, data: str, corpus: dict, device: str = "cuda"):
+    """Phase 14 (module docstring): ``data`` holds phase 2's test split,
+    ``corpus`` phase 7's wavs. Returns ({path: kernel-1 launches}, {path:
+    kernel-2 launches}, {path: kernel-3 launches})."""
+    t_phase = time.time()
+    k1, k2 = phase14a_anchor_pt(workdir, data, device)
+    k1.update(phase14b_reference_models(workdir, data, device))
+    k3, one = phase14c_supervised_training(workdir, corpus, device)
+    k1["phase14c -m EXP -d dev (k=5)"] = one
+    log(f"phase14 wall {time.time() - t_phase:.1f} s")
+    return k1, k2, {"phase14c supervised MixSpeech training (both children)": k3}
+
+
 def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
     """The kernel's entry of the JSON line: ``launches`` on its first main
     path, ``launches_by_path`` on each path that launches it."""
@@ -3650,14 +4108,16 @@ def main() -> int:
         recipe_launches, _ = phase_anchor_recipe(workdir, data)
         family_launches, family_launches2, family_launches3 = phase_train_families(
             workdir, data, corpus)
+        ref_launches, ref_launches2, ref_launches3 = phase_reference(workdir, data, corpus)
 
     # launches: each kernel's count on its own main paths (phase 3 without an
     # LM, phase 8's CTC decodes, phase 9's conformer decodes, phase 10's
     # serving paths, phase 11's transducer paths, phase 12's dev CER
-    # probe and averaged-checkpoint decode and phase 13's decodes of the
-    # trained families, phases 5, 10d and 13e with an LM, phases 7, 9d and
-    # 13c's training runs); times at the flagship bf16 beam-step shape and at
-    # the 16 x 10 s training batch
+    # probe and averaged-checkpoint decode, phase 13's decodes of the
+    # trained families and phase 14's reference-checkpoint and -m decodes,
+    # phases 5, 10d, 13e and 14a with an LM, phases 7, 9d, 13c and 14c's
+    # training runs); times at the flagship bf16 beam-step shape and at the
+    # 16 x 10 s training batch
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:96", launches, max_err,
@@ -3667,18 +4127,18 @@ def main() -> int:
                        "phase8b anchor CTC prefix beam (k=32 + lse)": ctc_launches["beam"],
                        "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"],
                        **conformer_launches, **stream_launches, **transducer_launches,
-                       **recipe_launches, **family_launches}),
+                       **recipe_launches, **family_launches, **ref_launches}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
                       timings2["flagship bf16"],
                       {"phase5 flagship decode + LM": launches2,
                        "phase10d batcher, anchor + LM at -lmw 0.0": stream_launches2,
-                       **family_launches2}),
+                       **family_launches2, **ref_launches2}),
         kernel_record("fbank_spec_mel", "opentransformer_tpu_torch/csrc/fbank_spec_mel.cu",
                       "opentransformer_tpu/ops/fbank_pallas.py:60", launches3, max_err3, timing3,
                       {"phase7 training": launches3,
                        "phase9d conformer_baseline training": conformer_train_launches,
-                       **family_launches3}),
+                       **family_launches3, **ref_launches3}),
     ]}
     log(f"chip_smoke ran every phase in {time.time() - t0:.1f} s")
     print(json.dumps(record))

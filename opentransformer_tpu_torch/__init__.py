@@ -32,8 +32,14 @@ and training every model family the port decodes: the RNN-T loss
 (``ops/rnnt_loss.py``) and the transducer's blocked joint, BatchNorm conv
 modules in training (flax's batch statistics), ``ctc`` models and both
 language models in the training CLI (the text dataset and collate), and
-an LM checkpoint directory for the eval CLI's ``-lm``. MoE, the espnet
-dataset and parallelism are still to port (``ROADMAP.md``).
+an LM checkpoint directory for the eval CLI's ``-lm``; and the reference
+user's round trip: reference OpenTransformer ``.pt`` checkpoints in and
+out (``compat``; the reference transformer's ``concat_after`` and
+``front_end_layer_norm``, ``scan_layers`` checkpoints), the eval and serve
+CLIs' ``-m``/``-c``/``-d`` interface, resumed (``-ct``, ``-ios``) and
+supervised training with asynchronous saves, MixSpeech, the fused update,
+the bfloat16 first moment, the psf extractor, host ``gaussian_noise`` and
+the ESPnet dataset. MoE and parallelism are still to port (``ROADMAP.md``).
 
 The Pallas kernels of the JAX package become hand-written CUDA kernels
 under ``csrc/``, built with ``nvcc`` at first use (``ops/cuda_build.py``):

@@ -20,75 +20,85 @@ comes as:
 bfloat16`` (or ``-mp``) runs the forward under bfloat16 autocast over
 float32 weights; ``train.steps_per_exec`` (or ``--steps-per-exec``) is
 accepted and runs as that many single updates (``train/trainer.py``);
-``train.dev_cer_probe`` decodes a ``speech2text`` model's first
+``train.fused_update`` runs the update on flat buffers, ``-ms`` trains with
+MixSpeech; ``train.dev_cer_probe`` decodes a ``speech2text`` model's first
 ``dev_cer_batches`` dev batches greedily after every epoch and logs
-``epoch N dev greedy CER``; ``-im`` warm-starts the weights from a
-``params.npz`` (or a checkpoint directory; a ``ctc`` model takes a hybrid
-speech2text's, its decoder left out).
-Checkpoints go to ``<expdir>/model.epoch.N`` with the config beside them
-(``train/checkpoint.py``); the dev split, if the config has one, is scored
-by its mean loss after every epoch.
+``epoch N dev greedy CER``. Checkpoints go to ``<expdir>/model.epoch.N``
+with the config beside them (``train/checkpoint.py``; written by a thread
+with ``--async-save`` or ``train.async_save``); the dev split, if the
+config has one, is scored by its mean loss after every epoch.
+
+Starting points, as in the JAX CLI: ``-im`` warm-starts the weights from a
+``params.npz``, a checkpoint directory, an expdir (its newest epoch) or a
+reference ``.pt`` (a ``ctc`` model takes a hybrid speech2text's, its
+decoder left out); ``-ios DIR`` restores the optimizer state and the global
+step of a ``model.epoch.N``; ``-ct`` resumes from the newest checkpoint of
+the expdir (weights, optimizer, global step, next epoch) and then ignores
+``-im`` and ``-ios``; ``-tfe`` / ``-tfs`` set the epoch and step counters.
+``--supervise N`` runs the training as a child process and restarts it
+with ``-ct`` up to N times after a crash. ``--profile DIR`` writes a
+``torch.profiler`` trace of the run to ``DIR/trace.json``, ``--visual``
+TensorBoard scalars to ``<expdir>/tb``, and ``--record FILE`` appends one
+JSON line a process (its steps, losses and kernel launches; a supervised
+run's children each add theirs).
 
     python -m opentransformer_tpu_torch.cli.run \\
         -c opentransformer_tpu_torch/conf/anchor.json --expdir EXP
+    python -m opentransformer_tpu_torch.cli.run -c CONF.json --expdir EXP -im model.epoch.79.pt
+    python -m opentransformer_tpu_torch.cli.run -c CONF.json --expdir EXP --supervise 3
     python -m opentransformer_tpu_torch.cli.run \\
         -c opentransformer_tpu_torch/conf/rnn_lm.json --expdir LM_EXP
 
 The config is JSON with the JAX package's sections and keys. It runs on the
-CUDA card unless ``--device cpu`` is given. The JAX CLI's other options
-(resuming, optimizer-state warm starts, parallelism, multi-host,
-supervision, asynchronous saves, TensorBoard, profiling, MixSpeech, start
-epoch/step overrides, pipeline schedules) are not ported: each raises when
-given a value other than its default; ``-r``, ``-vb``, ``-ol``, ``-p`` and
-``-g`` are accepted and ignored, as there.
+CUDA card unless ``--device cpu`` is given. The JAX CLI's parallelism
+options (``-n`` above 1, ``--tp``, ``--pp``, ``--pp-schedule``,
+``--pp-micro-batches``, ``--ep``, ``--multihost``) are not ported: each
+raises when given a value other than its default; ``-r``, ``-vb``, ``-ol``,
+``-p`` and ``-g`` are accepted and ignored, as there.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import shutil
+import subprocess
+import sys
 import time
 
 import torch
 
-from ..compat import load_ctc_from_speech2text, load_into, load_npz
+from .. import compat
 from ..config import load_config
 from ..data import load_idx2unit_map
 from ..data.device_pipeline import make_device_frontend
 from ..data.loader import FeatureLoader
 from ..data.resident import ResidentCorpus
 from ..models.registry import build_model
+from ..ops.fbank_kernel import spec_mel
 from ..ops.levenshtein import ErrorRateAccumulator
-from ..ops.project_topk import project_logp_topk
+from ..ops.project_topk import project2_logp_topk, project_logp_topk
 from ..recognize.base import SpeechToTextRecognizer
 from ..train.checkpoint import Checkpointer
 from ..train.trainer import Trainer, feature_args
+from ..train.utils import Visualizer
 from ..utils import resolve_device
+from .eval import load_checkpoint, load_weights
 
 logger = logging.getLogger(__name__)
 
-STILL_LACKING = "What training and decoding still lack"
 PARALLELISM = "Parallelism"
 # (flags, default, the ROADMAP.md Queue 1 item) of the JAX CLI's options
 # that are not ported; each raises when given another value
 _NOT_PORTED = [
-    (("-ct", "--continue_training"), False, STILL_LACKING),
-    (("-ios", "--init_optim_state"), None, STILL_LACKING),
     (("--tp",), 1, PARALLELISM),
     (("--pp",), 1, PARALLELISM),
     (("--pp-schedule",), None, PARALLELISM),
     (("--pp-micro-batches",), None, PARALLELISM),
     (("--ep",), 1, PARALLELISM),
     (("--multihost",), False, PARALLELISM),
-    (("--supervise",), 0, STILL_LACKING),
-    (("--async-save",), False, STILL_LACKING),
-    (("--visual",), False, STILL_LACKING),
-    (("--profile",), None, STILL_LACKING),
-    (("-ms", "--mixspeech"), False, STILL_LACKING),
-    (("-tfe", "--from_epoch"), 0, STILL_LACKING),
-    (("-tfs", "--from_step"), 0, STILL_LACKING),
 ]
 
 
@@ -111,8 +121,29 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="train.steps_per_exec: runs as that many single updates")
     p.add_argument("--device", default=None, help="default: the CUDA card")
     p.add_argument("-im", "--init_model", type=str, default=None,
-                   help="warm-start the weights from a params.npz, or a checkpoint "
-                        "directory holding one (model.epoch.N)")
+                   help="warm-start the weights from a params.npz, a checkpoint directory "
+                        "(model.epoch.N), an expdir (its newest epoch) or a reference .pt")
+    p.add_argument("-ios", "--init_optim_state", type=str, default=None,
+                   help="restore the optimizer state and global step of a model.epoch.N")
+    p.add_argument("-ct", "--continue_training", action="store_true",
+                   help="resume from the expdir's newest checkpoint")
+    p.add_argument("-tfe", "--from_epoch", type=int, default=0,
+                   help="start the epoch counter here")
+    p.add_argument("-tfs", "--from_step", type=int, default=0,
+                   help="start the scheduler's global step here")
+    p.add_argument("-ms", "--mixspeech", action="store_true",
+                   help="MixSpeech: mix rows in pairs at Beta(0.5, 0.5)")
+    p.add_argument("--supervise", type=int, default=0, metavar="N",
+                   help="run the training as a child process and restart it with -ct up to N "
+                        "times after a crash")
+    p.add_argument("--async-save", action="store_true",
+                   help="write checkpoints from a thread (also train.async_save)")
+    p.add_argument("--visual", action="store_true",
+                   help="write TensorBoard scalars to <expdir>/tb")
+    p.add_argument("--profile", type=str, default=None,
+                   help="write a torch.profiler trace of the run to DIR/trace.json")
+    p.add_argument("--record", type=str, default=None,
+                   help="append one JSON line about this process's run to this file")
     p.add_argument("-l", "--logging_level", type=str, default="INFO")
     p.add_argument("-lg", "--log_file", type=str, default=None)
     p.add_argument("-n", "--ngpu", type=int, default=0,
@@ -191,6 +222,95 @@ class DevCerProbe:
         return cer.rate
 
 
+def supervise(args, argv) -> int:
+    """Run the training in a child process; after a non-zero exit, run it
+    again with ``-ct`` (from the newest checkpoint, or from the start if
+    none was written), up to ``--supervise`` times. Returns the last
+    child's exit code."""
+    src = list(sys.argv[1:] if argv is None else argv)
+    child, skip = [], False
+    for a in src:
+        if skip:
+            skip = False
+        elif a == "--supervise":
+            skip = True
+        elif not a.startswith("--supervise="):
+            child.append(a)
+    has_ct = bool({"-ct", "--continue_training"} & set(child))
+    attempt = 0
+    while True:
+        cmd = [sys.executable, "-m", "opentransformer_tpu_torch.cli.run", *child]
+        if attempt > 0 and not has_ct:
+            cmd.append("-ct")
+        t0 = time.time()
+        rc = subprocess.call(cmd)
+        if rc == 0:
+            if attempt:
+                logger.info("supervised training completed after %d restart(s)", attempt)
+            return 0
+        attempt += 1
+        if attempt > args.supervise:
+            logger.error("training failed (rc=%s); restart budget %d spent", rc, args.supervise)
+            return rc
+        logger.warning("training crashed (rc=%s) after %.0f s; restart %d/%d resumes from the "
+                       "newest checkpoint", rc, time.time() - t0, attempt, args.supervise)
+
+
+def resume(args, trainer: Trainer, ck: Checkpointer, model, device) -> int | None:
+    """``-ct`` (the newest checkpoint's weights, optimizer, step and next
+    epoch), else ``-im`` and ``-ios``; then ``-tfe`` / ``-tfs``. Returns
+    the epoch resumed from, if any."""
+    latest = ck.restore_latest() if args.continue_training else None
+    resumed = None
+    if args.continue_training and (args.init_model or args.init_optim_state):
+        logger.warning("-ct takes precedence: -im and -ios are ignored when resuming")
+    if latest is not None:
+        epoch, path = latest
+        compat.load_into(model, ck.load_params(path))
+        trainer.optimizer.load_state_dict(ck.load_optimizer(path, device))
+        trainer.global_epoch = epoch + 1
+        trainer.global_step = int(ck.load_extra(path).get("global_step", 1))
+        logger.info("resumed from epoch %d (global step %d)", epoch, trainer.global_step)
+        resumed = epoch
+    elif not args.continue_training:
+        if args.init_model:
+            state, _ = load_checkpoint(args.init_model, None)
+            load_weights(model, state)
+            logger.info("initialized model weights from %s", args.init_model)
+        if args.init_optim_state:
+            path = args.init_optim_state.rstrip("/")
+            src = Checkpointer(os.path.dirname(os.path.abspath(path)))
+            trainer.optimizer.load_state_dict(src.load_optimizer(path, device))
+            trainer.global_step = int(src.load_extra(path).get("global_step",
+                                                              trainer.global_step))
+            logger.info("restored the optimizer state from %s", path)
+    if args.from_epoch:
+        trainer.global_epoch = args.from_epoch
+    if args.from_step:
+        trainer.global_step = args.from_step
+    return resumed
+
+
+def write_record(path: str, trainer: Trainer, resumed: int | None, first_step: int,
+                 error) -> None:
+    """One JSON line about this process's run: the epoch it resumed from
+    (or null), its first and next global step, its epochs, micro-batch
+    losses, NaN skips and the kernels' launch counts, and the error it
+    ended with, if any."""
+    history = trainer.history
+    rec = {"pid": os.getpid(), "resumed_from": resumed,
+           "first_step": first_step, "next_step": trainer.global_step,
+           "epochs": sorted({r["epoch"] for r in history}),
+           "losses": [x for r in history for x in r["losses"]],
+           "nan_skips": trainer.nan_skips,
+           "launches": {"fbank_spec_mel": spec_mel.launches,
+                        "project_logp_topk": project_logp_topk.launches,
+                        "project2_logp_topk": project2_logp_topk.launches},
+           "error": None if error is None else f"{type(error).__name__}: {error}"}
+    with open(path, "a", encoding="utf-8") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
 def run(argv=None) -> Trainer:
     """Parse ``argv``, train, and return the trainer (its ``history``,
     ``dev_losses`` and ``nan_skips`` describe the run;
@@ -218,16 +338,6 @@ def run(argv=None) -> Trainer:
     torch.manual_seed(args.seed)  # the model's initial weights
     # float32 master weights; train.dtype sets the forward's autocast
     model = build_model(model_cfg, dtype=torch.float32, device=device)
-    if args.init_model:
-        path = args.init_model
-        if os.path.isdir(path):
-            path = os.path.join(path, "params.npz")
-        tree = load_npz(path)
-        if model_cfg["type"] == "ctc" and "decoder" in tree.get("params", tree):
-            load_ctc_from_speech2text(model, tree)  # a hybrid speech2text's weights
-        else:
-            load_into(model, tree)
-        logger.info("initialized model weights from %s", path)
     logger.info("model: %d parameters on %s", sum(p.numel() for p in model.parameters()), device)
     loader = FeatureLoader(cfg, "train", seed=args.seed)
     logger.info("train loader: %d batches", len(loader))
@@ -249,16 +359,47 @@ def run(argv=None) -> Trainer:
         probe = DevCerProbe(cfg, model, dev_loader, device,
                             max_batches=int(train_cfg.get("dev_cer_batches", 4)))
         logger.info("per-epoch dev greedy-CER probe enabled")
+    ck = Checkpointer(expdir, config=cfg,
+                      async_save=args.async_save or bool(train_cfg.get("async_save", False)))
     trainer = Trainer(
         train_cfg, model, frontend, torch.Generator(device=device).manual_seed(args.seed),
-        checkpointer=Checkpointer(expdir, config=cfg), log_interval=args.log_interval,
+        checkpointer=ck, log_interval=args.log_interval,
         keep_last_n=args.keep_last_n_checkpoints, dev_loader=dev_loader, is_debug=args.debug,
-        resident=resident, dev_probe_fn=probe)
-    trainer.train(loader)
+        resident=resident, dev_probe_fn=probe, mixspeech=args.mixspeech,
+        visualizer=Visualizer(os.path.join(expdir, "tb")) if args.visual else None)
+    resumed = resume(args, trainer, ck, model, device)
+    first_step, error = trainer.global_step, None
+    profiler = None
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+    try:
+        trainer.train(loader)
+    except BaseException as e:
+        error = e
+        raise
+    finally:
+        ck.wait()  # never leave a checkpoint half written
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            os.makedirs(args.profile, exist_ok=True)
+            profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        if trainer.visualizer is not None:
+            trainer.visualizer.close()
+        if args.record:
+            write_record(args.record, trainer, resumed, first_step, error)
     return trainer
 
 
 def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    if args.supervise:
+        logging.basicConfig(level=logging.INFO,
+                            format="%(asctime)s - %(levelname)s - %(message)s", force=True)
+        return supervise(args, argv)
     run(argv)
     return 0
 

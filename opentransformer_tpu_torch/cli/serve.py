@@ -1,13 +1,16 @@
 """Serving CLI (counterpart of ``opentransformer_tpu/cli/serve.py``).
 
-Serves npz weights (``--npz``, with ``--model_cfg`` as the eval CLI takes
-it) on the card:
+Serves a checkpoint on the card: ``-m`` (an expdir, a checkpoint
+directory or a reference ``.pt``, with ``-c`` as the eval CLI takes them;
+the run config's data section sets the features and the vocabulary), or
+npz weights (``--npz``, with ``--model_cfg`` as the eval CLI takes it):
 
   * requests are ``utt_id wav_path`` lines from a file or stdin (``-i``)
     or from line-based TCP connections (``--port``); the wav becomes
-    log-fbank features on the host with the model's data section (mel
-    bins, global or per-utterance CMVN), read from a training run's
-    ``config.json`` when ``--model_cfg`` is one;
+    log-fbank features on the host with the model's data section (the
+    extractor, kaldi-compatible or ``psf``, mel bins, global or
+    per-utterance CMVN), read from the run config of ``-m`` or from a
+    training run's ``config.json`` when ``--model_cfg`` is one;
   * the dynamic batcher groups pending requests into batches of
     ``--max-batch`` rows within ``--batch-timeout-ms``, each padded to the
     next of ``--bucket-frames`` (rows without a request carry one valid
@@ -23,6 +26,7 @@ it) on the card:
     ``PCM <utt_id> <sample_rate>\\n``, then frames of a u32-LE byte count
     and that many int16-LE mono samples; a count of 0 ends the stream.
 
+    python -m opentransformer_tpu_torch.cli.serve -m EXP -i wav.scp
     python -m opentransformer_tpu_torch.cli.serve --npz W.npz --model_cfg CFG.json \\
         --vocab VOCAB -i wav.scp
     python -m opentransformer_tpu_torch.cli.serve ... --streaming --streams 4 --port 8765
@@ -48,26 +52,30 @@ import time
 import numpy as np
 import torch
 
-from ..compat import load_ctc_from_speech2text, load_into, load_npz
+from .. import compat
 from ..data import load_idx2unit_map
-from ..data.datasets import _read_wav
+from ..data.datasets import PSF_EXTRACTORS, _read_wav
 from ..models.registry import build_model
-from ..ops.fbank import fbank_numpy, frame_params, normalize_per_utterance
+from ..ops.fbank import fbank_numpy, frame_params, logfbank_psf, normalize_per_utterance
 from ..recognize.base import build_recognizer
 from ..utils import resolve_device
-from .eval import DTYPES, load_model_cfg, postprocess
+from .eval import DTYPES, load_lm, load_model_and_lm, load_model_cfg, load_weights, postprocess
 
 logger = logging.getLogger(__name__)
 
-PSF_FLAVORS = ("psf", "python_speech_feature")
 
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Serve a model with dynamic batching or streaming")
-    p.add_argument("--npz", required=True, help="flattened npz of the JAX-layout params")
-    p.add_argument("--model_cfg", required=True,
-                   help="JSON model config, an export manifest with a model_cfg key, or a "
-                        "training run's config.json (whose data section sets the features)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("-m", "--load_model",
+                     help="expdir, checkpoint directory or reference .pt (as the eval CLI)")
+    src.add_argument("--npz", help="flattened npz of the JAX-layout params (needs --model_cfg)")
+    p.add_argument("-c", "--config", default=None,
+                   help="JSON run config for -m (default: the one that comes with it)")
+    p.add_argument("--model_cfg", default=None,
+                   help="--npz: JSON model config, an export manifest with a model_cfg key, or "
+                        "a training run's config.json (whose data section sets the features)")
     p.add_argument("--vocab", default=None,
                    help="'unit idx' vocab file (default: data.vocab of a training config)")
     p.add_argument("-i", "--input", default=None,
@@ -98,7 +106,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-ld", "--lamda", type=float, default=5.0)
     p.add_argument("-ml", "--max_len", type=int, default=100)
     p.add_argument("-lm", "--load_language_model", default=None,
-                   help="npz of an LM's JAX params (needs --lm_cfg)")
+                   help="LM: an npz with --lm_cfg, a checkpoint directory or a reference .pt "
+                        "(as the eval CLI)")
     p.add_argument("--lm_cfg", default=None, help="JSON config of the LM")
     p.add_argument("-lmw", "--lm_weight", type=float, default=0.1)
     p.add_argument("-p2w", "--piece2word", action="store_true")
@@ -117,17 +126,13 @@ def load_data_cfg(path: str) -> dict:
 
 class FeatureExtractor:
     """wav path → normalized log-fbank f32[T, F], as the eval path of the
-    online dataset: kaldi-compatible fbank on the host, then global or
+    online dataset: kaldi-compatible fbank (or the python_speech_features
+    one, ``feature_extractor: psf``) on the host, then global or
     per-utterance CMVN."""
 
     def __init__(self, data_cfg: dict):
         self.num_mel_bins = int(data_cfg.get("num_mel_bins", 40))
         self.flavor = data_cfg.get("feature_extractor", "torchaudio")
-        if self.flavor in PSF_FLAVORS:
-            raise NotImplementedError(
-                "feature_extractor 'psf' (logfbank_psf) is not ported to "
-                "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: What training and "
-                "decoding still lack)")
         self.normalization = bool(data_cfg.get("normalization", False))
         self.global_mean = self.global_std = None
         if self.normalization and "global_cmvn" in data_cfg:
@@ -136,7 +141,8 @@ class FeatureExtractor:
             self.global_std = np.load(base + ".std.npy")
 
     def from_samples(self, wav: np.ndarray, sample_rate: float) -> np.ndarray:
-        feat = fbank_numpy(wav, sample_freq=sample_rate, num_mel_bins=self.num_mel_bins)
+        extract = logfbank_psf if self.flavor in PSF_EXTRACTORS else fbank_numpy
+        feat = extract(wav, sample_freq=sample_rate, num_mel_bins=self.num_mel_bins)
         if self.normalization:
             if self.global_mean is not None:
                 feat = (feat - self.global_mean) / self.global_std
@@ -155,7 +161,9 @@ class StreamingFbank:
     as soon as its window fills and the streamed features equal the whole
     utterance's. CMVN online: global statistics apply as they are; a
     per-utterance config uses causal running CMVN, frame t normalized by
-    the scalar mean and std of every value of frames ≤ t."""
+    the scalar mean and std of every value of frames ≤ t. The ``psf``
+    extractor frames differently and extracts once, at ``finish``, with
+    exact per-utterance CMVN, as the JAX server does."""
 
     def __init__(self, extractor: FeatureExtractor, sample_rate: float):
         self.ex = extractor
@@ -177,21 +185,31 @@ class StreamingFbank:
         self._cmvn_sum, self._cmvn_sumsq, self._cmvn_n = float(csum[-1]), float(csumsq[-1]), int(n[-1])
         return ((feat - mean[:, None]) / std[:, None]).astype(np.float32)
 
-    def _extract(self) -> np.ndarray:
+    def _extract(self, final: bool = False) -> np.ndarray:
         n = len(self.buf)
         avail = 0 if n < self.ws else 1 + (n - self.ws) // self.shift
         if avail <= 0:
             return np.zeros((0, self.ex.num_mel_bins), np.float32)
-        # exactly the samples the new frames cover: snip-edges on the slice
-        # gives frames [frames_done, frames_done + avail)
-        need = (avail - 1) * self.shift + self.ws
-        feat = fbank_numpy(self.buf[:need], sample_freq=self.sr,
-                           num_mel_bins=self.ex.num_mel_bins)
-        self.buf = self.buf[avail * self.shift:]
-        self.frames_done += avail
+        psf = self.ex.flavor in PSF_EXTRACTORS
+        if psf:
+            # python_speech_features frames are not snip-edges: the whole
+            # utterance is extracted once, at the end
+            if not final:
+                return np.zeros((0, self.ex.num_mel_bins), np.float32)
+            feat = logfbank_psf(self.buf, sample_freq=self.sr, num_mel_bins=self.ex.num_mel_bins)
+        else:
+            # exactly the samples the new frames cover: snip-edges on the
+            # slice gives frames [frames_done, frames_done + avail)
+            need = (avail - 1) * self.shift + self.ws
+            feat = fbank_numpy(self.buf[:need], sample_freq=self.sr,
+                               num_mel_bins=self.ex.num_mel_bins)
+            self.buf = self.buf[avail * self.shift:]
+            self.frames_done += avail
         if self.ex.normalization:
             if self.ex.global_mean is not None:
                 feat = (feat - self.ex.global_mean) / self.ex.global_std
+            elif psf:
+                feat = normalize_per_utterance(feat)  # the whole utterance at the end
             else:
                 feat = self._causal_cmvn(feat)
         return feat.astype(np.float32)
@@ -203,7 +221,7 @@ class StreamingFbank:
         return self._extract()
 
     def finish(self) -> np.ndarray:
-        return self._extract()
+        return self._extract(final=True)
 
 
 class _Request:
@@ -465,25 +483,26 @@ def load_served_model(args):
     CLI's loading flags."""
     dev = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
-    model_cfg = load_model_cfg(args.model_cfg)
-    data_cfg = load_data_cfg(args.model_cfg)
-    model_type = model_cfg["type"]
-    model = build_model(model_cfg, dtype=dtype, device=dev)
-    tree = load_npz(args.npz)
-    if model_type == "ctc" and "decoder" in tree.get("params", tree):
-        load_ctc_from_speech2text(model, tree)
+    if args.load_model:
+        model, cfg, lm = load_model_and_lm(args.load_model, args.config,
+                                           args.load_language_model, args.lm_cfg, dtype, dev)
+        model_cfg, data_cfg = cfg["model"], dict(cfg.get("data", {}))
     else:
-        load_into(model, tree)
-    lm = None
-    if args.load_language_model:
-        if not args.lm_cfg:
-            raise SystemExit("error: -lm needs --lm_cfg (the LM's JSON config)")
-        lm = load_into(build_model(load_model_cfg(args.lm_cfg), dtype=dtype, device=dev),
-                       load_npz(args.load_language_model))
+        if not args.model_cfg:
+            raise SystemExit("error: --npz needs --model_cfg")
+        model_cfg = load_model_cfg(args.model_cfg)
+        data_cfg = load_data_cfg(args.model_cfg)
+        model = load_weights(build_model(model_cfg, dtype=dtype, device=dev),
+                             compat.params_from_jax(compat.load_npz(args.npz)))
+        lm = None
+        if args.load_language_model:
+            if not args.lm_cfg:
+                raise SystemExit("error: -lm needs --lm_cfg (the LM's JSON config)")
+            lm = load_lm(args.load_language_model, args.lm_cfg, dtype, dev)
     vocab = args.vocab or data_cfg.get("vocab")
     if vocab is None:
         raise SystemExit("error: pass --vocab (the model config has no data.vocab)")
-    return model_type, model, lm, data_cfg, vocab
+    return model_cfg["type"], model, lm, data_cfg, vocab
 
 
 def _build(args):

@@ -1,21 +1,25 @@
-"""The online audio, the kaldi feature and the text datasets (counterpart of
-the ``AudioDataset``, ``KaldiDataset`` and ``TextDataset`` parts of
-``opentransformer_tpu/data/datasets.py``).
+"""The online audio, kaldi feature, ESPnet and text datasets (counterpart
+of ``opentransformer_tpu/data/datasets.py``).
 
 ``AudioDataset`` reads a ``wav.scp`` and a transcript file. A training
 split with ``extract_on_device`` yields raw waveforms for the device
 feature stage (``data/device_pipeline.py``); otherwise it yields host
-log-fbank (``ops/fbank.py:fbank_numpy``) with per-utterance or global CMVN,
-and a training split adds host SpecAugment. Speed and volume perturbation
-of the training waveforms are ported; ``gaussian_noise`` and the
-python_speech_features extractor are not, and raise.
+log-fbank (``ops/fbank.py``: the kaldi-compatible ``fbank_numpy``, or
+``logfbank_psf`` with ``feature_extractor: psf``) with per-utterance or
+global CMVN, then, on a training split, ``gaussian_noise``: one offset a
+mel bin, N(0, gaussian_noise²), added to every frame (as the JAX package
+draws it), and host SpecAugment. Training waveforms may be speed- and
+volume-perturbed first.
 
 ``KaldiDataset`` reads precomputed features through a ``feats.scp``, with
 speaker CMVN (``utt2spk`` + ``cmvn``) or per-utterance normalization, a
 ``max_target_length`` filter, train-only ``additive_noise_std`` (fresh
 Gaussian noise on every read) and host SpecAugment.
 
-Both yield ``(utt_id, array, length, target ids, target count)`` and draw
+``ESPNetDataset`` reads ESPnet ``data.json`` files (``utts``: each one's
+feature ark, frame count and token ids) with train-only SpecAugment.
+
+These yield ``(utt_id, array, length, target ids, target count)`` and draw
 every random number from child generators of the numpy generator they are
 given, one locked draw a child, in the JAX package's order, so the same
 seed gives the same arrays.
@@ -27,18 +31,19 @@ LM training and yields ``(utt_id, src ids, tgt ids)``, both reversed with
 
 from __future__ import annotations
 
+import json
 import threading
 import wave
 from typing import Any, Optional
 
 import numpy as np
 
-from ..ops.fbank import fbank_numpy, normalize_per_utterance, num_frames
+from ..ops.fbank import fbank_numpy, logfbank_psf, normalize_per_utterance, num_frames
 from . import UNK_TOKEN, load_vocab
 from .augment import spec_augment_numpy
 from .kaldi_io import cmvn_from_stats, load_mat, read_scp
 
-WHAT_TRAINING_LACKS = "see ROADMAP.md, Queue 1: What training and decoding still lack"
+PSF_EXTRACTORS = ("psf", "python_speech_feature")
 
 
 class _RngSpawner:
@@ -95,16 +100,10 @@ class AudioDataset:
                  rng: Optional[np.random.Generator] = None):
         self._rngs = _RngSpawner(rng)
         self.num_mel_bins = int(params.get("num_mel_bins", 40))
-        extractor = params.get("feature_extractor", "torchaudio")
-        if extractor not in ("torchaudio", "ta"):
-            raise NotImplementedError(
-                f"feature_extractor {extractor!r} is not ported to opentransformer_tpu_torch "
-                f"yet ({WHAT_TRAINING_LACKS}); the kaldi-compatible one is")
+        # 'torchaudio' / 'ta': kaldi-compatible; 'psf': python_speech_features
+        self.feature_extractor = params.get("feature_extractor", "torchaudio")
         self.return_waveform = bool(params.get("extract_on_device", False)) and not is_eval
-        if not is_eval and float(params.get("gaussian_noise", 0.0)) > 0.0:
-            raise NotImplementedError(
-                "data.gaussian_noise is not ported to opentransformer_tpu_torch yet "
-                f"({WHAT_TRAINING_LACKS})")
+        self.gaussian_noise = float(params.get("gaussian_noise", 0.0)) if not is_eval else 0.0
         # the online dataset ignores spec_augment_config and uses the
         # function's defaults, as the JAX package's does
         self.apply_spec_augment = bool(params.get("spec_augment", False)) and not is_eval
@@ -148,12 +147,16 @@ class AudioDataset:
         targets = self.targets_dict[utt_id]
         if self.return_waveform:
             return utt_id, wav.astype(np.float32), len(wav), targets, len(targets)
-        feature = fbank_numpy(wav, sample_freq=sr, num_mel_bins=self.num_mel_bins)
+        extract = logfbank_psf if self.feature_extractor in PSF_EXTRACTORS else fbank_numpy
+        feature = extract(wav, sample_freq=sr, num_mel_bins=self.num_mel_bins)
         if self.normalization:
             if self.global_mean is not None:
                 feature = (feature - self.global_mean) / self.global_std
             else:
                 feature = normalize_per_utterance(feature)
+        if self.gaussian_noise > 0.0:
+            feature = feature + rng.normal(0.0, self.gaussian_noise,
+                                           (feature.shape[-1],)).astype(np.float32)
         if self.apply_spec_augment:
             feature = spec_augment_numpy(feature, rng=rng)
         return utt_id, feature.astype(np.float32), feature.shape[0], targets, len(targets)
@@ -264,6 +267,47 @@ class KaldiDataset:
                     lmap[u] = int(n)
         return [(i, lmap[u] if u in lmap else load_mat(rx).shape[0])
                 for i, (u, rx) in enumerate(self.file_list)]
+
+
+class ESPNetDataset:
+    """ESPnet ``data.json`` files (``dataset_type: espnet``; the split's
+    ``json`` list, or ``feat``)."""
+
+    additive_noise_std = 0.0  # read by the loader's resident-corpus build
+
+    def __init__(self, params: Any, datadict: Any, is_eval: bool = False,
+                 rng: Optional[np.random.Generator] = None):
+        self._rngs = _RngSpawner(rng)
+        self.apply_spec_augment = bool(params.get("spec_augment", False)) and not is_eval
+        self.spec_augment_config = dict(params.get("spec_augment_config", {}) or {})
+        self.utts: list[tuple[str, str, list[int], int]] = []
+        for path in datadict["json"] if "json" in datadict else datadict["feat"]:
+            with open(path, "r", encoding="utf-8") as f:
+                data = json.load(f)
+            for utt_id, info in data["utts"].items():
+                inp = info["input"][0]
+                self.utts.append((utt_id, inp["feat"],
+                                  [int(t) for t in info["output"][0]["tokenid"].split()],
+                                  int(inp["shape"][0])))
+
+    def __len__(self) -> int:
+        return len(self.utts)
+
+    def __getitem__(self, index: int):
+        utt_id, rx, targets, _ = self.utts[index]
+        feature = load_mat(rx)
+        if self.apply_spec_augment:
+            feature = spec_augment_numpy(feature, rng=self._rngs.spawn(),
+                                         **self.spec_augment_config)
+        return utt_id, feature.astype(np.float32), feature.shape[0], targets, len(targets)
+
+    def target_row(self, index: int):
+        """(utt_id, target ids) without reading the features."""
+        utt_id, _, targets, _ = self.utts[index]
+        return utt_id, targets
+
+    def index_length_pair(self) -> list[tuple[int, int]]:
+        return [(i, n) for i, (_, _, _, n) in enumerate(self.utts)]
 
 
 class TextDataset:

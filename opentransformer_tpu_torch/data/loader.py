@@ -2,29 +2,31 @@
 (counterpart of ``opentransformer_tpu/data/loader.py``).
 
 ``FeatureLoader`` builds the dataset of one split (``dataset_type``
-``online``, ``kaldi`` or ``text``), a sampler whose batch order
+``online``, ``kaldi``, ``espnet`` or ``text``), a sampler whose batch order
 ``set_epoch`` draws again (the bucketing sampler of ``bucket.py`` when the
 config has a ``bucket`` section and the data is speech, else length-sorted
 fixed-size batches), and yields collated batches from a background thread:
 
   * a training split of the online dataset with ``extract_on_device``:
     padded waveforms (``device_pipeline.collate_waveforms``);
-  * a training split of the kaldi dataset with ``device_resident``: the
+  * a training split of the kaldi or espnet dataset with ``device_resident``: the
     ``[B]`` row indices ``corpus_idx`` into the corpus that
-    ``build_resident_corpus`` reads for ``data/resident.py``;
+    ``build_resident_corpus`` reads for ``data/resident.py`` (another
+    dataset streams from the host, with a warning, as in the JAX package);
   * a text split: src = BOS ⧺ tokens and tgt = tokens ⧺ EOS
     (``collate_text``, the LMs' training pairs);
   * otherwise padded host features (``collate_speech``), padded to the
     batch's bucket boundary.
 
 Speech targets are BOS ⧺ y ⧺ EOS ⧺ PAD… with ``targets_length = len(y) +
-1``. The espnet dataset and multi-host sharding are not ported, and raise.
-As in the JAX package, an evaluation split buckets too, so ``drop_last``
-drops its short batches.
+1``. As in the JAX package, an evaluation split buckets too, so
+``drop_last`` drops its short batches. Multi-host sharding is not ported
+(ROADMAP.md, Queue 1: Parallelism).
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -34,15 +36,13 @@ import numpy as np
 
 from . import BOS, EOS, PAD
 from .bucket import DEFAULT_BOUNDARIES, BySequenceLengthSampler
-from .datasets import WHAT_TRAINING_LACKS, AudioDataset, KaldiDataset, TextDataset
+from .datasets import AudioDataset, ESPNetDataset, KaldiDataset, TextDataset
 from .device_pipeline import collate_waveforms
 
-DATASETS = {"online": AudioDataset, "kaldi": KaldiDataset, "text": TextDataset}
+logger = logging.getLogger(__name__)
 
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to opentransformer_tpu_torch yet ({WHAT_TRAINING_LACKS})")
+DATASETS = {"online": AudioDataset, "kaldi": KaldiDataset, "espnet": ESPNetDataset,
+            "text": TextDataset}
 
 
 def quantize(n: int, multiple: int) -> int:
@@ -196,11 +196,12 @@ class FeatureLoader:
         self.data_cfg = data_cfg
         dataset_type = data_cfg.get("dataset_type", "kaldi")
         if dataset_type not in DATASETS:
-            raise _not_ported(f"dataset_type {dataset_type!r}")
-        self.device_resident = bool(data_cfg.get("device_resident", False)) and not is_eval
-        if self.device_resident and dataset_type != "kaldi":
-            # the JAX package warns and streams from the host instead
-            raise _not_ported(f"data.device_resident with dataset_type {dataset_type!r}")
+            raise ValueError(f"unknown dataset_type {dataset_type!r} (known: {sorted(DATASETS)})")
+        want_resident = bool(data_cfg.get("device_resident", False)) and not is_eval
+        self.device_resident = want_resident and dataset_type in ("kaldi", "espnet")
+        if want_resident and not self.device_resident:
+            logger.warning("device_resident needs precomputed features (dataset_type kaldi or "
+                           "espnet, got %r): the split streams from the host", dataset_type)
         self.target_pad_multiple = int(data_cfg.get("target_pad_multiple", 8))
         self.num_workers = int(data_cfg.get("num_workers", 0))
         self.dataset = DATASETS[dataset_type](data_cfg, data_cfg[name], is_eval=is_eval,

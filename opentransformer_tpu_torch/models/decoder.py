@@ -12,6 +12,10 @@ acts after the embedding (``pos_dropout``), on the attention outputs
 (``residual_dropout``); in eval mode, and so in every decode step, none.
 ``decode_step_topk`` hands the last hidden state to the fused projection→log-softmax→top-k
 (``ops/project_topk.py``), so the [N, V] log-probs are never written.
+``concat_after`` replaces each attention sublayer's residual add by
+``h + concat_linear{1,2}([h ∥ attn(h)])``, without residual dropout, as in
+the reference; ``scan_layers`` changes the checkpoint layout only (see
+``encoder.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ class TransformerDecoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, normalize_before: bool = False,
                  activation: str = "glu", slf_attn_dropout: float = 0.0,
                  src_attn_dropout: float = 0.0, ffn_dropout: float = 0.0,
-                 residual_dropout: float = 0.1):
+                 residual_dropout: float = 0.1, concat_after: bool = False):
         super().__init__()
         self.d_model = d_model
         self.n_heads = n_heads
@@ -48,17 +52,30 @@ class TransformerDecoderLayer(nn.Module):
         self.slf_attn = MultiHeadSelfAttention(n_heads, d_model, slf_attn_dropout)
         self.src_attn = MultiHeadCrossAttention(n_heads, d_model, src_attn_dropout)
         self.ffn = PositionwiseFeedForward(d_model, d_ff, activation, ffn_dropout)
+        if concat_after:
+            self.concat_linear1 = nn.Linear(2 * d_model, d_model)
+            self.concat_linear2 = nn.Linear(2 * d_model, d_model)
+        self.concat_after = concat_after
         self.res_dropout = Dropout(residual_dropout)
 
-    def _sublayer(self, norm, x, fn):
-        # the residual is the sublayer's input: x (post-norm) or norm(x)
+    def _sublayer(self, norm, x, fn, concat=None):
+        # the residual is the sublayer's input: x (post-norm) or norm(x);
+        # with ``concat`` (concat_after) the branch is concat([h, fn(h)])
+        # through that linear, with no residual dropout
         h = norm(x) if self.normalize_before else x
-        x = h + self.res_dropout(fn(h))
+        if concat is not None:
+            x = h + concat(torch.cat([h, fn(h)], dim=-1))
+        else:
+            x = h + self.res_dropout(fn(h))
         return x if self.normalize_before else norm(x)
 
+    def _concat(self, i: int):
+        return getattr(self, f"concat_linear{i}") if self.concat_after else None
+
     def forward(self, x, memory, self_mask, memory_mask):
-        x = self._sublayer(self.norm1, x, lambda h: self.slf_attn(h, self_mask))
-        x = self._sublayer(self.norm2, x, lambda h: self.src_attn(h, memory, memory_mask))
+        x = self._sublayer(self.norm1, x, lambda h: self.slf_attn(h, self_mask), self._concat(1))
+        x = self._sublayer(self.norm2, x, lambda h: self.src_attn(h, memory, memory_mask),
+                           self._concat(2))
         return self._sublayer(self.norm3, x, self.ffn)
 
     def init_layer_cache(self, memory, batch: int, max_len: int, beam_width: int = 1):
@@ -72,9 +89,9 @@ class TransformerDecoderLayer(nn.Module):
         """x_t: [B·K, 1, D]; cross cache per utterance [B, H, T, Dh].
         Writes position ``index`` of the self cache in place."""
         x = self._sublayer(self.norm1, x_t, lambda h: self.slf_attn.decode_step(
-            h, self_cache["k"], self_cache["v"], index, src))
+            h, self_cache["k"], self_cache["v"], index, src), self._concat(1))
         x = self._sublayer(self.norm2, x, lambda h: self.src_attn.attend_beamed(
-            h, cross_cache["ck"], cross_cache["cv"], memory_pad_mask))
+            h, cross_cache["ck"], cross_cache["cv"], memory_pad_mask), self._concat(2))
         return self._sublayer(self.norm3, x, self.ffn)
 
 
@@ -84,19 +101,21 @@ class TransformerDecoder(nn.Module):
                  normalize_before: bool = False, share_embedding: bool = True,
                  pos_dropout: float = 0.0, slf_attn_dropout: float = 0.0,
                  src_attn_dropout: float = 0.0, ffn_dropout: float = 0.0,
-                 residual_dropout: float = 0.1):
+                 residual_dropout: float = 0.1, concat_after: bool = False,
+                 scan_layers: bool = False):
         super().__init__()
         if memory_dim is not None and memory_dim != d_model:
             raise ValueError(f"memory_dim {memory_dim} must equal d_model {d_model}")
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.share_embedding = share_embedding
+        self.scan_layers = scan_layers  # the checkpoint layout only (compat)
         self.embedding = nn.Embedding(vocab_size, d_model)
         self.layers = []
         for i in range(n_blocks):
             layer = TransformerDecoderLayer(d_model, n_heads, d_ff, normalize_before, activation,
                                             slf_attn_dropout, src_attn_dropout, ffn_dropout,
-                                            residual_dropout)
+                                            residual_dropout, concat_after)
             self.add_module(f"block_{i}", layer)
             self.layers.append(layer)
         self.after_norm = layer_norm(d_model) if normalize_before else None

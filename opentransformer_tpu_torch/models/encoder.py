@@ -24,8 +24,14 @@ and ``encode_step`` advances them by one chunk, equal to the offline
 encode under the chunk mask. The caches are plain tensors on the model's
 device and dtype, not parameters or buffers.
 
-MoE blocks, concat_after and the scanned layout are not ported yet
-(ROADMAP Queue 1).
+``concat_after`` (the reference's transformer option) replaces the
+attention branch's residual add by ``x + concat_linear([x ∥ attn(x)])``,
+with no residual dropout on that branch, as in the reference. A
+``scan_layers`` config (the JAX package's stacked-parameter blocks under
+``lax.scan``) builds the same per-block modules: torch runs a Python loop
+over blocks, so there is no program to shrink, and ``compat`` stacks and
+unstacks the ``blocks`` layout of its checkpoints. MoE blocks are not
+ported (ROADMAP.md, Queue 1: MoE).
 """
 
 from __future__ import annotations
@@ -90,7 +96,7 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, normalize_before: bool = False,
                  activation: str = "relu", slf_attn_dropout: float = 0.0,
                  ffn_dropout: float = 0.0, residual_dropout: float = 0.1,
-                 relative_positional: bool = False):
+                 relative_positional: bool = False, concat_after: bool = False):
         super().__init__()
         self.normalize_before = normalize_before
         self.norm1 = layer_norm(d_model)
@@ -98,8 +104,16 @@ class TransformerEncoderLayer(nn.Module):
         attn = RelPosSelfAttention if relative_positional else MultiHeadSelfAttention
         self.slf_attn = attn(n_heads, d_model, slf_attn_dropout)
         self.relative_positional = relative_positional
+        self.concat_linear = nn.Linear(2 * d_model, d_model) if concat_after else None
         self.ffn = PositionwiseFeedForward(d_model, d_ff, activation, ffn_dropout)
         self.res_dropout = Dropout(residual_dropout)
+
+    def _attn_residual(self, h, attn):
+        """h + the attention branch: ``concat_linear([h ∥ attn])`` without
+        residual dropout (the reference's concat_after), else dropout(attn)."""
+        if self.concat_linear is not None:
+            return h + self.concat_linear(torch.cat([h, attn], dim=-1))
+        return h + self.res_dropout(attn)
 
     def forward(self, x, attn_mask, pos_emb=None):
         # the residual is the sublayer's input: x (post-norm) or norm(x)
@@ -107,7 +121,7 @@ class TransformerEncoderLayer(nn.Module):
         h = self.norm1(x) if pre else x
         attn = (self.slf_attn(h, attn_mask, pos_emb) if self.relative_positional
                 else self.slf_attn(h, attn_mask))
-        h = h + self.res_dropout(attn)
+        h = self._attn_residual(h, attn)
         if not pre:
             h = self.norm1(h)
         h2 = self.norm2(h) if pre else h
@@ -122,7 +136,7 @@ class TransformerEncoderLayer(nn.Module):
         pre = self.normalize_before
         h = self.norm1(x) if pre else x
         attn, new_k, new_v = self.slf_attn.chunk_step(h, cache_k, cache_v, kv_mask)
-        h = h + attn
+        h = self._attn_residual(h, attn)  # dropout is off in inference
         if not pre:
             h = self.norm1(h)
         h2 = self.norm2(h) if pre else h
@@ -138,9 +152,10 @@ class TransformerEncoder(nn.Module):
                  pos_dropout: float = 0.0, slf_attn_dropout: float = 0.0,
                  ffn_dropout: float = 0.0, residual_dropout: float = 0.1,
                  relative_positional: bool = False, chunk_size: int = 0,
-                 left_chunks: int = -1):
+                 left_chunks: int = -1, concat_after: bool = False, scan_layers: bool = False):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
+        self.scan_layers = scan_layers  # the checkpoint layout only (compat)
         self.relative_positional = relative_positional
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
         self.pos_enc = None if relative_positional else PositionalEncoding(d_model, pos_dropout)
@@ -148,7 +163,7 @@ class TransformerEncoder(nn.Module):
         for i in range(n_blocks):
             layer = TransformerEncoderLayer(d_model, n_heads, d_ff, normalize_before, activation,
                                             slf_attn_dropout, ffn_dropout, residual_dropout,
-                                            relative_positional)
+                                            relative_positional, concat_after)
             self.add_module(f"block_{i}", layer)
             self.layers.append(layer)
         self.after_norm = layer_norm(d_model) if normalize_before else None

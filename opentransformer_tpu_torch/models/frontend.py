@@ -3,9 +3,10 @@
 ``ConvFrontEnd``: two Conv2d subsampling layers with the reference's
 geometry — time padding 0, frequency padding k//2, mask rule
 ``mask[:, k//2::stride][:, :T']``, dropout after each activation in
-training — then a channel-major flatten to [B, T', C·F'] and a projection. The JAX package convolves NHWC (H =
-time, W = frequency); PyTorch convolves NCHW over the same axes, and
-``compat`` turns the HWIO kernels into OIHW.
+training — then a channel-major flatten to [B, T', C·F'], a projection and, with
+``front_end_layer_norm``, a LayerNorm (``layer_norm``). The JAX package
+convolves NHWC (H = time, W = frequency); PyTorch convolves NCHW over the
+same axes, and ``compat`` turns the HWIO kernels into OIHW.
 
 Float32 convolutions run in TF32 under cuDNN by default; the port's entry
 points switch that off for float32 models (``utils.disable_tf32``).
@@ -20,7 +21,7 @@ from typing import Sequence
 from torch import nn
 
 from ..ops.masks import subsample_mask
-from .modules import ACTIVATIONS, Dropout
+from .modules import ACTIVATIONS, Dropout, layer_norm
 
 
 def conv_out_len(t: int, kernel: int, stride: int, padding: int = 0) -> int:
@@ -52,7 +53,7 @@ class ConvFrontEnd(nn.Module):
                  mid_channel: int = 32, out_channel: int = 128,
                  kernel_size: Sequence[Sequence[int]] = ((3, 3), (3, 3)),
                  stride: Sequence[int] = (2, 2), act_func_type: str = "relu",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, front_end_layer_norm: bool = False):
         super().__init__()
         if in_channel != 1:
             raise ValueError("ConvFrontEnd takes [B, T, F] features (in_channel 1)")
@@ -63,6 +64,7 @@ class ConvFrontEnd(nn.Module):
                                           act_func_type, dropout)
         f_out = self.conv2.out_features(self.conv1.out_features(input_size))
         self.output_layer = nn.Linear(out_channel * f_out, output_size)
+        self.layer_norm = layer_norm(output_size) if front_end_layer_norm else None
 
     def output_length(self, t: int) -> int:
         """Output frames for ``t`` input frames (no time padding)."""
@@ -75,7 +77,10 @@ class ConvFrontEnd(nn.Module):
         h, mask = self.conv1(x[:, None], mask)
         h, mask = self.conv2(h, mask)
         b, c, t, f = h.shape
-        return self.output_layer(h.permute(0, 2, 1, 3).reshape(b, t, c * f)), mask
+        h = self.output_layer(h.permute(0, 2, 1, 3).reshape(b, t, c * f))
+        if self.layer_norm is not None:
+            h = self.layer_norm(h)
+        return h, mask
 
 
 class ConcatFrontEnd(nn.Module):

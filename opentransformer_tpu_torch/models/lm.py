@@ -121,7 +121,7 @@ class TransformerLanguageModel(_VocabHead):
         if moe_experts > 0:
             raise NotImplementedError(
                 "the MoE feed-forward (moe_experts > 0) is not ported to "
-                "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: modules still to port)")
+                "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: MoE)")
         self.num_blocks = num_blocks
         self.d_model = d_model
         self.n_heads = n_heads

@@ -4,8 +4,10 @@ Builds a model from the ``model`` section of a config, as a dict (read from
 JSON: the anchor manifest's ``model_cfg`` is one). The port covers
 ``speech2text``, ``ctc`` and ``transducer`` with a conv or concat
 frontend and a transformer or conformer encoder (absolute or relative
-positions, chunked attention), and the language models ``transformer_lm``
-and ``rnn_lm``; anything else raises and names the ROADMAP queue.
+positions, chunked attention, the reference's ``concat_after`` and
+``front_end_layer_norm``; a ``scan_layers`` config builds the same
+per-block modules), and the language models ``transformer_lm`` and
+``rnn_lm``. The MoE feed-forward raises and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,17 +26,14 @@ from .transducer import TransducerModel
 LM_TYPES = {"transformer_lm": TransformerLanguageModel, "rnn_lm": RecurrentLanguageModel}
 
 # options the port does not implement yet, with the value that means "off"
-_NOT_PORTED = {
-    "encoder": {"moe_experts": 0, "concat_after": False, "scan_layers": False},
-    "decoder": {"concat_after": False, "scan_layers": False},
-    "frontend": {"front_end_layer_norm": False},
-}
+# and the ROADMAP.md Queue 1 item that ports them
+_NOT_PORTED = {"encoder": {"moe_experts": (0, "MoE")}}
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to opentransformer_tpu_torch yet "
-        "(see ROADMAP.md, Queue 1: modules still to port)")
+        f"(see ROADMAP.md, Queue 1: {item})")
 
 
 def _lm_kwargs(model_cfg: dict, cls) -> dict:
@@ -65,19 +64,19 @@ def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
         cls = LM_TYPES[mtype]
         return cls(**_lm_kwargs(model_cfg, cls)).to(device=dev, dtype=dtype).eval()
     if mtype not in ("speech2text", "ctc", "transducer"):
-        raise _not_ported(f"model type {mtype!r}")
+        raise ValueError(f"unknown model type {mtype!r}")
     frontend_type = model_cfg.get("frontend_type", "conv")
     encoder_type = model_cfg.get("encoder_type", "transformer")
     if frontend_type not in FRONTENDS:
-        raise _not_ported(f"frontend_type {frontend_type!r}")
+        raise ValueError(f"unknown frontend_type {frontend_type!r} (known: {sorted(FRONTENDS)})")
     if encoder_type not in ENCODERS:
-        raise _not_ported(f"encoder_type {encoder_type!r}")
+        raise ValueError(f"unknown encoder_type {encoder_type!r} (known: {sorted(ENCODERS)})")
     if mtype == "speech2text" and model_cfg.get("decoder_type", "transformer") != "transformer":
-        raise _not_ported(f"decoder_type {model_cfg['decoder_type']!r}")
+        raise ValueError(f"unknown decoder_type {model_cfg['decoder_type']!r}")
     for section, options in _NOT_PORTED.items():
-        for key, off in options.items():
+        for key, (off, item) in options.items():
             if section in model_cfg and model_cfg[section].get(key, off) != off:
-                raise _not_ported(f"{section} option {key}={model_cfg[section][key]!r}")
+                raise _not_ported(f"{section} option {key}={model_cfg[section][key]!r}", item)
     lookahead = int(model_cfg.get("lookahead_steps", 0))
     types = {"frontend_type": frontend_type, "encoder_type": encoder_type}
     if mtype == "transducer":

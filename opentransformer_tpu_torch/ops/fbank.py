@@ -9,6 +9,11 @@ a log floored at ``EPSILON``. ``fbank_numpy`` extracts one utterance on the
 host (the dev split's path); the batched device path with the fused
 spectrum kernel is ``ops/fbank_kernel.py``, which builds its bases from
 ``mel_banks`` and ``povey_window`` here.
+
+``logfbank_psf`` is the reference's other extractor (``feature_extractor:
+psf``, python_speech_features' ``logfbank``): signal-level preemphasis,
+zero-padded ceil framing, a rectangular window, a 512-point power spectrum
+and HTK-scale triangles, in float64, returned as float32.
 """
 
 from __future__ import annotations
@@ -106,3 +111,36 @@ def normalize_per_utterance(feature: np.ndarray) -> np.ndarray:
     """Whole-tensor mean/std normalization of one utterance's features."""
     std = feature.std()
     return (feature - feature.mean()) / max(std, 1e-10)
+
+
+def logfbank_psf(waveform: np.ndarray, sample_freq: float = 16000.0, num_mel_bins: int = 26,
+                 frame_length_ms: float = 25.0, frame_shift_ms: float = 10.0, nfft: int = 512,
+                 preemphasis: float = 0.97, low_freq: float = 0.0,
+                 high_freq: float | None = None) -> np.ndarray:
+    """python_speech_features-style log filterbank f32[T, num_mel_bins] of
+    one waveform."""
+    wav = np.asarray(waveform, np.float64).reshape(-1)
+    wav = np.append(wav[0], wav[1:] - preemphasis * wav[:-1])
+    ws = int(round(frame_length_ms / 1000.0 * sample_freq))
+    shift = int(round(frame_shift_ms / 1000.0 * sample_freq))
+    n = len(wav)
+    t = 1 if n <= ws else 1 + int(np.ceil((n - ws) / shift))
+    padded = np.zeros(int((t - 1) * shift + ws))
+    padded[:n] = wav
+    frames = padded[np.arange(t)[:, None] * shift + np.arange(ws)[None, :]]
+    power = (np.abs(np.fft.rfft(frames, nfft)) ** 2) / nfft
+
+    high_freq = high_freq or sample_freq / 2
+    mel_lo, mel_hi = (2595.0 * np.log10(1.0 + np.asarray(f) / 700.0) for f in (low_freq, high_freq))
+    mel_pts = np.linspace(mel_lo, mel_hi, num_mel_bins + 2)
+    hz_pts = 700.0 * (10.0 ** (mel_pts / 2595.0) - 1.0)
+    bins = np.floor((nfft + 1) * hz_pts / sample_freq).astype(int)
+    fb = np.zeros((num_mel_bins, nfft // 2 + 1))
+    for j in range(num_mel_bins):
+        for i in range(bins[j], bins[j + 1]):
+            fb[j, i] = (i - bins[j]) / max(bins[j + 1] - bins[j], 1)
+        for i in range(bins[j + 1], bins[j + 2]):
+            fb[j, i] = (bins[j + 2] - i) / max(bins[j + 2] - bins[j + 1], 1)
+    feat = power @ fb.T
+    feat = np.where(feat == 0, np.finfo(float).eps, feat)
+    return np.log(feat).astype(np.float32)

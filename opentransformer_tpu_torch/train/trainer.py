@@ -38,37 +38,109 @@ Dropout, noise, SpecAugment and gradient noise all draw from one
 scanned in one compiled program to spare the TPU's dispatch. The JAX
 program runs the single-step arithmetic, with accumulation windows that run
 on across a change of batch shape, so the same lr sequence, ``global_step``
-and history come from N single updates, which is how the port runs it. The
-JAX trainer's other paths (fused update, pipeline schedules, a mesh,
-MixSpeech, asynchronous saves) are not ported and raise.
+and history come from N single updates, which is how the port runs it.
+
+``fused_update`` (Adam only) makes the parameters and their gradients views
+into one flat float32 buffer each (``FusedAdam``): the norm, the clip, the
+noise (one draw over the flat buffer, as the JAX fused path) and Adam run
+as a few whole-buffer ops, with flat moments (the first in ``adam_m_dtype``).
+MixSpeech (``mixspeech``) mixes the batch's rows in pairs after the
+feature stage, ``λ·x_2i + (1 − λ)·x_2i+1`` with λ ~ Beta(0.5, 0.5) from the
+trainer's generator, the union of the two masks, and weights the two rows'
+targets' losses by λ and 1 − λ; both forwards draw the same dropout and
+BatchNorm moves once, as in the JAX trainer's one-rng pair of applies.
+``OT_FAULT_INJECT_STEP=N`` crashes the run once an update reaches step N,
+and ``OT_FAULT_INJECT_MARKER=FILE`` disarms it once FILE exists (it is
+written before the crash): the supervised restart of ``cli/run.py
+--supervise`` is proven with it. The pipeline schedules of a mesh are not
+ported (ROADMAP.md, Queue 1: Parallelism).
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from typing import Any
 
 import torch
 
-from ..models.modules import set_dropout_generator
-from .scheduler import build_optimizer, build_scheduler
+from ..models.modules import BatchNorm, set_dropout_generator
+from .scheduler import adam_update, build_optimizer, build_scheduler, moment_dtype
 from .utils import AverageMeter, MeanLoss, Summary
 
 logger = logging.getLogger(__name__)
 
 # train-section options of the JAX trainer that are not ported, with the
 # value that means "off"
-_NOT_PORTED = {"fused_update": False, "pp_schedule": "sharded", "pp_micro_batches": None,
-               "async_save": False}
+_NOT_PORTED = {"pp_schedule": "sharded", "pp_micro_batches": None}
 AUTOCAST_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+FUSED_ADAM_KEYS = {"lr", "betas", "eps", "weight_decay", "adam_m_dtype"}
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to opentransformer_tpu_torch yet "
-        "(see ROADMAP.md, Queue 1: What training and decoding still lack)")
+        "(see ROADMAP.md, Queue 1: Parallelism)")
+
+
+class FusedAdam:
+    """``train.fused_update``: the model's float32 parameters and their
+    gradients become views into one flat buffer each (``flat``, ``grad``),
+    so that the trainer's norm, clip and noise and this Adam step (the
+    JAX fused path's arithmetic: L2 into the gradient, float32 math, the
+    first moment stored in ``adam_m_dtype``) are a few whole-buffer ops.
+    The gradient buffer is zeroed in place, never freed, so backward
+    accumulates into it."""
+
+    def __init__(self, params, opt_cfg: dict):
+        params = list(params)
+        if any(p.dtype != torch.float32 for p in params):
+            raise ValueError("train.fused_update needs float32 parameters")
+        self.b1, self.b2 = (float(b) for b in opt_cfg.get("betas", (0.9, 0.999)))
+        self.eps = float(opt_cfg.get("eps", 1e-8))
+        self.wd = float(opt_cfg.get("weight_decay", 0.0))
+        n = sum(p.numel() for p in params)
+        dev = params[0].device
+        self.flat = torch.empty(n, dtype=torch.float32, device=dev)
+        self.grad = torch.zeros(n, dtype=torch.float32, device=dev)
+        off = 0
+        with torch.no_grad():
+            for p in params:
+                k = p.numel()
+                self.flat[off : off + k].copy_(p.reshape(-1))
+                p.data = self.flat[off : off + k].view_as(p)
+                p.grad = self.grad[off : off + k].view_as(p)
+                off += k
+        self.mu = torch.zeros(n, dtype=moment_dtype(opt_cfg), device=dev)
+        self.nu = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.count = 0
+        self.param_groups = [{"lr": 0.0}]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.grad.zero_()
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.count += 1
+        mu = adam_update(self.flat, self.grad, self.mu, self.nu, self.count,
+                         self.param_groups[0]["lr"], self.b1, self.b2, self.eps, self.wd)
+        self.mu.copy_(mu)
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.mu.copy_(state["mu"])
+        self.nu.copy_(state["nu"])
+
+
+def beta_half(generator: torch.Generator, device) -> torch.Tensor:
+    """One draw of Beta(0.5, 0.5), the arcsine law: sin²(πU/2), U ~ U(0, 1)."""
+    u = torch.rand((), generator=generator, device=device)
+    return torch.sin(u * (math.pi / 2)) ** 2
 
 
 def _tensor(x, device, dtype=None):
@@ -99,7 +171,7 @@ class Trainer:
     def __init__(self, train_cfg: Any, model: torch.nn.Module, frontend,
                  generator: torch.Generator, checkpointer=None, log_interval: int = 10,
                  keep_last_n: int = 30, dev_loader=None, is_debug: bool = False,
-                 resident=None, dev_probe_fn=None):
+                 resident=None, dev_probe_fn=None, mixspeech: bool = False, visualizer=None):
         for key, off in _NOT_PORTED.items():
             if train_cfg.get(key, off) != off:
                 raise _not_ported(f"train.{key}={train_cfg[key]!r}")
@@ -129,13 +201,27 @@ class Trainer:
         self.grad_clip = float(train_cfg.get("clip_grad", 0.0))
         self.grad_noise = float(train_cfg.get("grad_noise", 0.0))
         self.epochs = int(train_cfg.get("epochs", 1))
-        self.optimizer = build_optimizer(model.parameters(), train_cfg.get("optimizer", {}) or {},
-                                         train_cfg.get("optimizer_type", "adam"))
+        self.mixspeech = mixspeech
+        self.visualizer = visualizer
+        opt_cfg = train_cfg.get("optimizer", {}) or {}
+        opt_type = train_cfg.get("optimizer_type", "adam")
+        self.fused = bool(train_cfg.get("fused_update", False))
+        if self.fused:
+            unknown = set(opt_cfg) - FUSED_ADAM_KEYS
+            if opt_type != "adam" or unknown:
+                raise ValueError(f"train.fused_update supports adam and the optimizer keys "
+                                 f"{sorted(FUSED_ADAM_KEYS)} (got {opt_type!r}, "
+                                 f"{sorted(unknown)})")
+            self.optimizer = FusedAdam(model.parameters(), opt_cfg)
+        else:
+            self.optimizer = build_optimizer(model.parameters(), opt_cfg, opt_type)
         self.schedule = build_scheduler(train_cfg.get("scheduler", {}) or {},
                                         train_cfg.get("scheduler_type", "transformer"))
         self.global_step = 1
         self.global_epoch = 0
         self.nan_skips = 0
+        self.fault_step = int(os.environ.get("OT_FAULT_INJECT_STEP", 0))
+        self.fault_marker = os.environ.get("OT_FAULT_INJECT_MARKER")
         self.mean_loss = MeanLoss()
         # one record per update: epoch, step, lr, micro-batch losses (and the
         # hybrid loss' parts under "aux"), grad norm, whether it was applied,
@@ -182,20 +268,49 @@ class Trainer:
         (unscaled) loss."""
         args = self.batch_args(batch)
         with self.autocast():
-            loss, aux = self.model(*args)
+            loss, aux = self.mix_loss(*args) if self.mixspeech else self.model(*args)
         (loss / self.accum_steps).backward()
         self._window.append(loss.detach())
         self._window_aux.append({k: v.detach() for k, v in aux.items()})
         return loss.detach()
 
+    def mix_lambda(self) -> torch.Tensor:
+        return beta_half(self.generator, self.device)
+
+    def mix_loss(self, feats, mask, targets, targets_length):
+        """MixSpeech: rows 2i and 2i+1 mixed at λ, the loss ``λ·L(mix,
+        y_2i) + (1 − λ)·L(mix, y_2i+1)`` (an odd last row is left out). The
+        second forward replays the first's generator state and BatchNorm
+        statistics, so both see the same dropout and the statistics move
+        once."""
+        if feats.dim() != 3:
+            raise ValueError("MixSpeech mixes speech features [B, T, F]")
+        b = feats.shape[0] // 2 * 2
+        lam = self.mix_lambda()
+        mixed = lam * feats[0:b:2] + (1.0 - lam) * feats[1:b:2]
+        mixed_mask = mask[0:b:2] | mask[1:b:2]
+        bns = [m for m in self.model.modules() if isinstance(m, BatchNorm)]
+        stats = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+        gen_state = self.generator.get_state()
+        l1, _ = self.model(mixed, mixed_mask, targets[0:b:2], targets_length[0:b:2])
+        self.generator.set_state(gen_state)
+        for m, (mean, var) in zip(bns, stats):
+            m.running_mean.copy_(mean)
+            m.running_var.copy_(var)
+        l2, _ = self.model(mixed, mixed_mask, targets[1:b:2], targets_length[1:b:2])
+        return lam * l1 + (1.0 - lam) * l2, {}
+
     def update(self, epoch: int = 0) -> dict:
         """Clip, noise, NaN guard and one optimizer step on the accumulated
         gradient; clears it and advances ``global_step``."""
-        params = list(self.model.parameters())
-        for p in params:  # an unused parameter takes part with a zero gradient
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
+        if self.fused:
+            grads = [self.optimizer.grad]
+        else:
+            params = list(self.model.parameters())
+            for p in params:  # an unused parameter takes part with a zero gradient
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
         gnorm = torch.sqrt(torch.stack([torch.sum(torch.square(g.float())) for g in grads]).sum())
         if self.grad_clip > 0:
             scale = torch.clamp_max(self.grad_clip / (gnorm + 1e-6), 1.0)
@@ -229,8 +344,26 @@ class Trainer:
             record["aux"] = aux
         self.history.append(record)
         self.mean_loss.update(sum(losses) / max(len(losses), 1))
+        if self.visualizer is not None:
+            self.visualizer.add_scalar("train_loss", sum(losses) / max(len(losses), 1),
+                                       self.global_step)
+            self.visualizer.add_scalar("lr", lr, self.global_step)
+            self.visualizer.add_scalar("grad_norm", gnorm_val, self.global_step)
         self.global_step += 1
         return record
+
+    def maybe_inject_fault(self) -> None:
+        """Crash once ``global_step`` reaches ``OT_FAULT_INJECT_STEP``; the
+        marker file, written first, disarms it for the restarted run."""
+        if not self.fault_step or self.global_step < self.fault_step:
+            return
+        if self.fault_marker:
+            if os.path.exists(self.fault_marker):
+                return
+            with open(self.fault_marker, "w", encoding="utf-8") as f:
+                f.write(str(self.global_step))
+        raise RuntimeError(f"fault injection: crashing at global step {self.global_step} "
+                           "(OT_FAULT_INJECT_STEP)")
 
     # ----------------------------------------------------------- the epochs
     def train_one_epoch(self, epoch: int, train_loader) -> None:
@@ -257,6 +390,7 @@ class Trainer:
                         time.time() - span_t0, parts, rec["gnorm"],
                         f", NaNSkips:{self.nan_skips}" if self.nan_skips else "")
                     span_t0 = time.time()
+                self.maybe_inject_fault()
             if self.is_debug and step > 30:
                 break
 
@@ -275,6 +409,8 @@ class Trainer:
                 dev_loss = self.evaluate(self.dev_loader)
                 self.dev_losses.append(dev_loss)
                 logger.info("epoch %d dev loss %.5f", epoch, dev_loss)
+                if self.visualizer is not None:
+                    self.visualizer.add_scalar("dev_loss", dev_loss, self.global_step)
                 if best.update(epoch, dev_loss) and self.checkpointer is not None:
                     self.checkpointer.save_params_only("model.best", self.model)
                     logger.info("new best epoch %d (dev loss %.5f)", epoch, dev_loss)
@@ -283,6 +419,8 @@ class Trainer:
                 with self.autocast():
                     self.dev_probe_fn(self.model, epoch)
                 self.model.train()
+        if self.checkpointer is not None:
+            self.checkpointer.wait()  # an asynchronous save still in flight
 
     def evaluate(self, dev_loader) -> float:
         """Mean deterministic loss over a loader of host-feature batches,

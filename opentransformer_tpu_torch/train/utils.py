@@ -1,10 +1,13 @@
 """Training meters (counterpart of ``opentransformer_tpu/train/utils.py``):
-the window-100 running mean loss, an average meter and the best-epoch
-tracker."""
+the window-100 running mean loss, an average meter, the best-epoch tracker
+and the TensorBoard scalar writer of ``--visual``."""
 
 from __future__ import annotations
 
 import collections
+import logging
+
+logger = logging.getLogger(__name__)
 
 
 class MeanLoss:
@@ -50,3 +53,26 @@ class Summary:
             self.best_epoch = epoch
             return True
         return False
+
+
+class Visualizer:
+    """TensorBoard scalars through ``torch.utils.tensorboard``; where that
+    does not import (no ``tensorboard`` package), a warning and no-ops."""
+
+    def __init__(self, logdir: str):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            logger.warning("--visual: torch.utils.tensorboard does not import (%s); no "
+                           "TensorBoard scalars are written", e)
+            self.writer = None
+        else:
+            self.writer = SummaryWriter(logdir)
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, step)
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()

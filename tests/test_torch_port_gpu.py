@@ -620,3 +620,78 @@ def test_batch_norm_statistics_update_on_card_matches_cpu(cuda):
         for a, b in zip(got[0], got[1]):
             assert not torch.equal(a, torch.zeros_like(a))
             torch.testing.assert_close(b, a, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m_dtype", [None, "bfloat16"])
+def test_fused_mixspeech_update_on_card_matches_cpu(cuda, m_dtype):
+    """Two MixSpeech micro-batches of waveforms (fbank kernel on the card,
+    its plain version on the CPU) at a fixed λ with the fused update: the
+    kernel launches once a micro-batch, and the card's parameters stay
+    within 1e-4 of the CPU's (the features differ by the kernel's
+    tolerance)."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.data.device_pipeline import (
+        collate_waveforms,
+        make_device_frontend,
+    )
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+    from opentransformer_tpu_torch.train.trainer import FusedAdam, Trainer
+
+    # eps 1 keeps Adam's step near-linear in the gradient, so the features'
+    # kernel-level differences stay small in the parameters; no dropout
+    # (the two devices' generators draw different streams)
+    opt = {"betas": [0.9, 0.98], "eps": 1.0, **({"adam_m_dtype": m_dtype} if m_dtype else {})}
+    cfg = {"accum_steps": 1, "fused_update": True, "clip_grad": 5.0, "optimizer": opt,
+           "scheduler_type": "constant", "scheduler": {"lr": 1e-2}}
+    model_cfg = dict(SMALL_CFG, encoder=dict(SMALL_CFG["encoder"], residual_dropout=0.0),
+                     decoder=dict(SMALL_CFG["decoder"], residual_dropout=0.0))
+    torch.manual_seed(0)
+    tree = compat.params_to_jax(build_model(model_cfg, device="cpu"))
+    w, lens = _waves(4, 16000)
+    batch = collate_waveforms([(f"u{i}", w[i, : lens[i]].numpy(), int(lens[i]), [3, 4, 5], 3)
+                               for i in range(4)])
+    params = {}
+    for dev in ("cpu", cuda):
+        model = compat.load_into(build_model(model_cfg, device=dev), tree).train()
+        trainer = Trainer(cfg, model, make_device_frontend({"num_mel_bins": 20,
+                                                            "normalization": True}, dev),
+                          torch.Generator(device=dev).manual_seed(0), mixspeech=True)
+        trainer.mix_lambda = lambda: torch.tensor(0.3)
+        before = fk.spec_mel.launches
+        for _ in range(2):
+            trainer.micro_step(batch)
+            assert trainer.update()["applied"]
+        assert isinstance(trainer.optimizer, FusedAdam) and trainer.optimizer.count == 2
+        assert fk.spec_mel.launches == before + (2 if dev == cuda else 0)
+        params[str(dev)] = trainer.optimizer.flat.cpu()
+    torch.testing.assert_close(params["cuda"], params["cpu"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_reference_round_trip_decodes_through_kernel_on_card(cuda, tmp_path):
+    """A small model exported to a reference .pt and imported on the card
+    is bitwise the same, and its cached top-k decode launches kernel 1."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.recognize.base import make_memory_search
+
+    torch.manual_seed(0)
+    cfg = dict(SMALL_CFG, encoder=dict(SMALL_CFG["encoder"], concat_after=True),
+               decoder=dict(SMALL_CFG["decoder"], concat_after=True))
+    model = build_model(cfg, device=cuda)
+    path = str(tmp_path / "m.pt")
+    torch.save(compat.export_reference_checkpoint(model, {"model": cfg}), path)
+    state, _ = compat.load_reference_any(path)
+    back = build_model(cfg, device=cuda)
+    back.load_state_dict(state, strict=True)
+    assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 back.state_dict().values()))
+    x = torch.randn(2, 80, 20, device=cuda)
+    m = torch.ones(2, 80, dtype=torch.bool, device=cuda)
+    before = port.project_logp_topk.launches
+    with torch.inference_mode():
+        mem, mm = back.encode(x, m)
+        hyp = make_memory_search(back, 3, 6, eos_id=-1)(mem, mm)
+    assert port.project_logp_topk.launches - before == 6 and torch.isfinite(hyp.scores).all()

@@ -148,10 +148,23 @@ def test_feature_extractor_and_streaming_fbank_match_jax(tmp_path, cmvn):
                                        rtol=0, atol=ATOL)
 
 
-def test_psf_features_raise():
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1: What training and decoding still lack"):
-        serve.FeatureExtractor({"feature_extractor": "psf"})
+def test_psf_features_raise(tmp_path):
+    """The psf extractor (which raised before it was ported) now gives the
+    JAX server's features, offline and through ``StreamingFbank`` (one
+    extraction at the end, exact per-utterance CMVN)."""
+    data_cfg = {"num_mel_bins": MEL, "normalization": True, "feature_extractor": "psf"}
+    ex, jex = serve.FeatureExtractor(data_cfg), jax_serve.FeatureExtractor(data_cfg)
+    w = waves(1, seed=4)[0]
+    path = write_wavs(tmp_path, [w])[0]
+    np.testing.assert_allclose(ex(path), jex(path), rtol=0, atol=ATOL)
+    sfe, jsfe = serve.StreamingFbank(ex, 16000), jax_serve.StreamingFbank(jex, 16000)
+    got, want = [], []
+    for s in range(0, len(w), 1300):
+        x = w[s: s + 1300].astype(np.float32) / 32768.0
+        got.append(sfe.feed(x))
+        want.append(jsfe.feed(x))
+    assert sum(len(g) for g in got) == 0
+    np.testing.assert_allclose(sfe.finish(), jsfe.finish(), rtol=0, atol=ATOL)
 
 
 # ------------------------------------------------------------------ batcher

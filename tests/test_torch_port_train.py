@@ -437,13 +437,13 @@ def test_cli_needs_a_card_unless_told_the_cpu(corpus):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-ct"], ["-ios", "x"], ["--tp", "2"], ["--pp", "2"],
-    ["--pp-schedule", "1f1b"], ["--pp-micro-batches", "2"], ["--ep", "2"], ["--multihost"],
-    ["--supervise", "1"], ["--async-save"], ["--visual"],
-    ["--profile", "x"], ["-ms"], ["-tfe", "1"], ["-tfs", "3"], ["-n", "2"]],
+    ["--tp", "2"], ["--pp", "2"], ["--pp-schedule", "1f1b"], ["--pp-micro-batches", "2"],
+    ["--ep", "2"], ["--multihost"], ["-n", "2"]],
     ids=lambda f: f[0])
 def test_flags_not_ported_raise(flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """Only the parallelism flags are left unported; each names its
+    ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="not ported.*Queue 1: Parallelism"):
         run_cli.run(["-c", "never-read.json", "--device", "cpu", *flags])
 
 
@@ -470,10 +470,7 @@ def test_init_model_warm_starts_the_weights(trained, corpus, tmp_path, form):
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("train", "fused_update", True), ("train", "async_save", True),
     ("train", "pp_schedule", "1f1b"), ("train", "pp_micro_batches", 2),
-    ("data", "gaussian_noise", 0.1), ("data", "feature_extractor", "psf"),
-    ("data", "device_resident", True),
 ], ids=lambda v: str(v) if not isinstance(v, dict) else "dict")
 def test_config_options_not_ported_raise(corpus, tmp_path, section, key, value):
     _, _, cfg = corpus
@@ -483,7 +480,7 @@ def test_config_options_not_ported_raise(corpus, tmp_path, section, key, value):
     conf = str(tmp_path / "conf.json")
     with open(conf, "w") as f:
         json.dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported.*Queue 1: Parallelism"):
         run_cli.run(["-c", conf, "--expdir", str(tmp_path / "exp"), "--device", "cpu"])
 
 
@@ -525,9 +522,40 @@ def _hybrid(t, cfg):
                                            for r in t.history)
 
 
-# each option that the training CLI raised on before the anchor recipe was
-# ported: its flags or config overrides, and what it now does
+def _fused(t, cfg):
+    from opentransformer_tpu_torch.train.trainer import FusedAdam
+
+    opt = t.optimizer
+    return (isinstance(opt, FusedAdam) and opt.count == len(t.history)
+            and all(p.data_ptr() >= opt.flat.data_ptr() for p in t.model.parameters()))
+
+
+def _host_noise(t, cfg):
+    return t.frontend is None and FeatureLoader(cfg, "train").dataset.gaussian_noise == 0.1
+
+
+def _psf(t, cfg):
+    return t.frontend is None and FeatureLoader(cfg, "train").dataset.feature_extractor == "psf"
+
+
+HOST = {"extract_on_device": False}
+
+# each option that the training CLI raised on before it was ported (the
+# anchor recipe's, then the round trip's): its flags or config overrides,
+# and what it now does
 OPTIONS_NOW_PORTED = {
+    "fused_update": ([], {"train": {"fused_update": True}}, _fused),
+    "async_save": ([], {"train": {"async_save": True}},
+                   lambda t, c: t.checkpointer.async_save and t.checkpointer.list_epochs() == [0]),
+    "--async-save": (["--async-save"], {}, lambda t, c: t.checkpointer.async_save),
+    "gaussian_noise": ([], {"data": {**HOST, "gaussian_noise": 0.1}}, _host_noise),
+    "feature_extractor_psf": ([], {"data": {**HOST, "feature_extractor": "psf"}}, _psf),
+    "device_resident_online": ([], {"data": {"device_resident": True}},
+                               lambda t, c: t.resident is None and t.frontend is not None),
+    "-ms": (["-ms"], {}, lambda t, c: t.mixspeech and all(r.get("aux") is None
+                                                          for r in t.history)),
+    "-tfs": (["-tfs", "5"], {}, lambda t, c: t.history[0]["step"] == 5),
+    "--visual": (["--visual"], {}, lambda t, c: t.visualizer is not None),
     "-mp": (["-mp"], {}, lambda t, c: t.autocast_dtype == torch.bfloat16),
     "--steps-per-exec": (["--steps-per-exec", "2"], {}, lambda t, c: t.steps_per_exec == 2),
     "dev_cer_probe": ([], {"train": {"dev_cer_probe": True},
@@ -569,10 +597,21 @@ def test_options_once_not_ported_now_train(corpus, tmp_path, option):
 
 
 def test_adam_moment_dtype_and_yaml_configs_raise(tmp_path):
-    from opentransformer_tpu_torch.train.scheduler import build_optimizer
+    """``adam_m_dtype`` (raising before it was ported) now stores Adam's
+    first moment in bfloat16 and its second in float32; a YAML config still
+    raises."""
+    from opentransformer_tpu_torch.train.scheduler import AdamMoments, build_optimizer
 
-    with pytest.raises(NotImplementedError, match="adam_m_dtype"):
-        build_optimizer([torch.nn.Parameter(torch.zeros(2))], {"adam_m_dtype": "bfloat16"})
+    p = torch.nn.Parameter(torch.zeros(2))
+    opt = build_optimizer([p], {"adam_m_dtype": "bfloat16"})
+    p.grad = torch.ones(2)
+    opt.param_groups[0]["lr"] = 0.1
+    opt.step()
+    st = opt.state[p]
+    assert isinstance(opt, AdamMoments) and st["exp_avg"].dtype == torch.bfloat16
+    assert st["exp_avg_sq"].dtype == torch.float32 and float(p.detach()[0]) < 0
+    with pytest.raises(ValueError, match="adam_m_dtype"):
+        build_optimizer([p], {"adam_m_dtype": "int8"})
     with pytest.raises(ValueError, match="JSON"):
         load_config(str(tmp_path / "conf.yaml"))
 

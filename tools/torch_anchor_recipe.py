@@ -15,16 +15,20 @@
      ``egs/synth_bench/exp_anchor_torch``), from the CLI's seeded initial
      weights or, with ``--init_model``, from an npz's (for example the JAX
      package's initial anchor weights, ``tools/jax_anchor_init.py``);
-  2. average epochs ``end-5 … end-1`` and decode the test split with the
-     eval CLI at ``-bw 5 -pn 0.6 -ml 32 -b 100``.
+  2. average epochs ``end-5 … end-1``, decode the test split as anchor.sh
+     does (``cli/eval.py -m EXP/model.average.fromXtoY -bw 5 -pn 0.6 -ml 32
+     -b 100 -d test``, into JAX's ``decode_test_bw5_pn0.6_ml32_avgX-Y``),
+     then export the average as the f16 npz and manifest of
+     ``tools/export_trained_synth.py`` (``tools/torch_export_trained_synth.py``)
+     to ``--export`` (default ``EXP/anchor_synth_f16.npz``).
 
 It prints the decode's RESULT and a summary: the train loss, dev loss and
 dev greedy CER of every epoch, seconds per update (host clock, the gaps
 between updates after the first epoch), peak device memory, the resident
 corpus' bytes and upload time, and the card's name and power limit. The
-summary is also written as JSON to ``--summary`` if given. Stage 2's f16
-export over ``egs/synth_bench/trained/anchor_synth_f16.npz`` is not part of
-this tool: it never writes there.
+summary is also written as JSON to ``--summary`` if given. The committed
+``egs/synth_bench/trained/anchor_synth_f16.npz`` is written only when
+``--export`` names it.
 """
 
 from __future__ import annotations
@@ -106,6 +110,8 @@ def main(argv=None) -> int:
     p.add_argument("--log_interval", type=int, default=50)
     p.add_argument("--init_model", default=None, help="the training CLI's -im")
     p.add_argument("--summary", default=None, help="also write the summary JSON here")
+    p.add_argument("--export", default=None,
+                   help="the f16 npz of stage 2 (default: EXP/anchor_synth_f16.npz)")
     args = p.parse_args(argv)
     os.chdir(REPO)  # the config's data paths are relative to the repository
 
@@ -114,6 +120,9 @@ def main(argv=None) -> int:
     from opentransformer_tpu_torch.cli import eval as eval_cli
     from opentransformer_tpu_torch.cli import run as run_cli
     from opentransformer_tpu_torch.train.checkpoint import Checkpointer
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import torch_export_trained_synth
 
     cuda = args.device in (None, "cuda")
     summary = {"card": card_line() if cuda else args.device, "seed": args.seed,
@@ -125,7 +134,7 @@ def main(argv=None) -> int:
         summary["corpus_seconds"] = time.time() - t0
     os.makedirs(os.path.join(args.expdir, "conf"), exist_ok=True)
     conf = os.path.join(args.expdir, "conf", "anchor.json")
-    cfg = write_config(args.epochs, args.data, conf, args.dtype)
+    write_config(args.epochs, args.data, conf, args.dtype)
     if args.stage <= 1:
         if cuda:
             torch.cuda.reset_peak_memory_stats()
@@ -144,14 +153,13 @@ def main(argv=None) -> int:
     avg = Checkpointer(args.expdir).average(start, stop)
     decode_dir = os.path.join(args.expdir, f"decode_test_bw5_pn0.6_ml32_avg{start}-{stop}")
     t0 = time.time()
-    eval_cli.main(["--npz", os.path.join(avg, "params.npz"),
-                   "--model_cfg", os.path.join(args.expdir, "config.json"),
-                   "--feats", cfg["data"]["test"]["feat"][0],
-                   "--text", cfg["data"]["test"]["text"][0], "--vocab", cfg["data"]["vocab"],
-                   "-b", "100", "-bw", "5", "-pn", "0.6", "-ml", "32",
-                   "--decode_dir", decode_dir, *(["--device", args.device]
-                                                 if args.device else [])])
+    eval_cli.main(["-m", avg, "-b", "100", "-bw", "5", "-pn", "0.6", "-ml", "32", "-d", "test",
+                   *(["--device", args.device] if args.device else [])])
     summary["decode_seconds"] = time.time() - t0
+    export = args.export or os.path.join(args.expdir, "anchor_synth_f16.npz")
+    torch_export_trained_synth.main([avg, export, "--result", os.path.join(decode_dir, "RESULT"),
+                                     "--embed-model-cfg"])
+    summary["export"] = export
     with open(os.path.join(decode_dir, "RESULT"), encoding="utf-8") as f:
         result = f.read()
     summary["result"] = result.splitlines()
