@@ -186,7 +186,34 @@ each of which raises on failure:
      saved global step; then ``cli/eval.py -m EXP -d dev --profile`` (kernel 1,
      a trace with device kernels) equal to an ``--npz`` decode of the same
      checkpoint, and seconds per update of the unfused and fused updates in
-     turns.
+     turns;
+  15. mixture of experts (float32 unless said): (a) ``conf/transformer_moe.json``
+     (the aishell MoE speech-transformer: d256, 12 encoder blocks, every second
+     one's FFN 4 experts of d_ff 1024, top-2, capacity 1.25; 41 M parameters)
+     with seeded weights on phase 11's 16 utterances, held to the JAX package's
+     CPU numbers in ``transformer_moe_seeded.jax.json``
+     (``tools/torch_port_moe_parity.py``): the memory projection, teacher-forced
+     log-probs, each MoE layer's load-balance loss (1e-4 relative) and routing
+     (every choice's expert, kept or dropped: at most 0.1% of a layer's tokens
+     differing), beam-5 1-best ids over 24 forced steps, one kernel-1 launch a
+     step; (b) phase 3's bf16 worst case with it, its encode alone timed in
+     turns with the dense flagship's and its peak memory, and one MoE FFN call
+     (and its routing alone) beside a dense one; (c) trained through the CLI on
+     phase 7's wavs with router jitter and dropout on (phase 7's checks: one
+     kernel-3 launch a micro-batch, a reload to the same beam-5 ids), every
+     ``moe_aux`` finite, one micro-batch's loss and ``moe_aux`` on the card
+     within 1e-4 relative of the CPU's, and its width-64 model halving its loss
+     in 40 updates; (d) ``conf/transformer_lm.json`` as a drop-free MoE LM (4
+     experts, top-1, capacity 4.0): fused and unfused decodes agree on a small
+     input, the anchor at ``-lmw 0.0`` through kernel 2 alone within phase 4's
+     limits, and the drop-free warning at capacity 1.25; (e)
+     ``conformer_streaming`` with a drop-free MoE second FFN (4 experts, top-2,
+     capacity 2.0) streamed in 64-frame feeds through ``StreamingEncoderSession``
+     and ``MultiStreamAttention`` (16 slots, one reused): the memory against the
+     port's offline chunk-masked encode and its projection against JAX's
+     streamed one in ``conformer_streaming_moe.jax_stream.json``, a ctc head
+     through ``MultiStreamCTC`` (one kernel-1 launch a tick), and the capacity
+     warning at capacity 1.25.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -195,6 +222,7 @@ name and power limit; the last line is the run's JSON status.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import subprocess
@@ -877,7 +905,9 @@ def phase_anchor(workdir: str):
 def seeded_params(model, seed: int, embedding_std: float = 1.0) -> dict:
     """Seeded random weights for ``model`` in the JAX package's layout
     (numpy generator; shapes taken from the model's own parameters, and
-    BatchNorm running variances of one)."""
+    BatchNorm running variances of one; an MoE's stacked expert kernels
+    ``w1`` / ``w2`` [E, in, out] and biases ``b1`` / ``b2`` U(±1/sqrt(in)) of
+    their kernel, as the JAX package initialises them)."""
     from opentransformer_tpu_torch import compat
 
     rng = np.random.default_rng(seed)
@@ -892,7 +922,10 @@ def seeded_params(model, seed: int, embedding_std: float = 1.0) -> dict:
             elif key == "embedding":
                 out[key] = (embedding_std * rng.normal(size=val.shape)).astype(np.float32)
             else:  # kernels U(±1/sqrt(fan_in)), biases U(±1/sqrt(width))
-                fan_in = int(np.prod(val.shape[:-1])) if key == "kernel" else val.shape[0]
+                if key in ("w1", "w2", "b1", "b2"):  # an MoE's [E, ...] expert stacks
+                    fan_in = tree["w" + key[1]].shape[-2]
+                else:
+                    fan_in = int(np.prod(val.shape[:-1])) if key == "kernel" else val.shape[0]
                 bound = 1.0 / np.sqrt(fan_in)
                 out[key] = rng.uniform(-bound, bound, size=val.shape).astype(np.float32)
         return out
@@ -988,14 +1021,15 @@ def worst_case_decode(tag: str, model, lm=None, feat_dim: int = 40):
 
 
 def phase_flagship():
+    """Phase 3. Returns (kernel-1 launches, the decode's median seconds)."""
     small_input_check("phase3 flagship f32", seeded_model(FLAGSHIP_CFG, torch.float32, seed=0))
-    one, two, _ = worst_case_decode("phase3 flagship",
-                                    seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0))
+    one, two, secs = worst_case_decode("phase3 flagship",
+                                       seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0))
     max_len = WORST_CASE["max_len"]
     if one != max_len or two != 0:
         raise AssertionError(f"expected one one-head kernel launch per decode step ({max_len}) "
                              f"and no two-head launch, counted {one} and {two}")
-    return one
+    return one, secs
 
 
 # ---------------------------------------------------------------- phase 4
@@ -4070,6 +4104,492 @@ def phase_reference(workdir: str, data: str, corpus: dict, device: str = "cuda")
     return k1, k2, {"phase14c supervised MixSpeech training (both children)": k3}
 
 
+# ---------------------------------------------------------------- phase 15
+# mixture of experts. conf/transformer_moe.json (the aishell YAML: d256, 12
+# encoder blocks, every second one's FFN 4 experts of d_ff 1024, top-2,
+# capacity 1.25, router jitter 0.01) is held on the card to the JAX
+# package's CPU run of the same seeded weights on phase 11's 16 utterances
+# (tools/torch_port_moe_parity.py --write): the memory projection within
+# MOE_MEMORY_ATOL, teacher-forced log-probs within MOE_LOGP_ATOL, each MoE
+# layer's load-balance loss within MOE_AUX_RTOL relative, each layer's
+# routing (every choice's expert, kept or dropped) differing on at most
+# MOE_ROUTING_SHARE of its tokens, and at most MOE_ID_LIMIT of the 16 beam-5
+# 1-bests over 24 forced steps
+MOE_NAME = "transformer_moe"
+MOE_CONF = os.path.join(CONF_DIR, f"{MOE_NAME}.json")
+MOE_FIXTURE = os.path.join(REPO, "egs", "synth_bench", "trained", "transformer_moe_seeded.jax.json")
+MOE_STREAM_FIXTURE = os.path.join(REPO, "egs", "synth_bench", "trained",
+                                  "conformer_streaming_moe.jax_stream.json")
+MOE_INPUTS = dict(weights_seed=0, inputs_seed=5, probe_seed=9, utts=16, frames=500,
+                  min_frames=300, min_units=8, max_units=24, mel=40, steps=24, beam=5)
+MOE_MEMORY_ATOL = 2e-4
+MOE_LOGP_ATOL = 3e-3
+MOE_AUX_RTOL = 1e-4
+MOE_ROUTING_SHARE = 1e-3
+MOE_ID_LIMIT = 2
+MOE_CARD_CPU_RTOL = 1e-4  # 15c: one micro-batch's loss and moe_aux, card against CPU
+# 15d: conf/transformer_lm.json with a drop-free MoE FFN (capacity = E / k)
+MOE_LM = dict(moe_experts=4, moe_top_k=1, moe_capacity_factor=4.0)
+MOE_LM_SEED = 11
+# 15e: conformer_streaming with a drop-free MoE second FFN (capacity = E / k)
+MOE_STREAM = dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=2.0)
+
+
+def moe_lm_cfg() -> dict:
+    return dict(conformer_model_cfg("transformer_lm"), **MOE_LM)
+
+
+def moe_stream_cfg(ctc: bool = False) -> dict:
+    """``conformer_streaming`` with ``MOE_STREAM``'s MoE; as a ``ctc`` model
+    of its frontend and encoder with ``ctc``."""
+    cfg = conformer_model_cfg(STREAM_NAME)
+    cfg["encoder"] = dict(cfg["encoder"], **MOE_STREAM)
+    if ctc:
+        cfg = {"type": "ctc", "frontend_type": cfg["frontend_type"], "frontend": cfg["frontend"],
+               "encoder_type": cfg["encoder_type"], "encoder": cfg["encoder"],
+               "vocab_size": cfg["decoder"]["vocab_size"], "lookahead_steps": 0}
+    return cfg
+
+
+def routing_code(experts, kept, valid) -> str:
+    """A layer's routing as text: one character per (choice, valid token),
+    choice-major, tokens in row-major order: the expert's digit where the
+    token was kept, its letter (``a`` = expert 0) where it was dropped."""
+    e, k = np.asarray(experts)[:, valid], np.asarray(kept)[:, valid]
+    return np.where(k, 48 + e, 97 + e).astype(np.uint8).tobytes().decode("ascii")
+
+
+def routing_differ(got: str, want: str, top_k: int) -> float:
+    """Share of a layer's tokens whose routing (any choice) differs."""
+    a = np.frombuffer(got.encode(), np.uint8).reshape(top_k, -1)
+    b = np.frombuffer(want.encode(), np.uint8).reshape(top_k, -1)
+    return float((a != b).any(axis=0).mean()) if a.shape == b.shape else 1.0
+
+
+class MoECalls:
+    """While active, records every ``MoEFeedForward`` call of ``model``:
+    its input, pad mask and load-balance loss. ``summary()`` gives, per
+    layer name (``encoder.block_1.moe``), the loss and the routing's
+    ``routing_code`` (the layer's ``route`` of the recorded input)."""
+
+    def __init__(self, model):
+        from opentransformer_tpu_torch.models.modules import MoEFeedForward
+
+        self.modules = [(n, m) for n, m in model.named_modules() if isinstance(m, MoEFeedForward)]
+        self.calls = []
+
+    def __enter__(self):
+        def hook(name):
+            def record(module, args, kwargs, output):
+                pm = args[1] if len(args) > 1 else kwargs.get("pad_mask")
+                self.calls.append((name, module, args[0].detach(), pm, float(output[1])))
+            return record
+
+        self.handles = [m.register_forward_hook(hook(n), with_kwargs=True)
+                        for n, m in self.modules]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def summary(self) -> tuple[dict, dict]:
+        aux, codes = {}, {}
+        for name, module, x, pm, loss in self.calls:
+            with torch.no_grad():
+                r = module.route(x, pm)
+            valid = (np.ones(x.shape[:2], bool) if pm is None else pm.cpu().numpy())
+            aux[name] = loss
+            codes[name] = routing_code(r.experts.cpu().numpy(), r.kept.cpu().numpy(), valid)
+        return aux, codes
+
+
+def moe_outputs(model, feats, mask, targets, c: dict) -> dict:
+    """``conformer_outputs`` of an MoE speech2text model, with each MoE
+    layer's load-balance loss (``aux``) and routing (``routing``)."""
+    with MoECalls(model) as rec:
+        out = conformer_outputs(model, feats, mask, targets, c["steps"], c["beam"],
+                                c["probe_seed"])
+    out["aux"], out["routing"] = rec.summary()
+    return out
+
+
+def moe_parity(out: dict, want: dict, top_k: int) -> dict:
+    """``conformer_parity`` plus the largest relative difference of a
+    layer's load-balance loss (``aux``) and the largest share of a layer's
+    tokens routed differently (``routing``)."""
+    got = conformer_parity(out, want)
+    if sorted(out["aux"]) != sorted(want["aux"]):
+        raise AssertionError(f"MoE layers {sorted(out['aux'])}, the fixture's "
+                             f"{sorted(want['aux'])}")
+    got["aux"] = max(abs(out["aux"][n] - a) / abs(a) for n, a in want["aux"].items())
+    got["routing"] = max(routing_differ(out["routing"][n], code, top_k)
+                         for n, code in want["routing"].items())
+    return got
+
+
+def moe_parity_ok(got: dict) -> bool:
+    return (got["memory"] <= MOE_MEMORY_ATOL and got["logp"] <= MOE_LOGP_ATOL
+            and got["aux"] <= MOE_AUX_RTOL and got["routing"] <= MOE_ROUTING_SHARE
+            and got["ids_differ"] <= MOE_ID_LIMIT and got["frames_differ"] == 0)
+
+
+def load_json(path: str) -> dict:
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def seeded_checked(cfg: dict, seed: int, want: float, device="cuda", dtype=torch.float32):
+    """``cfg`` with seeded weights, their checksum held to ``want`` → (model,
+    its JAX-layout params)."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    model = build_model(cfg, dtype=dtype, device=device)
+    params = seeded_params(model, seed)
+    if abs(checksum(params) - want) > 1e-9 * want:
+        raise AssertionError(f"the seeded weights' checksum {checksum(params)!r} is not the "
+                             f"fixture's {want!r} (numpy's random stream changed?)")
+    return compat.load_into(model, params), params
+
+
+class LogCount(logging.Handler):
+    """Counts the records of a logger that contain ``needle``."""
+
+    def __init__(self, logger: str, needle: str):
+        super().__init__(logging.WARNING)
+        self.logger, self.needle, self.count = logging.getLogger(logger), needle, 0
+
+    def emit(self, record):
+        self.count += self.needle in record.getMessage()
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def phase15a_parity(device: str) -> int:
+    """15a: ``transformer_moe`` in float32 against the JAX fixture. Returns
+    the kernel-1 launches of its beam."""
+    from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
+
+    fixture = load_json(MOE_FIXTURE)
+    c = fixture["inputs"]
+    cfg = conformer_model_cfg(MOE_NAME)
+    if cfg != fixture["config"]:
+        raise AssertionError("phase15a: the committed transformer_moe config is not the fixture's")
+    model, _ = seeded_checked(cfg, c["weights_seed"], fixture["checksums"]["weights"], device)
+    feats, mask, targets = fixture_inputs(fixture)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_moe = sum(p.numel() for n, p in model.named_parameters() if ".moe." in n)
+    project_logp_topk.launches = project2_logp_topk.launches = 0
+    t0 = time.time()
+    out = moe_outputs(model, feats, mask, targets, c)
+    one, two = project_logp_topk.launches, project2_logp_topk.launches
+    got = moe_parity(out, fixture["results"], cfg["encoder"]["moe_top_k"])
+    kept = np.mean([np.char.isdigit(np.array(list(code))).mean()
+                    for code in out["routing"].values()])
+    ok = (moe_parity_ok(got) and one == (c["steps"] if device == "cuda" else 0) and two == 0
+          and bool(np.isfinite(out["logp"]).all() and np.isfinite(out["memory"]).all()))
+    log(f"phase15a {MOE_NAME} f32 ({n_params} parameters, {n_moe} of them in "
+        f"{len(out['aux'])} MoE layers), seeded weights, {c['utts']} utterances of "
+        f"{c['min_frames']}-{c['frames']} frames x {c['mel']} mel, against JAX: encoder memory "
+        f"(projected) max|d| {got['memory']:.3e} (atol {MOE_MEMORY_ATOL:.0e}; frame counts differ "
+        f"on {got['frames_differ']}), teacher-forced log-probs max|d| {got['logp']:.3e} (atol "
+        f"{MOE_LOGP_ATOL:.0e}), per-layer aux max relative {got['aux']:.2e} (limit "
+        f"{MOE_AUX_RTOL:.0e}; values {[round(a, 6) for a in out['aux'].values()]}), routing "
+        f"differs on at most {100 * got['routing']:.3f}% of a layer's tokens (limit "
+        f"{100 * MOE_ROUTING_SHARE:.1f}%; {100 * kept:.2f}% of the choices kept), beam "
+        f"{c['beam']} 1-best ids over {c['steps']} forced steps differ on {got['ids_differ']} <= "
+        f"{MOE_ID_LIMIT} of {c['utts']}, kernel 1 launches {one}, two-head {two}, wall "
+        f"{time.time() - t0:.1f} s {'ok' if ok else 'FAIL'} "
+        f"[{card_line() if device == 'cuda' else device}]")
+    if not ok:
+        raise AssertionError("phase15a: a gate failed (see above)")
+    return one
+
+
+def moe_ffn_ms(d_model: int, d_ff: int, moe_kw: dict, rows: int, frames: int) -> dict:
+    """Device time (``torch.profiler``: the summed kernel durations, so the
+    parts add up) of one MoE FFN call, of its routing alone and of its
+    expert products alone (the two batched products and the GLU over the E
+    buffers of ``rows`` x capacity rows), against one dense GLU FFN of the
+    same d_ff and of 2·d_ff, bf16, on x [rows, frames, d_model]; and the
+    back-to-back time (CUDA events, the host's launches included) of the
+    MoE call and of the 2·d_ff FFN. What the call's device time holds
+    beyond routing and experts is the dispatch: the buffer slots' scatter,
+    the gathers and the combine."""
+    from opentransformer_tpu_torch.models.modules import MoEFeedForward, PositionwiseFeedForward
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(rows, frames, d_model, generator=g, device="cuda", dtype=torch.bfloat16)
+    moe = MoEFeedForward(d_model, d_ff, activation="glu", **moe_kw).cuda().bfloat16().eval()
+    dense = PositionwiseFeedForward(d_model, d_ff, "glu").cuda().bfloat16().eval()
+    wide = PositionwiseFeedForward(d_model, 2 * d_ff, "glu").cuda().bfloat16().eval()
+    xe = torch.randn(moe.n_experts, rows * moe.capacity(frames), d_model, generator=g,
+                     device="cuda", dtype=torch.bfloat16)
+
+    def experts():
+        a, b = (torch.bmm(xe, moe.w1) + moe.b1[:, None, :]).chunk(2, dim=-1)
+        return torch.bmm(a * torch.sigmoid(b), moe.w2) + moe.b2[:, None, :]
+
+    parts = {"moe": lambda: moe(x), "route": lambda: moe.route(x), "experts": experts,
+             "dense": lambda: dense(x), "dense_2x": lambda: wide(x)}
+    with torch.inference_mode():
+        out = {k: device_ms_cold(lambda _, f=f: f(), [None], iters=20) for k, f in parts.items()}
+        out.update(moe_host=cuda_ms(parts["moe"], iters=20),
+                   dense_2x_host=cuda_ms(parts["dense_2x"], iters=20))
+    return out
+
+
+def phase15b_worst_case(flagship_secs: float) -> int:
+    """15b: ``transformer_moe`` through phase 3's worst case, its encode
+    alone beside the dense flagship's (in turns), and one MoE FFN call
+    beside a dense one. Returns the kernel-1 launches."""
+    cfg = conformer_model_cfg(MOE_NAME)
+    model = seeded_model(cfg, torch.bfloat16, seed=MOE_INPUTS["weights_seed"])
+    one, two, secs = worst_case_decode(f"phase15b {MOE_NAME}", model)
+    if one != WORST_CASE["max_len"] or two != 0:
+        raise AssertionError(f"phase15b: expected one one-head kernel launch per decode step "
+                             f"({WORST_CASE['max_len']}) and no two-head launch, counted {one} "
+                             f"and {two}")
+    dense = seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0)
+    runs = {"moe": worst_case_run(model, encode_only=True),
+            "dense": worst_case_run(dense, encode_only=True)}
+    peak = {}
+    for name, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    times = {"moe": [], "dense": []}
+    for order in (("dense", "moe"), ("moe", "dense"), ("dense", "moe")):
+        for name in order:
+            times[name].append(host_seconds(runs[name]))
+    med = {k: sorted(v)[1] for k, v in times.items()}
+    enc = cfg["encoder"]
+    frames = model.frontend.output_length(WORST_CASE["frames"])
+    ffn = moe_ffn_ms(enc["d_model"], enc["d_ff"],
+                     dict(n_experts=enc["moe_experts"], top_k=enc["moe_top_k"],
+                          capacity_factor=enc["moe_capacity_factor"]),
+                     WORST_CASE["batch"], frames)
+    log(f"phase15b {MOE_NAME} bf16 worst case: decode median {secs:.3f} s against phase 3's dense "
+        f"flagship {flagship_secs:.3f} s (same decoder); encode alone, in turns: MoE median "
+        f"{med['moe']:.3f} s of {[round(t, 3) for t in times['moe']]}, dense flagship "
+        f"{med['dense']:.3f} s of {[round(t, 3) for t in times['dense']]}, peak memory of an "
+        f"encode MoE {peak['moe']:.2f} GiB, dense {peak['dense']:.2f} GiB; one FFN at "
+        f"[{WORST_CASE['batch']}, {frames}, {enc['d_model']}]: MoE ({enc['moe_experts']} x "
+        f"d_ff {enc['d_ff']}, top-{enc['moe_top_k']}, capacity {enc['moe_capacity_factor']}) "
+        f"device time {ffn['moe']:.3f} ms: routing {ffn['route']:.3f} ms, expert products "
+        f"{ffn['experts']:.3f} ms, the dispatch and combine the other "
+        f"{ffn['moe'] - ffn['route'] - ffn['experts']:.3f} ms; dense d_ff {enc['d_ff']} "
+        f"{ffn['dense']:.3f} ms, dense d_ff {2 * enc['d_ff']} {ffn['dense_2x']:.3f} ms; "
+        f"back-to-back (the host's launches included) MoE {ffn['moe_host']:.3f} ms, dense d_ff "
+        f"{2 * enc['d_ff']} {ffn['dense_2x_host']:.3f} ms [{card_line()}]")
+    return one
+
+
+def phase15c_training(workdir: str, corpus: dict, device: str):
+    """15c: ``transformer_moe`` through the training CLI on phase 7's wavs
+    (``cli_train``; router jitter and dropout on), every update's
+    ``moe_aux`` finite, one micro-batch's loss and ``moe_aux`` on the card
+    against the CPU (jitter and dropout off), and the width-64 overfit.
+    Returns (kernel-3 launches, kernel-1 launches of the reload check)."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+
+    model_cfg = overfit_model_cfg(conformer_model_cfg(MOE_NAME)) if device != "cuda" else None
+    trainer, cfg, fbank = cli_train("phase15c", workdir, corpus, device, model_cfg=model_cfg,
+                                    conf=MOE_CONF)
+    beam_launches = project_logp_topk.launches
+    aux = [x for r in trainer.history for x in r.get("aux", {}).get("moe_aux", [])]
+    n_micro = sum(len(r["losses"]) for r in trainer.history)
+    model = trainer.model.eval()
+    _, inputs, tg = next(iter(FeatureLoader(cfg, "train", seed=7)))
+    w = torch.as_tensor(inputs["waveforms"]).to(device)
+    wl = torch.as_tensor(inputs["wave_lengths"]).to(device)
+    with torch.no_grad():
+        feats, mask = trainer.frontend(w, wl, trainer.generator, train=False)
+    targets = torch.as_tensor(tg["targets"]).long()
+    tlen = torch.as_tensor(tg["targets_length"]).long()
+    on_cpu = compat.load_into(build_model(cfg["model"], device="cpu"), compat.params_to_jax(model))
+    with torch.no_grad():
+        loss, parts = model(feats, mask, targets.to(device), tlen.to(device))
+        loss_c, parts_c = on_cpu(feats.cpu(), mask.cpu(), targets, tlen)
+    rel = max(abs(loss.item() - loss_c.item()) / abs(loss_c.item()),
+              abs(parts["moe_aux"].item() - parts_c["moe_aux"].item()) / parts_c["moe_aux"].item())
+    ok = (len(aux) == n_micro and bool(np.isfinite(aux).all()) and rel <= MOE_CARD_CPU_RTOL
+          and (beam_launches > 0) == (device == "cuda"))
+    log(f"phase15c moe_aux of the trainer's {n_micro} micro-batches (the run's and the timing's; jitter "
+        f"{cfg['model']['encoder']['moe_router_jitter']}, residual dropout "
+        f"{cfg['model']['encoder']['residual_dropout']}): {[round(a, 4) for a in aux]}, all "
+        f"finite; one micro-batch ({tuple(feats.shape)}) in eval mode on {device} against the "
+        f"CPU: loss {loss.item():.6f} vs {loss_c.item():.6f}, moe_aux "
+        f"{parts['moe_aux'].item():.6f} vs {parts_c['moe_aux'].item():.6f}, max relative "
+        f"{rel:.2e} (limit {MOE_CARD_CPU_RTOL:.0e}); the reload check's beam-5 decode took "
+        f"{beam_launches} kernel-1 launches {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase15c: a gate failed (see above)")
+    wave8 = next(iter(FeatureLoader(cfg, "train", batch_size=OVERFIT["utts"], seed=3)))
+    overfit_family("phase15c transformer_moe", overfit_model_cfg(cfg["model"]), wave8, device,
+                   frontend=trainer.frontend)
+    return fbank, beam_launches
+
+
+def phase15d_lm(workdir: str, data: str, device: str) -> int:
+    """15d: the drop-free MoE transformer LM: fused and unfused decodes
+    agree on a small input, the anchor at ``-lmw 0.0`` through kernel 2
+    alone, and the drop-free warning at capacity 1.25. Returns the kernel-2
+    launches of the anchor decode."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.recognize.base import make_memory_search
+
+    cfg = moe_lm_cfg()
+    d_model = cfg["d_model"]
+    lm32 = build_model(cfg, device=device)
+    params = seeded_params(lm32, MOE_LM_SEED, embedding_std=d_model ** -0.5)
+    compat.load_into(lm32, params)
+    if device == "cuda":
+        small_input_check("phase15d flagship f32 + MoE transformer LM",
+                          seeded_model(FLAGSHIP_CFG, torch.float32, seed=0), lm32)
+    lm_npz, lm_json = os.path.join(workdir, "moe_lm.npz"), os.path.join(workdir, "moe_lm.json")
+    compat.save_npz(lm_npz, params)
+    with open(lm_json, "w") as f:
+        json.dump(cfg, f)
+    cer, one, two, differ = anchor_decode(
+        "phase15d anchor f32 + MoE transformer LM, -lmw 0.0", data,
+        os.path.join(workdir, "decode_moe_lm"), "float32",
+        ("-lm", lm_npz, "--lm_cfg", lm_json, "-lmw", "0.0", "--device", device))
+    binding = build_model(dict(cfg, moe_capacity_factor=1.25), device=device)
+    with LogCount("opentransformer_tpu_torch.recognize.base", "MoE LM built for recognition") as c:
+        make_memory_search(build_model(FLAGSHIP_CFG, device=device), 5, 8, lm=binding)
+    ok = (cer <= ANCHOR_CER_LIMIT and differ <= ANCHOR_ID_LIMIT and one == 0
+          and (two > 0) == (device == "cuda") and c.count == 1)
+    log(f"phase15d MoE LM ({MOE_LM}, {sum(p.numel() for p in lm32.parameters())} parameters) at "
+        f"-lmw 0.0: CER {cer}% <= {ANCHOR_CER_LIMIT}%, 1-best ids differ from JAX's on {differ} <= "
+        f"{ANCHOR_ID_LIMIT} of 500, two-head launches {two}, one-head {one}; at capacity 1.25 the "
+        f"drop-free warning logged {c.count} time(s) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase15d: a gate failed (see above)")
+    return two
+
+
+def moe_stream_outputs(model, ctc_model, feats, mask, probe) -> dict:
+    """The MoE conformer's streamed numbers: projections through the session
+    (``session``, with the memories) and through ``MultiStreamAttention``
+    with a slot reused (``multi``: {utterance or "again": projection}, the
+    reused slot's first utterance left out), and ``MultiStreamCTC``'s ids
+    with its ticks and kernel-1 launches."""
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+    from opentransformer_tpu_torch.recognize.multistream import MultiStreamAttention, MultiStreamCTC
+
+    dev = next(model.parameters()).device
+    pr = torch.from_numpy(probe).to(dev)
+    mems = session_memory(model, feats, mask)
+    out = {"session_mem": mems, "session": [as_numpy(m.float() @ pr) for m in mems]}
+    ms = MultiStreamAttention(model, n_streams=len(feats), **STREAM_SEARCH)
+    slots, _ = multistream_reuse(ms, feats, mask)
+    reused = [k for k, s in slots.items() if k != "again" and s == slots["again"]]
+    out["multi"] = {k: as_numpy(ms._mem[s].view().float() @ pr) for k, s in slots.items()
+                    if k not in reused}
+    project_logp_topk.launches = 0
+    ms = MultiStreamCTC(ctc_model, n_streams=len(feats))
+    _, finals = staggered(ms, feats, mask)
+    out["ctc"] = [[int(x) for x in finals[i].split()] for i in range(len(feats))]
+    out["ctc_launches"], out["ctc_ticks"] = project_logp_topk.launches, ms.ticks
+    return out
+
+
+def moe_stream_parity(out: dict, fixture: dict) -> dict:
+    """The largest |Δ| of the session's and the multi-stream's projections
+    against the fixture's (``again`` held to utterance 0), the utterances
+    whose frame counts differ and the CTC id lists that differ."""
+    want = [np.asarray(m, np.float32) for m in fixture["stream"]["memory"]]
+    got = {"session": 0.0, "multi": 0.0, "frames_differ": 0}
+    pairs = [("session", m, want[i]) for i, m in enumerate(out["session"])]
+    pairs += [("multi", m, want[0 if k == "again" else k]) for k, m in out["multi"].items()]
+    for key, mine, theirs in pairs:
+        if len(mine) != len(theirs):
+            got["frames_differ"] += 1
+            continue
+        got[key] = max(got[key], float(np.abs(mine - theirs).max()))
+    got["ctc_differ"] = sum(a != b for a, b in zip(out["ctc"], fixture["ctc"]["ids"]))
+    return got
+
+
+def phase15e_streaming(device: str) -> int:
+    """15e: the drop-free MoE ``conformer_streaming`` streamed, against the
+    port's offline chunk-masked encode and the JAX fixture; a ctc head
+    through ``MultiStreamCTC``; the capacity warning at capacity 1.25.
+    Returns the kernel-1 launches of the CTC stream."""
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    fixture = load_json(MOE_STREAM_FIXTURE)
+    c = fixture["inputs"]
+    if moe_stream_cfg() != fixture["config"]:
+        raise AssertionError("phase15e: the MoE streaming config is not the fixture's")
+    feats, mask, _ = fixture_inputs(load_conformer_fixture())
+    model, _ = seeded_checked(moe_stream_cfg(), c["weights_seed"],
+                              fixture["checksums"]["weights"], device)
+    ctc_model, _ = seeded_checked(moe_stream_cfg(ctc=True), c["ctc_weights_seed"],
+                                  fixture["checksums"]["ctc_weights"], device)
+    probe = memory_probe(model.encoder.d_model, c["probe_seed"])
+    t0 = time.time()
+    out = moe_stream_outputs(model, ctc_model, feats, mask, probe)
+    got = moe_stream_parity(out, fixture)
+    off_err = offline_memory_err(model, feats, mask, out["session_mem"])
+    offline_ids = offline_ctc_ids(ctc_model, feats, mask)
+    off_differ = sum(a != b for a, b in zip(out["ctc"], offline_ids))
+    enc = dict(moe_stream_cfg()["encoder"], moe_capacity_factor=1.25)
+    binding = build_model(dict(moe_stream_cfg(), encoder=enc), device=device)
+    with LogCount("opentransformer_tpu_torch.models.encoder", "streaming an MoE encoder") as w:
+        binding.encoder.init_stream_cache(1)
+    ok = (max(got["session"], got["multi"]) <= STREAM_MEMORY_ATOL and got["frames_differ"] == 0
+          and off_err <= STREAM_OFFLINE_ATOL and got["ctc_differ"] <= STREAM_CTC_ID_LIMIT
+          and off_differ == 0 and w.count == 1
+          and out["ctc_launches"] == (out["ctc_ticks"] if device == "cuda" else 0))
+    log(f"phase15e {STREAM_NAME} with MoE {MOE_STREAM} f32 streamed, 16 utterances in "
+        f"{STREAM_CHUNK_FRAMES}-frame feeds + tail: memory projection vs JAX's streamed one "
+        f"through StreamingEncoderSession max|d| {got['session']:.3e}, through "
+        f"MultiStreamAttention (16 slots, one reused: {len(out['multi'])} streams compared) "
+        f"{got['multi']:.3e} (atol {STREAM_MEMORY_ATOL:.0e}; frame counts differ on "
+        f"{got['frames_differ']}); streamed memory vs the port's offline chunk-masked encode "
+        f"max|d| {off_err:.3e} (atol {STREAM_OFFLINE_ATOL:.0e}); MultiStreamCTC ids differ from "
+        f"JAX's on {got['ctc_differ']} <= {STREAM_CTC_ID_LIMIT}, from the port's offline greedy "
+        f"on {off_differ} of 16, kernel 1 launches {out['ctc_launches']} = ticks "
+        f"{out['ctc_ticks']}; capacity warning at 1.25 logged {w.count} time(s); wall "
+        f"{time.time() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase15e: a gate failed (see above)")
+    return out["ctc_launches"]
+
+
+def phase_moe(workdir: str, data: str, corpus: dict, flagship_secs: float,
+              device: str = "cuda"):
+    """Phase 15 (module docstring): ``data`` holds phase 2's test split,
+    ``corpus`` phase 7's wavs. Returns ({path: kernel-1 launches}, {path:
+    kernel-2 launches}, {path: kernel-3 launches})."""
+    t_phase = time.time()
+    k1 = {"phase15a transformer_moe decode (k=5)": phase15a_parity(device)}
+    if device == "cuda":
+        k1["phase15b transformer_moe worst case"] = phase15b_worst_case(flagship_secs)
+    fbank, beam = phase15c_training(workdir, corpus, device)
+    k1["phase15c transformer_moe checkpoint beam 5"] = beam
+    two = phase15d_lm(workdir, data, device)
+    k1["phase15e MultiStreamCTC, MoE conformer (k=1)"] = phase15e_streaming(device)
+    log(f"phase15 wall {time.time() - t_phase:.1f} s")
+    return (k1, {"phase15d anchor + MoE transformer LM at -lmw 0.0": two},
+            {"phase15c transformer_moe training": fbank})
+
+
 def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
     """The kernel's entry of the JSON line: ``launches`` on its first main
     path, ``launches_by_path`` on each path that launches it."""
@@ -4095,7 +4615,7 @@ def main() -> int:
     max_err2, timings2 = phase_kernel2()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         data = phase_anchor(workdir)
-        launches = phase_flagship()
+        launches, flagship_secs = phase_flagship()
         phase_anchor_lm(workdir, data)
         ctc_launches = phase_anchor_ctc(workdir, data)
         launches2 = phase_flagship_lm()
@@ -4109,15 +4629,17 @@ def main() -> int:
         family_launches, family_launches2, family_launches3 = phase_train_families(
             workdir, data, corpus)
         ref_launches, ref_launches2, ref_launches3 = phase_reference(workdir, data, corpus)
+        moe_launches, moe_launches2, moe_launches3 = phase_moe(workdir, data, corpus,
+                                                               flagship_secs)
 
     # launches: each kernel's count on its own main paths (phase 3 without an
     # LM, phase 8's CTC decodes, phase 9's conformer decodes, phase 10's
     # serving paths, phase 11's transducer paths, phase 12's dev CER
     # probe and averaged-checkpoint decode, phase 13's decodes of the
-    # trained families and phase 14's reference-checkpoint and -m decodes,
-    # phases 5, 10d, 13e and 14a with an LM, phases 7, 9d, 13c and 14c's
-    # training runs); times at the flagship bf16 beam-step shape and at the
-    # 16 x 10 s training batch
+    # trained families, phase 14's reference-checkpoint and -m decodes and
+    # phase 15's MoE decodes, phases 5, 10d, 13e, 14a and 15d with an LM,
+    # phases 7, 9d, 13c, 14c and 15c's training runs); times at the flagship
+    # bf16 beam-step shape and at the 16 x 10 s training batch
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:96", launches, max_err,
@@ -4127,18 +4649,19 @@ def main() -> int:
                        "phase8b anchor CTC prefix beam (k=32 + lse)": ctc_launches["beam"],
                        "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"],
                        **conformer_launches, **stream_launches, **transducer_launches,
-                       **recipe_launches, **family_launches, **ref_launches}),
+                       **recipe_launches, **family_launches, **ref_launches,
+                       **moe_launches}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
                       timings2["flagship bf16"],
                       {"phase5 flagship decode + LM": launches2,
                        "phase10d batcher, anchor + LM at -lmw 0.0": stream_launches2,
-                       **family_launches2, **ref_launches2}),
+                       **family_launches2, **ref_launches2, **moe_launches2}),
         kernel_record("fbank_spec_mel", "opentransformer_tpu_torch/csrc/fbank_spec_mel.cu",
                       "opentransformer_tpu/ops/fbank_pallas.py:60", launches3, max_err3, timing3,
                       {"phase7 training": launches3,
                        "phase9d conformer_baseline training": conformer_train_launches,
-                       **family_launches3, **ref_launches3}),
+                       **family_launches3, **ref_launches3, **moe_launches3}),
     ]}
     log(f"chip_smoke ran every phase in {time.time() - t0:.1f} s")
     print(json.dumps(record))

@@ -39,7 +39,10 @@ out (``compat``; the reference transformer's ``concat_after`` and
 CLIs' ``-m``/``-c``/``-d`` interface, resumed (``-ct``, ``-ios``) and
 supervised training with asynchronous saves, MixSpeech, the fused update,
 the bfloat16 first moment, the psf extractor, host ``gaussian_noise`` and
-the ESPnet dataset. MoE and parallelism are still to port (``ROADMAP.md``).
+the ESPnet dataset; and the mixture-of-experts feed-forward
+(``models/modules.py:MoEFeedForward``) in both encoders and the
+transformer LM, trained with its load-balance loss and streamed.
+Parallelism is still to port (``ROADMAP.md``).
 
 The Pallas kernels of the JAX package become hand-written CUDA kernels
 under ``csrc/``, built with ``nvcc`` at first use (``ops/cuda_build.py``):

@@ -57,7 +57,16 @@ inverse. The reference layout differs from the port's in these ways:
     export writes the FFN as zeros; its conv module is always BatchNorm;
   * an LSTM keeps fused [4H, ·] gate matrices (i, f, g, o) and two biases,
     which sum into the port's hidden-side bias; export writes that sum as
-    ``bias_hh`` and zeros as ``bias_ih``.
+    ``bias_hh`` and zeros as ``bias_ih``;
+  * the reference has no mixture of experts: importing into an MoE config
+    and exporting an MoE model raise (the JAX package's converters fail on
+    them too, with a KeyError on export and a tree without the ``moe``
+    parameters on import).
+
+An MoE block's parameters (``moe/router/dense/{kernel,bias}`` and the
+stacked ``moe/{w1,b1,w2,b2}`` [E, ...], [L, E, ...] in the ``scan_layers``
+layout) map like any other: the router is a Linear, and the stacked leaves
+keep their name and layout.
 """
 
 from __future__ import annotations
@@ -430,11 +439,18 @@ def convert_ctc(sd) -> dict:
     return _move(sd, _ctc_names(la, la is not None and f"{la}.bias" in sd), True)
 
 
+def _no_moe() -> NotImplementedError:
+    return NotImplementedError("the reference has no mixture of experts: an MoE model has no "
+                               "reference checkpoint to import or export")
+
+
 def convert_reference_checkpoint(chkpt, model_cfg: dict) -> dict[str, torch.Tensor]:
     """A reference speech2text checkpoint (component state dicts
     ``frontend``, ``encoder``, ``decoder`` and optionally ``ctc``) → the
-    port's state dict for ``model_cfg``."""
+    port's state dict for ``model_cfg`` (which has no MoE)."""
     dec_cfg, enc_cfg = model_cfg["decoder"], model_cfg.get("encoder", {})
+    if enc_cfg.get("moe_experts", 0) > 0:
+        raise _no_moe()
     if model_cfg.get("encoder_type", "transformer") == "conformer":
         encoder = convert_conformer_encoder(
             chkpt["encoder"], int(enc_cfg.get("nblocks", 12)),
@@ -621,9 +637,11 @@ def export_reference_checkpoint(state, cfg: dict) -> dict:
     ``.pt`` payload: ``{"params": cfg, "frontend", "encoder", "decoder"[,
     "ctc"]}`` for a speech2text model with a transformer or ``ref_compat``
     BatchNorm conformer encoder, ``{"params": cfg, "model"}`` for an LM.
-    Any other model raises, as the JAX package's export does."""
+    Any other model, and an MoE one, raises, as the JAX package's export does."""
     if isinstance(state, nn.Module):
         state = state.state_dict()
+    if any(".moe." in k or k.startswith("moe.") for k in state):
+        raise _no_moe()
     mc = cfg.get("model", cfg)
     mtype = mc.get("type", "speech2text")
     if mtype == "transformer_lm":

@@ -30,11 +30,22 @@ with no residual dropout on that branch, as in the reference. A
 ``scan_layers`` config (the JAX package's stacked-parameter blocks under
 ``lax.scan``) builds the same per-block modules: torch runs a Python loop
 over blocks, so there is no program to shrink, and ``compat`` stacks and
-unstacks the ``blocks`` layout of its checkpoints. MoE blocks are not
-ported (ROADMAP.md, Queue 1: MoE).
+unstacks the ``blocks`` layout of its checkpoints.
+
+Mixture of experts (``moe_experts`` > 0): an ``MoEFeedForward`` named
+``moe`` replaces the FFN of a transformer layer, or the second macaron FFN
+of a conformer block (the first stays dense), in every block i with
+(i + 1) % ``moe_every`` == 0. The pad mask gates its dispatch, and the
+encoder returns the blocks' summed load-balance loss as a third output.
+A ``scan_layers`` encoder must have MoE in every block. The streamed step
+gates the dispatch with the chunk mask and drops the loss; capacity then
+binds per chunk, so a streamed MoE encoder equals the offline one only when
+``moe_capacity_factor`` >= E / k (``init_stream_cache`` warns otherwise).
 """
 
 from __future__ import annotations
+
+import logging
 
 import torch
 from torch import nn
@@ -43,6 +54,7 @@ from ..ops.masks import attn_mask_from_pad, chunk_attn_mask
 from .modules import (
     ConformerConvModule,
     Dropout,
+    MoEFeedForward,
     MultiHeadSelfAttention,
     PositionalEncoding,
     PositionwiseFeedForward,
@@ -50,6 +62,46 @@ from .modules import (
     layer_norm,
     rel_pos_embedding,
 )
+
+
+logger = logging.getLogger(__name__)
+
+
+def _warn_moe_stream_capacity(n_experts: int, top_k: int, capacity_factor: float) -> None:
+    """A streamed MoE block routes a chunk at a time and the offline encode a
+    whole sequence: the two agree only while capacity never binds."""
+    drop_free = n_experts / max(top_k, 1)
+    if capacity_factor < drop_free:
+        logger.warning(
+            "streaming an MoE encoder with moe_capacity_factor=%.2f < "
+            "n_experts/top_k=%.2f: expert capacity can bind, and streamed "
+            "outputs then diverge from the batch encode (capacity is "
+            "enforced per chunk when streaming). Raise moe_capacity_factor "
+            "to >= %.2f for exact parity.", capacity_factor, drop_free, drop_free)
+
+
+def _moe_blocks(n_blocks: int, moe_experts: int, moe_top_k: int, moe_capacity_factor: float,
+                moe_router_jitter: float, moe_every: int, scan_layers: bool = False) -> list:
+    """Per block, the ``MoEFeedForward`` keyword arguments (an MoE block) or
+    None (a dense one)."""
+    if moe_experts <= 0:
+        return [None] * n_blocks
+    if scan_layers and moe_every != 1:
+        raise ValueError("scan_layers requires moe_every: 1 (all blocks structurally identical)")
+    moe = dict(n_experts=moe_experts, top_k=moe_top_k, capacity_factor=moe_capacity_factor,
+               router_jitter=moe_router_jitter)
+    return [moe if (i + 1) % moe_every == 0 else None for i in range(n_blocks)]
+
+
+def _run_blocks(blocks, x, moe: bool, *args):
+    """x through ``blocks``; with MoE, (x, the blocks' summed aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) if moe else None
+    for block in blocks:
+        x = block(x, *args)
+        if isinstance(x, tuple):
+            x, a = x
+            aux = aux + a
+    return x, aux
 
 
 def stream_kv_mask(batch: int, left: int, chunk: int, cache_len, chunk_mask=None,
@@ -96,7 +148,8 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, normalize_before: bool = False,
                  activation: str = "relu", slf_attn_dropout: float = 0.0,
                  ffn_dropout: float = 0.0, residual_dropout: float = 0.1,
-                 relative_positional: bool = False, concat_after: bool = False):
+                 relative_positional: bool = False, concat_after: bool = False,
+                 moe: dict | None = None):
         super().__init__()
         self.normalize_before = normalize_before
         self.norm1 = layer_norm(d_model)
@@ -105,7 +158,10 @@ class TransformerEncoderLayer(nn.Module):
         self.slf_attn = attn(n_heads, d_model, slf_attn_dropout)
         self.relative_positional = relative_positional
         self.concat_linear = nn.Linear(2 * d_model, d_model) if concat_after else None
-        self.ffn = PositionwiseFeedForward(d_model, d_ff, activation, ffn_dropout)
+        if moe is None:
+            self.ffn = PositionwiseFeedForward(d_model, d_ff, activation, ffn_dropout)
+        self.moe = None if moe is None else MoEFeedForward(
+            d_model, d_ff, activation=activation, dropout_rate=ffn_dropout, **moe)
         self.res_dropout = Dropout(residual_dropout)
 
     def _attn_residual(self, h, attn):
@@ -115,7 +171,9 @@ class TransformerEncoderLayer(nn.Module):
             return h + self.concat_linear(torch.cat([h, attn], dim=-1))
         return h + self.res_dropout(attn)
 
-    def forward(self, x, attn_mask, pos_emb=None):
+    def forward(self, x, attn_mask, pos_emb=None, pad_mask=None):
+        """→ y, or (y, the MoE's aux) in an MoE layer (``pad_mask`` gates its
+        dispatch)."""
         # the residual is the sublayer's input: x (post-norm) or norm(x)
         pre = self.normalize_before
         h = self.norm1(x) if pre else x
@@ -125,14 +183,16 @@ class TransformerEncoderLayer(nn.Module):
         if not pre:
             h = self.norm1(h)
         h2 = self.norm2(h) if pre else h
-        h = h2 + self.res_dropout(self.ffn(h2))
+        out, aux = self.moe(h2, pad_mask) if self.moe is not None else (self.ffn(h2), None)
+        h = h2 + self.res_dropout(out)
         if not pre:
             h = self.norm2(h)
-        return h
+        return h if aux is None else (h, aux)
 
-    def encode_step(self, x, cache_k, cache_v, kv_mask):
+    def encode_step(self, x, cache_k, cache_v, kv_mask, chunk_mask=None):
         """One streamed chunk x [B, C, D] over the block's shifting KV cache
-        (inference: no dropout) → (y, new_k, new_v)."""
+        (inference: no dropout) → (y, new_k, new_v); ``chunk_mask`` gates an
+        MoE's dispatch."""
         pre = self.normalize_before
         h = self.norm1(x) if pre else x
         attn, new_k, new_v = self.slf_attn.chunk_step(h, cache_k, cache_v, kv_mask)
@@ -140,7 +200,7 @@ class TransformerEncoderLayer(nn.Module):
         if not pre:
             h = self.norm1(h)
         h2 = self.norm2(h) if pre else h
-        h = h2 + self.ffn(h2)
+        h = h2 + (self.moe(h2, chunk_mask)[0] if self.moe is not None else self.ffn(h2))
         if not pre:
             h = self.norm2(h)
         return h, new_k, new_v
@@ -152,35 +212,41 @@ class TransformerEncoder(nn.Module):
                  pos_dropout: float = 0.0, slf_attn_dropout: float = 0.0,
                  ffn_dropout: float = 0.0, residual_dropout: float = 0.1,
                  relative_positional: bool = False, chunk_size: int = 0,
-                 left_chunks: int = -1, concat_after: bool = False, scan_layers: bool = False):
+                 left_chunks: int = -1, concat_after: bool = False, scan_layers: bool = False,
+                 moe_experts: int = 0, moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
+                 moe_router_jitter: float = 0.0, moe_every: int = 1):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         self.scan_layers = scan_layers  # the checkpoint layout only (compat)
+        self.moe_experts, self.moe_top_k = moe_experts, moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
         self.relative_positional = relative_positional
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
         self.pos_enc = None if relative_positional else PositionalEncoding(d_model, pos_dropout)
         self.layers = []
+        moe = _moe_blocks(n_blocks, moe_experts, moe_top_k, moe_capacity_factor,
+                          moe_router_jitter, moe_every, scan_layers)
         for i in range(n_blocks):
             layer = TransformerEncoderLayer(d_model, n_heads, d_ff, normalize_before, activation,
                                             slf_attn_dropout, ffn_dropout, residual_dropout,
-                                            relative_positional, concat_after)
+                                            relative_positional, concat_after, moe[i])
             self.add_module(f"block_{i}", layer)
             self.layers.append(layer)
         self.after_norm = layer_norm(d_model) if normalize_before else None
 
     def forward(self, x, pad_mask):
-        """x: [B, T, D]; pad_mask: bool[B, T] → (y [B, T, D], pad_mask)."""
+        """x: [B, T, D]; pad_mask: bool[B, T] → (y [B, T, D], pad_mask), and
+        with MoE the blocks' summed load-balance loss (f32) third."""
         attn_mask = encoder_attn_mask(pad_mask, self.chunk_size, self.left_chunks)
         pos_emb = None
         if self.relative_positional:
             pos_emb = rel_pos_embedding(x.shape[1], self.d_model, x.dtype, x.device)
         else:
             x = self.pos_enc(x)
-        for layer in self.layers:
-            x = layer(x, attn_mask, pos_emb)
+        x, aux = _run_blocks(self.layers, x, self.moe_experts > 0, attn_mask, pos_emb, pad_mask)
         if self.after_norm is not None:
             x = self.after_norm(x)
-        return x, pad_mask
+        return (x, pad_mask) if aux is None else (x, pad_mask, aux)
 
     # ---- frame-synchronous streaming (chunked-attention configs) ----------
 
@@ -188,6 +254,8 @@ class TransformerEncoder(nn.Module):
         """Per-block zero KV caches [B, H, left_chunks·chunk_size, Dh] for
         ``encode_step``."""
         _check_streamable(self.chunk_size, self.left_chunks)
+        if self.moe_experts > 0:
+            _warn_moe_stream_capacity(self.moe_experts, self.moe_top_k, self.moe_capacity_factor)
         dev, dtype = _like(self)
         shape = (batch, self.n_heads, self.left_chunks * self.chunk_size,
                  self.d_model // self.n_heads)
@@ -207,7 +275,7 @@ class TransformerEncoder(nn.Module):
                                  chunk_mask, x.device)
         new_cache = []
         for layer, lc in zip(self.layers, cache):
-            x, nk, nv = layer.encode_step(x, lc["k"], lc["v"], kv_mask)
+            x, nk, nv = layer.encode_step(x, lc["k"], lc["v"], kv_mask, chunk_mask)
             new_cache.append({"k": nk, "v": nv})
         if self.after_norm is not None:
             x = self.after_norm(x)
@@ -221,8 +289,11 @@ class ConformerEncoderBlock(nn.Module):
                  macaron_style: bool = True, ffn_scale: float = 0.5, conv_first: bool = False,
                  conv_norm_type: str = "layer", conv_causal: bool = False,
                  relative_positional: bool = True, activation: str = "glu",
-                 ref_compat: bool = False):
+                 ref_compat: bool = False, moe: dict | None = None):
         super().__init__()
+        if moe is not None and ref_compat:
+            raise ValueError("ref_compat drops the post-FFN; it cannot host the MoE "
+                             "(unset one of them)")
         self.macaron_style = macaron_style
         self.ffn_scale = ffn_scale
         self.conv_first = conv_first
@@ -241,8 +312,10 @@ class ConformerEncoderBlock(nn.Module):
         self.conv_module = ConformerConvModule(d_model, cov_kernel_size, conv_norm_type,
                                                conv_dropout, conv_causal)
         self.post_ffn_norm = layer_norm(d_model)
-        if not ref_compat:
+        if not ref_compat and moe is None:
             self.post_ffn = PositionwiseFeedForward(d_model, d_ff, activation, ffn_dropout)
+        self.moe = None if moe is None else MoEFeedForward(
+            d_model, d_ff, activation=activation, dropout_rate=ffn_dropout, **moe)
         self.final_norm = layer_norm(d_model)
         self.res_dropout = Dropout(residual_dropout)
 
@@ -263,19 +336,26 @@ class ConformerEncoderBlock(nn.Module):
         else:
             x = self._conv(self._attn(x, attn_mask, pos_emb), pad_mask)
         h = self.post_ffn_norm(x)
+        aux = None
         if self.ref_compat:
             # the reference's trained forward: no second FFN, its norm bare
             x = h
         else:
-            x = x + self.ffn_scale * self.res_dropout(self.post_ffn(h))
-        return self.final_norm(x)
+            if self.moe is not None:
+                h, aux = self.moe(h, pad_mask)
+            else:
+                h = self.post_ffn(h)
+            x = x + self.ffn_scale * self.res_dropout(h)
+        x = self.final_norm(x)
+        return x if aux is None else (x, aux)
 
-    def encode_step(self, x, cache: dict, kv_mask):
+    def encode_step(self, x, cache: dict, kv_mask, chunk_mask=None):
         """One streamed chunk (inference): attention over the shifting KV
         cache and the causal conv over its carried state → (y, new cache
-        {"k", "v", "conv"}). The conv step takes no pad mask, as in the JAX
-        package: a final partial chunk's pad frames enter the conv state,
-        which only the flush reaches."""
+        {"k", "v", "conv"}); ``chunk_mask`` gates an MoE's dispatch. The
+        conv step takes no pad mask, as in the JAX package: a final partial
+        chunk's pad frames enter the conv state, which only the flush
+        reaches."""
         if self.macaron_style:
             x = x + self.ffn_scale * self.pre_ffn(self.pre_ffn_norm(x))
         new_cache = dict(cache)
@@ -291,7 +371,11 @@ class ConformerEncoderBlock(nn.Module):
 
         x = attn(conv(x)) if self.conv_first else conv(attn(x))
         h = self.post_ffn_norm(x)
-        x = h if self.ref_compat else x + self.ffn_scale * self.post_ffn(h)
+        if self.ref_compat:
+            x = h
+        else:
+            h = self.moe(h, chunk_mask)[0] if self.moe is not None else self.post_ffn(h)
+            x = x + self.ffn_scale * h
         return self.final_norm(x), new_cache
 
 
@@ -307,34 +391,40 @@ class ConformerEncoder(nn.Module):
                  conv_norm_type: str = "layer", conv_causal: bool = False,
                  activation: str = "glu", positional_encoding: bool = True,
                  relative_positional: bool = True, chunk_size: int = 0, left_chunks: int = -1,
-                 ref_compat: bool = False):
+                 ref_compat: bool = False, moe_experts: int = 0, moe_top_k: int = 1,
+                 moe_capacity_factor: float = 1.25, moe_router_jitter: float = 0.0,
+                 moe_every: int = 1):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
+        self.moe_experts, self.moe_top_k = moe_experts, moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
         self.cov_kernel_size, self.conv_causal = cov_kernel_size, conv_causal
         self.relative_positional = relative_positional
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
         self.pos_enc = (PositionalEncoding(d_model, pos_dropout)
                         if positional_encoding and not relative_positional else None)
         self.layers = []
+        moe = _moe_blocks(nblocks, moe_experts, moe_top_k, moe_capacity_factor,
+                          moe_router_jitter, moe_every)
         for i in range(nblocks):
             block = ConformerEncoderBlock(
                 d_model, n_heads, d_ff, cov_kernel_size, slf_attn_dropout, ffn_dropout,
                 residual_dropout, conv_dropout, macaron_style, ffn_scale, conv_first,
-                conv_norm_type, conv_causal, relative_positional, activation, ref_compat)
+                conv_norm_type, conv_causal, relative_positional, activation, ref_compat, moe[i])
             self.add_module(f"block_{i}", block)
             self.layers.append(block)
 
     def forward(self, x, pad_mask):
-        """x: [B, T, D]; pad_mask: bool[B, T] → (y [B, T, D], pad_mask)."""
+        """x: [B, T, D]; pad_mask: bool[B, T] → (y [B, T, D], pad_mask), and
+        with MoE the blocks' summed load-balance loss (f32) third."""
         attn_mask = encoder_attn_mask(pad_mask, self.chunk_size, self.left_chunks)
         pos_emb = None
         if self.relative_positional:
             pos_emb = rel_pos_embedding(x.shape[1], self.d_model, x.dtype, x.device)
         elif self.pos_enc is not None:
             x = self.pos_enc(x)
-        for block in self.layers:
-            x = block(x, pad_mask, attn_mask, pos_emb)
-        return x, pad_mask
+        x, aux = _run_blocks(self.layers, x, self.moe_experts > 0, pad_mask, attn_mask, pos_emb)
+        return (x, pad_mask) if aux is None else (x, pad_mask, aux)
 
     # ---- frame-synchronous streaming (chunked attention + causal conv) ----
 
@@ -347,6 +437,8 @@ class ConformerEncoder(nn.Module):
             raise ValueError(
                 "streaming a conformer requires conv_causal: true (the SAME-"
                 "padded conv window reaches into future chunks)")
+        if self.moe_experts > 0:
+            _warn_moe_stream_capacity(self.moe_experts, self.moe_top_k, self.moe_capacity_factor)
         dev, dtype = _like(self)
         kv = (batch, self.n_heads, self.left_chunks * self.chunk_size,
               self.d_model // self.n_heads)
@@ -367,6 +459,6 @@ class ConformerEncoder(nn.Module):
                                  chunk_mask, x.device)
         new_cache = []
         for block, lc in zip(self.layers, cache):
-            x, nc = block.encode_step(x, lc, kv_mask)
+            x, nc = block.encode_step(x, lc, kv_mask, chunk_mask)
             new_cache.append(nc)
         return x, new_cache

@@ -19,8 +19,15 @@ state). ``forward(src, tgt, tgt_length)`` is the training loss over the
 text collate's pairs (src = BOS ⧺ tokens, tgt = tokens ⧺ EOS): label
 smoothing with PAD targets dropped, with dropout at the JAX positions in
 training (after each residual branch of a transformer block; between
-LSTM layers). Not ported: the MoE feed-forward (``moe_experts > 0``
-raises).
+LSTM layers).
+
+``moe_experts`` > 0 makes every transformer block's FFN an
+``MoEFeedForward``. Scoring a whole sequence keeps PAD tokens out of its
+dispatch and adds ``moe_aux_weight`` times the blocks' summed load-balance
+loss to the training loss (reported as ``moe_aux``); the cached decode
+step routes each row's one token with capacity 1 and drops the loss. The
+two agree only where capacity never binds over the whole sequence
+(``moe_capacity_factor`` >= E / k).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from ..ops.masks import causal_mask
 from .modules import (
     Dense,
     Dropout,
+    MoEFeedForward,
     MultiHeadSelfAttention,
     PositionwiseFeedForward,
     layer_norm,
@@ -86,48 +94,58 @@ class _VocabHead(nn.Module):
 class TransformerLMLayer(nn.Module):
     """Self-attention and feed-forward, each followed by its LayerNorm
     (the JAX model never sets its layers' ``normalize_before``), with
-    ``residual_dropout`` on each branch's output in training."""
+    ``residual_dropout`` on each branch's output in training; ``moe`` (the
+    ``MoEFeedForward`` keyword arguments) makes the FFN a mixture of
+    experts."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str = "glu",
-                 residual_dropout: float = 0.0):
+                 residual_dropout: float = 0.0, moe: dict | None = None):
         super().__init__()
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
         self.slf_attn = MultiHeadSelfAttention(n_heads, d_model)
-        self.ffn = PositionwiseFeedForward(d_model, d_ff, activation)
+        if moe is None:
+            self.ffn = PositionwiseFeedForward(d_model, d_ff, activation)
+        self.moe = None if moe is None else MoEFeedForward(d_model, d_ff, activation=activation,
+                                                           **moe)
         self.res_dropout = Dropout(residual_dropout)
 
-    def forward(self, x, attn_mask):
+    def _ffn(self, x, pad_mask=None):
+        return self.moe(x, pad_mask) if self.moe is not None else (self.ffn(x), None)
+
+    def forward(self, x, attn_mask, pad_mask=None):
+        """→ x, or (x, the MoE's aux) in an MoE layer (``pad_mask`` gates its
+        dispatch)."""
         x = self.norm1(x + self.res_dropout(self.slf_attn(x, attn_mask)))
-        return self.norm2(x + self.res_dropout(self.ffn(x)))
+        out, aux = self._ffn(x, pad_mask)
+        x = self.norm2(x + self.res_dropout(out))
+        return x if aux is None else (x, aux)
 
     def decode_step(self, x_t, cache, index, src=None):
         """x_t: [N, 1, D]; writes position ``index`` (an int, or int[N]) of
-        ``cache`` in place."""
+        ``cache`` in place. An MoE routes each row's token alone."""
         x = self.norm1(x_t + self.slf_attn.decode_step(x_t, cache["k"], cache["v"], index, src))
-        return self.norm2(x + self.ffn(x))
+        return self.norm2(x + self._ffn(x)[0])
 
 
 class TransformerLanguageModel(_VocabHead):
-    # config keys of the JAX model's MoE feed-forward, which is not ported
-    TRAINING_FIELDS = ("moe_top_k", "moe_capacity_factor", "moe_router_jitter",
-                       "moe_aux_weight")
-
     def __init__(self, vocab_size: int, num_blocks: int = 6, d_model: int = 256,
                  n_heads: int = 4, d_ff: int = 1024, share_embedding: bool = True,
-                 activation: str = "glu", moe_experts: int = 0,
-                 residual_dropout: float = 0.1, smoothing: float = 0.1):
+                 activation: str = "glu", moe_experts: int = 0, moe_top_k: int = 1,
+                 moe_capacity_factor: float = 1.25, moe_router_jitter: float = 0.0,
+                 moe_aux_weight: float = 0.01, residual_dropout: float = 0.1,
+                 smoothing: float = 0.1):
         super().__init__(vocab_size, d_model, share_embedding, smoothing)
-        if moe_experts > 0:
-            raise NotImplementedError(
-                "the MoE feed-forward (moe_experts > 0) is not ported to "
-                "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: MoE)")
         self.num_blocks = num_blocks
         self.d_model = d_model
         self.n_heads = n_heads
+        self.moe_experts, self.moe_top_k = moe_experts, moe_top_k
+        self.moe_capacity_factor, self.moe_aux_weight = moe_capacity_factor, moe_aux_weight
+        moe = (dict(n_experts=moe_experts, top_k=moe_top_k, capacity_factor=moe_capacity_factor,
+                    router_jitter=moe_router_jitter) if moe_experts > 0 else None)
         self.layers = []
         for i in range(num_blocks):
-            layer = TransformerLMLayer(d_model, n_heads, d_ff, activation, residual_dropout)
+            layer = TransformerLMLayer(d_model, n_heads, d_ff, activation, residual_dropout, moe)
             self.add_module(f"block_{i}", layer)
             self.layers.append(layer)
 
@@ -137,14 +155,33 @@ class TransformerLanguageModel(_VocabHead):
         return x * math.sqrt(self.d_model) + sinusoid_position_encoding(
             pos, self.d_model)[None].to(x.dtype)
 
-    def logits(self, tokens):
-        """tokens int[B, T] → f32[B, T, V]. The mask is causal only: padded
-        keys stay attendable (reference parity)."""
+    def _forward(self, tokens):
+        """tokens int[B, T] → (f32[B, T, V], the MoE aux or None). The mask
+        is causal only: padded keys stay attendable (reference parity); PAD
+        tokens claim no expert capacity."""
         mask = causal_mask(tokens.shape[1], device=tokens.device)
+        pad_mask = tokens != PAD if self.moe_experts > 0 else None
         x = self._embed(tokens)
+        aux = None if pad_mask is None else torch.zeros((), device=x.device)
         for layer in self.layers:
-            x = layer(x, mask)
-        return self._project(x)
+            x = layer(x, mask, pad_mask)
+            if isinstance(x, tuple):
+                x, a = x
+                aux = aux + a
+        return self._project(x), aux
+
+    def logits(self, tokens):
+        """tokens int[B, T] → f32[B, T, V]."""
+        return self._forward(tokens)[0]
+
+    def forward(self, src, tgt, tgt_length):
+        """The training loss, with an MoE's ``moe_aux_weight``·``moe_aux``
+        added: (loss, {} or {"moe_aux"})."""
+        logits, aux = self._forward(src)
+        loss = label_smoothing_loss(logits, tgt, self.smoothing, pad_id=PAD)
+        if aux is None:
+            return loss, {}
+        return loss + self.moe_aux_weight * aux, {"moe_aux": aux}
 
     def init_cache(self, batch: int, max_len: int):
         """Per-block {"k", "v"} of [batch, H, max_len, Dh] zeros."""

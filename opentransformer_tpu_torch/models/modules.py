@@ -19,6 +19,7 @@ Numerics kept from the reference:
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -60,9 +61,10 @@ class Dropout(nn.Module):
 
 
 def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
-    """Make every ``Dropout`` of ``model`` draw from ``generator``."""
+    """Make every ``Dropout`` of ``model``, and every MoE router's jitter,
+    draw from ``generator``."""
     for module in model.modules():
-        if isinstance(module, Dropout):
+        if isinstance(module, (Dropout, MoEFeedForward)):
             module.generator = generator
 
 
@@ -397,6 +399,164 @@ class PositionwiseFeedForward(nn.Module):
         else:
             h = ACTIVATIONS[self.activation](h)
         return self.w2(self.dropout(h))
+
+
+class Routing(NamedTuple):
+    """One MoE call's routing, slot s = 0 the first choice. ``experts``,
+    ``positions`` int64[k, B, T] (a token's expert and its place in that
+    expert's buffer), ``kept`` bool[k, B, T] (False: dropped over capacity,
+    or a pad), ``weights`` f32[k, B, T] (the combine weight, 0 where not
+    kept), ``probs`` f32[B, T, E], the Switch load-balance ``aux`` (f32
+    scalar) and the per-expert capacity ``cap``."""
+
+    experts: torch.Tensor
+    positions: torch.Tensor
+    kept: torch.Tensor
+    weights: torch.Tensor
+    probs: torch.Tensor
+    aux: torch.Tensor
+    cap: int
+
+
+class MoEFeedForward(nn.Module):
+    """Mixture-of-experts FFN with top-k routing (the JAX package's
+    ``MoEFeedForward``, Switch / GShard style); returns (y, aux).
+
+    The router (``router``, a Linear to E logits) runs in float32 whatever
+    the model's dtype or autocast, and its parameters stay float32 when the
+    model is cast. Top-k (k = 1 or 2) of its softmax; each expert takes at
+    most ``cap = max(min(ceil(T·cf·k / E), T), 1)`` tokens a row (T the
+    padded length), earlier choices first and, within a choice, earlier
+    tokens first; a token over capacity is dropped and contributes zero
+    (it passes on the residual at the call site). Top-1 weighs an expert's
+    output by the raw router probability, top-2 by the probabilities
+    renormalised over the two. ``pad_mask`` bool[B, T] (True = valid)
+    keeps pads out of dispatch, capacity and the statistics of the aux
+    loss ``E·Σ_e f_e·P_e`` (f: share of first choices, P: mean
+    probability). In training, ``router_jitter`` j scales the router's
+    input by U(1 − j, 1 + j), drawn from ``self.generator``
+    (``set_dropout_generator``).
+
+    The experts' parameters are stacked over E: ``w1`` [E, D, F] (F = 2·d_ff
+    for ``glu``), ``b1`` [E, F], ``w2`` [E, d_ff, D], ``b2`` [E, D], the flax
+    layout. The JAX package dispatches with dense one-hot [B, T, E, C]
+    products; here each expert's buffer of C token rows is gathered by
+    index and the experts run as one batched product over E, which gives
+    the same routing and the same numbers."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int = 4, top_k: int = 1,
+                 capacity_factor: float = 1.25, activation: str = "relu",
+                 dropout_rate: float = 0.0, router_jitter: float = 0.0):
+        super().__init__()
+        if top_k not in (1, 2):
+            raise ValueError(f"moe_top_k must be 1 or 2, got {top_k}")
+        if activation != "glu" and activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        self.n_experts, self.top_k = int(n_experts), int(top_k)
+        self.capacity_factor = float(capacity_factor)
+        self.router_jitter = float(router_jitter)
+        self.activation = activation
+        f_out = 2 * d_ff if activation == "glu" else d_ff
+        self.router = nn.Linear(d_model, n_experts)
+        self.w1 = nn.Parameter(torch.empty(n_experts, d_model, f_out))
+        self.b1 = nn.Parameter(torch.empty(n_experts, f_out))
+        self.w2 = nn.Parameter(torch.empty(n_experts, d_ff, d_model))
+        self.b2 = nn.Parameter(torch.empty(n_experts, d_model))
+        for p, fan_in in ((self.w1, d_model), (self.b1, d_model), (self.w2, d_ff),
+                          (self.b2, d_ff)):
+            nn.init.uniform_(p, -1.0 / math.sqrt(fan_in), 1.0 / math.sqrt(fan_in))
+        self.dropout = Dropout(dropout_rate)
+        self.generator: torch.Generator | None = None
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        self.router.float()  # the router stays float32 when the model is cast
+        return self
+
+    def capacity(self, t: int) -> int:
+        cap = int(math.ceil(t * self.capacity_factor * self.top_k / self.n_experts))
+        return max(min(cap, t), 1)
+
+    def route(self, x: torch.Tensor, pad_mask: torch.Tensor | None = None) -> Routing:
+        """The routing of x [B, T, D] (the jitter applies in training)."""
+        b, t, _ = x.shape
+        e = self.n_experts
+        cap = self.capacity(t)
+        r_in = x
+        if self.router_jitter > 0.0 and self.training:
+            if self.generator is None:
+                raise RuntimeError("router jitter in training needs a generator "
+                                   "(set_dropout_generator)")
+            j = self.router_jitter
+            u = torch.rand(x.shape, generator=self.generator, device=x.device)
+            r_in = x * ((1.0 - j) + 2.0 * j * u).to(x.dtype)
+        with torch.autocast(x.device.type, enabled=False):
+            logits = F.linear(r_in.float(), self.router.weight.float(), self.router.bias.float())
+        probs = torch.softmax(logits, dim=-1)
+        valid = None if pad_mask is None else pad_mask.to(torch.float32)
+        remaining, gate_sum = probs, torch.zeros_like(probs[..., 0])
+        experts, onehots, gates = [], [], []
+        for _ in range(self.top_k):
+            idx = torch.argmax(remaining, dim=-1)  # the first maximum on ties
+            oh = F.one_hot(idx, e).to(torch.float32)
+            if valid is not None:
+                oh = oh * valid[..., None]  # pads dispatch nowhere
+            gate = (remaining * oh).sum(-1)
+            experts.append(idx)
+            onehots.append(oh)
+            gates.append(gate)
+            gate_sum = gate_sum + gate
+            remaining = remaining * (1.0 - oh)
+        counts = torch.zeros((b, 1, e), dtype=torch.long, device=x.device)
+        positions, kept, weights = [], [], []
+        for oh, gate in zip(onehots, gates):
+            # a token's place in its expert's buffer: earlier choices, then
+            # earlier tokens first (integer cumsums count exactly)
+            ohi = oh.long()
+            pos = torch.cumsum(ohi, dim=1) - ohi + counts
+            keep = (pos < cap) & (ohi > 0)
+            counts = counts + keep.sum(dim=1, keepdim=True)
+            positions.append((pos * ohi).sum(-1))
+            kept.append(keep.any(-1))
+            g = gate / torch.clamp_min(gate_sum, 1e-9) if self.top_k > 1 else gate
+            weights.append(g * kept[-1])
+        denom = torch.clamp_min(valid.sum(), 1.0) if valid is not None else float(b * t)
+        f_frac = onehots[0].sum(dim=(0, 1)) / denom
+        masked = probs if valid is None else probs * valid[..., None]
+        aux = e * torch.sum(f_frac * masked.sum(dim=(0, 1)) / denom)
+        return Routing(torch.stack(experts), torch.stack(positions), torch.stack(kept),
+                       torch.stack(weights), probs, aux, cap)
+
+    def forward(self, x, pad_mask=None):
+        """x [B, T, D] → (y [B, T, D], aux f32 scalar)."""
+        b, t, d = x.shape
+        r = self.route(x, pad_mask)
+        e, k, cap = self.n_experts, self.top_k, r.cap
+        dev = x.device
+        rows = torch.arange(b, device=dev)[None, :, None]
+        # buffer slot of each (choice, token), expert-major: (e·B + b)·C + c;
+        # what is not kept goes to one spare slot past the end
+        slot = (r.experts * b + rows) * cap + r.positions
+        n_slots = e * b * cap
+        dest = torch.where(r.kept, slot, n_slots).reshape(-1)
+        token = torch.arange(b * t, device=dev).view(1, b, t).expand(k, b, t).reshape(-1)
+        src = torch.full((n_slots + 1,), b * t, dtype=torch.long, device=dev)
+        src.scatter_(0, dest, token)
+        # empty slots read a zero row
+        x_rows = torch.cat([x.reshape(b * t, d), x.new_zeros(1, d)])
+        xe = x_rows[src[:n_slots]].view(e, b * cap, d)
+        h = torch.bmm(xe, self.w1.to(xe.dtype)) + self.b1.to(xe.dtype)[:, None, :]
+        if self.activation == "glu":
+            a, g = h.chunk(2, dim=-1)
+            h = a * torch.sigmoid(g)
+        else:
+            h = ACTIVATIONS[self.activation](h)
+        h = self.dropout(h)
+        ye = torch.bmm(h, self.w2.to(h.dtype)) + self.b2.to(h.dtype)[:, None, :]
+        picked = ye.reshape(n_slots, d)[torch.where(r.kept, slot, 0).reshape(-1)]
+        picked = picked.view(k, b, t, d).float()
+        w = r.weights.to(ye.dtype).float()[..., None]
+        return (picked * w).sum(0).to(ye.dtype), r.aux
 
 
 class BatchNorm(nn.Module):

@@ -5,9 +5,9 @@ JSON: the anchor manifest's ``model_cfg`` is one). The port covers
 ``speech2text``, ``ctc`` and ``transducer`` with a conv or concat
 frontend and a transformer or conformer encoder (absolute or relative
 positions, chunked attention, the reference's ``concat_after`` and
-``front_end_layer_norm``; a ``scan_layers`` config builds the same
-per-block modules), and the language models ``transformer_lm`` and
-``rnn_lm``. The MoE feed-forward raises and names its ROADMAP item.
+``front_end_layer_norm``, the MoE feed-forward; a ``scan_layers`` config
+builds the same per-block modules), and the language models
+``transformer_lm`` (MoE included) and ``rnn_lm``.
 """
 
 from __future__ import annotations
@@ -25,16 +25,6 @@ from .transducer import TransducerModel
 
 LM_TYPES = {"transformer_lm": TransformerLanguageModel, "rnn_lm": RecurrentLanguageModel}
 
-# options the port does not implement yet, with the value that means "off"
-# and the ROADMAP.md Queue 1 item that ports them
-_NOT_PORTED = {"encoder": {"moe_experts": (0, "MoE")}}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to opentransformer_tpu_torch yet "
-        f"(see ROADMAP.md, Queue 1: {item})")
-
 
 def _lm_kwargs(model_cfg: dict, cls) -> dict:
     """The config keys ``cls`` takes, with a warning on keys that are
@@ -42,12 +32,13 @@ def _lm_kwargs(model_cfg: dict, cls) -> dict:
     a config that mixes them up would otherwise silently build the
     default-depth LM."""
     fields = [k for k in inspect.signature(cls.__init__).parameters if k != "self"]
-    known = (*fields, *cls.TRAINING_FIELDS, "type", "dtype")
+    extra = getattr(cls, "TRAINING_FIELDS", ())
+    known = (*fields, *extra, "type", "dtype")
     dropped = sorted(k for k in model_cfg if k not in known)
     if dropped:
         logging.getLogger(__name__).warning(
             "%s config keys %s are not model fields and were IGNORED (valid: %s)",
-            cls.__name__, dropped, sorted((*fields, *cls.TRAINING_FIELDS)))
+            cls.__name__, dropped, sorted((*fields, *extra)))
     return {k: v for k, v in model_cfg.items() if k in fields}
 
 
@@ -73,12 +64,9 @@ def build_model(model_cfg: dict, dtype: torch.dtype = torch.float32,
         raise ValueError(f"unknown encoder_type {encoder_type!r} (known: {sorted(ENCODERS)})")
     if mtype == "speech2text" and model_cfg.get("decoder_type", "transformer") != "transformer":
         raise ValueError(f"unknown decoder_type {model_cfg['decoder_type']!r}")
-    for section, options in _NOT_PORTED.items():
-        for key, (off, item) in options.items():
-            if section in model_cfg and model_cfg[section].get(key, off) != off:
-                raise _not_ported(f"{section} option {key}={model_cfg[section][key]!r}", item)
     lookahead = int(model_cfg.get("lookahead_steps", 0))
-    types = {"frontend_type": frontend_type, "encoder_type": encoder_type}
+    types = {"frontend_type": frontend_type, "encoder_type": encoder_type,
+             "moe_aux_weight": float(model_cfg.get("moe_aux_weight", 0.01))}
     if mtype == "transducer":
         model = TransducerModel(
             model_cfg["frontend"], model_cfg["encoder"], int(model_cfg["vocab_size"]),

@@ -6,7 +6,9 @@ the attention-based ``SpeechToText`` and the pure-CTC ``CTCModel``.
 ``forward`` is the teacher-forced training loss (label smoothing), plus the
 hybrid ``(1 − w)·att + w·ctc`` with a CTC head on the encoder memory when
 ``ctc_weight`` w > 0. ``CTCModel``: frontend → encoder → CTC head, with the
-optional causal look-ahead depthwise conv over future frames.
+optional causal look-ahead depthwise conv over future frames. With an MoE
+encoder both add ``moe_aux_weight`` times its load-balance loss to the
+training loss and report that loss as ``moe_aux``.
 
 Targets contract (as the JAX package): targets[B, U+2] = BOS ⧺ y ⧺ EOS ⧺
 PAD…, ``targets_length`` counts y + EOS; the CTC head is trained on y + EOS.
@@ -88,12 +90,32 @@ class CTCAssistor(nn.Module):
         return ctc_loss(self.project(memory), memory_lengths, labels, label_lengths, blank_id=BLK)
 
 
+def encode_with(model, feats, feat_mask, return_aux: bool):
+    """frontend → encoder: (memory, memory_mask), and with ``return_aux`` the
+    MoE load-balance loss (None without MoE) third."""
+    x, mask = model.frontend(feats.to(model.dtype), feat_mask)
+    out = model.encoder(x, mask)
+    if return_aux:
+        return out[0], out[1], (out[2] if len(out) > 2 else None)
+    return out[0], out[1]
+
+
+def add_moe_aux(loss, aux: dict, moe_aux, weight: float):
+    """The loss with ``weight``·``moe_aux`` added, ``aux`` with it under
+    ``moe_aux`` (both unchanged without MoE)."""
+    if moe_aux is None:
+        return loss, aux
+    return loss + weight * moe_aux, {**aux, "moe_aux": moe_aux}
+
+
 class SpeechToText(nn.Module):
     def __init__(self, frontend_cfg: dict, encoder_cfg: dict, decoder_cfg: dict,
                  ctc_weight: float = 0.0, smoothing: float = 0.1, lookahead_steps: int = 0,
-                 frontend_type: str = "conv", encoder_type: str = "transformer"):
+                 frontend_type: str = "conv", encoder_type: str = "transformer",
+                 moe_aux_weight: float = 0.01):
         super().__init__()
         self.ctc_weight = ctc_weight
+        self.moe_aux_weight = moe_aux_weight
         self.smoothing = smoothing
         self.frontend = _build(FRONTENDS[frontend_type], frontend_cfg)
         self.encoder = _build(ENCODERS[encoder_type], encoder_cfg)
@@ -106,10 +128,10 @@ class SpeechToText(nn.Module):
     def dtype(self):
         return self.decoder.embedding.weight.dtype
 
-    def encode(self, feats, feat_mask):
-        """feats [B, T, F], bool[B, T] → (memory [B, T', D], bool[B, T'])."""
-        x, mask = self.frontend(feats.to(self.dtype), feat_mask)
-        return self.encoder(x, mask)
+    def encode(self, feats, feat_mask, return_aux: bool = False):
+        """feats [B, T, F], bool[B, T] → (memory [B, T', D], bool[B, T'][,
+        the MoE aux])."""
+        return encode_with(self, feats, feat_mask, return_aux)
 
     def forward(self, feats, feat_mask, targets, targets_length):
         """Teacher-forced loss: (scalar float32 loss, aux dict).
@@ -119,16 +141,18 @@ class SpeechToText(nn.Module):
         targets stay attendable keys, as in the reference; their outputs are
         dropped by the loss) and is scored on ``targets[:, 1:]``. With
         ``ctc_weight`` w > 0 the loss is ``(1 − w)·att + w·ctc`` and ``aux``
-        holds ``ctc_loss`` and ``att_loss``."""
-        memory, memory_mask = self.encode(feats, feat_mask)
+        holds ``ctc_loss`` and ``att_loss``; an MoE encoder adds
+        ``moe_aux_weight``·``moe_aux``."""
+        memory, memory_mask, moe_aux = self.encode(feats, feat_mask, return_aux=True)
         target_out = targets[:, 1:]
         logits = self.decoder(targets[:, :-1], memory, memory_mask)
         att_loss = label_smoothing_loss(logits, target_out, self.smoothing, pad_id=PAD)
         if self.ctc_weight <= 0.0:
-            return att_loss, {}
+            return add_moe_aux(att_loss, {}, moe_aux, self.moe_aux_weight)
         closs = self.ctc(memory, mask_to_length(memory_mask), target_out, targets_length)
         loss = (1.0 - self.ctc_weight) * att_loss + self.ctc_weight * closs
-        return loss, {"ctc_loss": closs, "att_loss": att_loss}
+        return add_moe_aux(loss, {"ctc_loss": closs, "att_loss": att_loss}, moe_aux,
+                           self.moe_aux_weight)
 
     def decode_full(self, targets_in, memory, memory_pad_mask):
         """Teacher-forced logits f32[B, U, V]."""
@@ -159,9 +183,10 @@ class CTCModel(nn.Module):
 
     def __init__(self, frontend_cfg: dict, encoder_cfg: dict, vocab_size: int,
                  lookahead_steps: int = 0, frontend_type: str = "conv",
-                 encoder_type: str = "transformer"):
+                 encoder_type: str = "transformer", moe_aux_weight: float = 0.01):
         super().__init__()
         self.vocab_size = int(vocab_size)
+        self.moe_aux_weight = moe_aux_weight
         self.frontend = _build(FRONTENDS[frontend_type], frontend_cfg)
         self.encoder = _build(ENCODERS[encoder_type], encoder_cfg)
         self.ctc = CTCAssistor(self.encoder.d_model, self.vocab_size, lookahead_steps)
@@ -170,16 +195,17 @@ class CTCModel(nn.Module):
     def dtype(self):
         return self.ctc.output_layer.weight.dtype
 
-    def encode(self, feats, feat_mask):
-        """feats [B, T, F], bool[B, T] → (memory [B, T', D], bool[B, T'])."""
-        x, mask = self.frontend(feats.to(self.dtype), feat_mask)
-        return self.encoder(x, mask)
+    def encode(self, feats, feat_mask, return_aux: bool = False):
+        """feats [B, T, F], bool[B, T] → (memory [B, T', D], bool[B, T'][,
+        the MoE aux])."""
+        return encode_with(self, feats, feat_mask, return_aux)
 
     def forward(self, feats, feat_mask, targets, targets_length):
-        """CTC loss on y + EOS (``targets[:, 1:]``): (scalar loss, {})."""
-        memory, memory_mask = self.encode(feats, feat_mask)
+        """CTC loss on y + EOS (``targets[:, 1:]``): (scalar loss, {}), with
+        an MoE encoder's ``moe_aux_weight``·``moe_aux`` added."""
+        memory, memory_mask, moe_aux = self.encode(feats, feat_mask, return_aux=True)
         loss = self.ctc(memory, mask_to_length(memory_mask), targets[:, 1:], targets_length)
-        return loss, {}
+        return add_moe_aux(loss, {}, moe_aux, self.moe_aux_weight)
 
     def recognize_logits(self, feats, feat_mask):
         """Frame log-probs for CTC decoding: (f32[B, T', V], bool[B, T'])."""

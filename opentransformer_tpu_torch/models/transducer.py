@@ -33,7 +33,7 @@ from ..ops.project_topk import project_logp_topk, topk_smallest_id
 from ..ops.rnnt_loss import rnnt_loss_from_blank_emit, rnnt_loss_mean
 from .lm import RNN
 from .modules import Dropout
-from .speech2text import ENCODERS, FRONTENDS, _build
+from .speech2text import ENCODERS, FRONTENDS, _build, add_moe_aux, encode_with
 
 NEG = -1.0e30
 
@@ -154,16 +154,16 @@ class TransducerModel(nn.Module):
     """frontend → encoder → prediction and joint networks.
     ``joint_t_block`` picks how the loss evaluates the joint: −1 the full
     joint while its f32 logits take at most 2 GiB, else T-blocks of 32; 0
-    the full joint; N > 0 T-blocks of N. The JAX config's
-    ``moe_aux_weight`` weighs an MoE encoder's load-balance loss, which the
-    port does not have (an MoE encoder raises in the registry)."""
+    the full joint; N > 0 T-blocks of N. ``moe_aux_weight`` weighs an MoE
+    encoder's load-balance loss in the training loss."""
 
     def __init__(self, frontend_cfg: dict, encoder_cfg: dict, vocab_size: int,
                  predictor_cfg: dict | None = None, d_joint: int | None = None,
                  frontend_type: str = "conv", encoder_type: str = "transformer",
-                 joint_t_block: int = -1):
+                 joint_t_block: int = -1, moe_aux_weight: float = 0.01):
         super().__init__()
         self.vocab_size = int(vocab_size)
+        self.moe_aux_weight = moe_aux_weight
         self.joint_t_block = int(joint_t_block)
         self.frontend = _build(FRONTENDS[frontend_type], frontend_cfg)
         self.encoder = _build(ENCODERS[encoder_type], encoder_cfg)
@@ -181,17 +181,18 @@ class TransducerModel(nn.Module):
     def dtype(self):
         return self.joint.output_layer.weight.dtype
 
-    def encode(self, feats, feat_mask):
-        """feats [B, T, F], bool[B, T] → (memory [B, T', D], bool[B, T'])."""
-        x, mask = self.frontend(feats.to(self.dtype), feat_mask)
-        return self.encoder(x, mask)
+    def encode(self, feats, feat_mask, return_aux: bool = False):
+        """feats [B, T, F], bool[B, T] → (memory [B, T', D], bool[B, T'][,
+        the MoE aux])."""
+        return encode_with(self, feats, feat_mask, return_aux)
 
     def forward(self, feats, feat_mask, targets, targets_length):
-        """The RNN-T loss: (scalar float32 batch mean, {}). Targets as the
+        """The RNN-T loss: (scalar float32 batch mean, {}), with an MoE
+        encoder's ``moe_aux_weight``·``moe_aux`` added. Targets as the
         collate writes them (BOS ⧺ y ⧺ EOS ⧺ PAD…, ``targets_length`` =
         len(y) + 1): the predictor reads ``targets[:, :-1]``, the labels are
         ``targets[:, 1:]`` with ``targets_length − 1`` of them."""
-        memory, memory_mask = self.encode(feats, feat_mask)
+        memory, memory_mask, moe_aux = self.encode(feats, feat_mask, return_aux=True)
         pred_in = targets[:, :-1]
         pred = self.predictor(pred_in)
         frame_len = mask_to_length(memory_mask)
@@ -208,7 +209,7 @@ class TransducerModel(nn.Module):
             log_probs = torch.log_softmax(self.joint(memory, pred), dim=-1)
             loss = rnnt_loss_mean(log_probs, targets[:, 1:], frame_len, targets_length - 1,
                                   blank=BLK)
-        return loss, {}
+        return add_moe_aux(loss, {}, moe_aux, self.moe_aux_weight)
 
     def init_decode_state(self, batch: int):
         """(prediction state [B, D], hidden) primed with BOS: the carry of

@@ -32,10 +32,19 @@ def make_lm_adapter(lm, max_len: int):
     ``max_len + 1`` positions), ``lm_step(tokens, state, index)`` →
     (log_probs f32[n, V], state). ``index`` is an int (the lockstep beam)
     or int[n], each row at its own position (the transducer beam's
-    per-hypothesis LM state); an LSTM LM ignores it."""
+    per-hypothesis LM state); an LSTM LM ignores it. An MoE transformer LM
+    whose capacity can bind warns: its steps (beam fusion) and its
+    whole-sequence scores (n-best rescoring) then disagree."""
     if lm is None:
         return None, None
     if isinstance(lm, TransformerLanguageModel):
+        drop_free = lm.moe_experts / max(lm.moe_top_k, 1)
+        if lm.moe_experts > 0 and lm.moe_capacity_factor < drop_free:
+            logger.warning(
+                "MoE LM built for recognition with moe_capacity_factor=%.2f < n_experts/top_k "
+                "= %.2f: beam-fusion and n-best rescoring scores diverge whenever expert "
+                "capacity binds; raise moe_capacity_factor to >= %.2f for the drop-free "
+                "regime", lm.moe_capacity_factor, drop_free, drop_free)
         return (lambda n: lm.init_cache(n, max_len + 1)), lm.decode_step
     if isinstance(lm, RecurrentLanguageModel):
         return lm.init_hidden, lm.decode_step

@@ -695,3 +695,42 @@ def test_reference_round_trip_decodes_through_kernel_on_card(cuda, tmp_path):
         mem, mm = back.encode(x, m)
         hyp = make_memory_search(back, 3, 6, eos_id=-1)(mem, mm)
     assert port.project_logp_topk.launches - before == 6 and torch.isfinite(hyp.scores).all()
+
+
+@pytest.mark.gpu
+def test_moe_forward_and_backward_on_card_match_cpu(cuda):
+    """One MoE FFN (4 experts, top-2, capacity 1.25, ragged pads) forward
+    and backward on the card against the CPU from the same weights: the
+    routing (every choice's expert and kept state) equal, the output, the
+    aux and every gradient within 1e-5 relative to their scale; and under
+    bf16 autocast the router still computes in float32 (its probabilities
+    equal the float32 ones)."""
+    from opentransformer_tpu_torch.models.modules import MoEFeedForward
+    from opentransformer_tpu_torch.utils import disable_tf32
+
+    disable_tf32()
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(4, 53, 64)).astype(np.float32))
+    pad = torch.from_numpy(np.arange(53)[None] < np.array([53, 40, 17, 1])[:, None])
+    torch.manual_seed(0)
+    cpu = MoEFeedForward(64, 96, n_experts=4, top_k=2, capacity_factor=1.25, activation="glu")
+    card = MoEFeedForward(64, 96, n_experts=4, top_k=2, capacity_factor=1.25,
+                          activation="glu").to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    out = {}
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        xi = x.clone().to(dev).requires_grad_()
+        y, aux = m(xi, pad.to(dev))
+        (y.square().sum() + 0.01 * aux).backward()
+        r = m.route(xi.detach(), pad.to(dev))
+        out[str(dev)] = [t.detach().cpu() for t in (r.experts, r.kept, y, aux, xi.grad,
+                                                    *(p.grad for p in m.parameters()))]
+    c, g = out["cpu"], out[str(cuda)]
+    assert torch.equal(g[0], c[0]) and torch.equal(g[1], c[1]) and not c[1].all()
+    for a, b in zip(c[2:], g[2:]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-5 * max(a.abs().max().item(), 1e-6))
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        r16 = card.route(x.to(cuda), pad.to(cuda))
+    with torch.no_grad():
+        r32 = card.route(x.to(cuda), pad.to(cuda))
+    assert r16.probs.dtype == torch.float32 and torch.equal(r16.probs, r32.probs)

@@ -181,5 +181,21 @@ def test_registry_warns_on_dropped_keys(caplog):
 
 
 def test_moe_lm_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dict(LM_CFGS["transformer_lm"], moe_experts=4), device="cpu")
+    """The MoE LM used to raise; the name is kept for the count. It now
+    builds and scores as JAX's: logits over PAD-holding sequences, and the
+    training loss with ``moe_aux``, within 1e-4."""
+    cfg = dict(LM_CFGS["transformer_lm"], moe_experts=4, moe_top_k=2, moe_capacity_factor=1.25)
+    jm, params, tm = make_lm_pair(cfg)
+    rng = np.random.default_rng(5)
+    src = rng.integers(3, VOCAB, size=(3, 9)).astype(np.int32)
+    src[2, 6:] = 0
+    tgt = rng.integers(3, VOCAB, size=(3, 9)).astype(np.int32)
+    lens = np.array([9, 9, 6], np.int32)
+    ref = jax.jit(lambda p, t: jm.apply(p, t, method="logits"))(params, jnp.asarray(src))
+    loss_j, aux_j = jax.jit(jm.apply)(params, *map(jnp.asarray, (src, tgt, lens)))
+    with torch.no_grad():
+        out = tm.logits(torch.from_numpy(src).long())
+        loss, aux = tm(*(torch.from_numpy(a).long() for a in (src, tgt, lens)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(aux["moe_aux"].item(), float(aux_j["moe_aux"]), rtol=0, atol=ATOL)

@@ -225,10 +225,31 @@ def test_edit_distance_matches_jax(ref, hyp):
 
 
 def test_unported_configs_raise():
+    """MoE used to raise here: an MoE encoder now builds and holds to JAX
+    (the port's weights carried over; loss and ``moe_aux`` within 1e-5
+    relative), while the options still unported (``--ep 2``) keep their
+    refusal and name the roadmap."""
+    from opentransformer_tpu_torch.cli import run as run_cli
+
     cfg = small_cfg()
-    cfg["encoder"]["moe_experts"] = 2
+    cfg["encoder"].update(moe_experts=2, moe_top_k=2, moe_capacity_factor=1.0)
+    model = build_model(cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(2, 40, 20)).astype(np.float32)
+    mask = np.arange(40)[None] < np.array([40, 29])[:, None]
+    targets = rng.integers(3, 50, size=(2, 6)).astype(np.int32)
+    targets[:, 0] = 1
+    tlen = np.array([5, 5], np.int32)
+    args = (feats, mask, targets, tlen)
+    want, jaux = jax.jit(jax_build_model(cfg).apply)(compat.params_to_jax(model),
+                                                     *map(jnp.asarray, args))
+    with torch.no_grad():
+        got, aux = model(*(torch.from_numpy(a) for a in args))
+    assert abs(got.item() - float(want)) <= 1e-5 * abs(float(want))
+    assert abs(aux["moe_aux"].item() - float(jaux["moe_aux"])) <= 1e-5 * float(jaux["moe_aux"])
+    argv = run_cli.build_argparser().parse_args(["-c", "conf.json", "--ep", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+        run_cli._check_not_ported(argv)
     # the transducer is ported: a transducer config builds and decodes
     cfg = small_cfg()
     model = build_model({"type": "transducer", "frontend": cfg["frontend"],

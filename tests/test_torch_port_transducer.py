@@ -174,7 +174,8 @@ def test_joint_network_matches_jax(pair, what):
 def test_forward_raises_and_names_the_roadmap(pair, inputs):
     """The forward used to raise: it is now the RNN-T loss, JAX's to 1e-5
     relative on the ragged inputs (eval mode: no predictor dropout). An MoE
-    encoder still raises and names the roadmap."""
+    encoder, which raised too, now builds and adds its load-balance loss as
+    JAX's does (the port's weights carried over; 1e-5 relative)."""
     model, jm, variables, _ = pair
     rng = np.random.default_rng(8)
     ulens = np.array([5, 0, 9])
@@ -188,9 +189,16 @@ def test_forward_raises_and_names_the_roadmap(pair, inputs):
     with torch.no_grad():
         got, aux = model(*port_inputs(inputs), torch.from_numpy(targets), torch.from_numpy(tlen))
     assert aux == {} and abs(got.item() - float(want)) <= 1e-5 * abs(float(want))
-    moe = dict(CFG, encoder=dict(CFG["encoder"], moe_experts=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(moe, device="cpu")
+    moe = dict(CFG, encoder=dict(CFG["encoder"], moe_experts=2), moe_aux_weight=0.05)
+    moe_model = build_model(moe, device="cpu")
+    args = (*inputs, targets, tlen)
+    want, jaux = jax.jit(jax_build_model(moe).apply)(compat.params_to_jax(moe_model),
+                                                     *map(jnp.asarray, args))
+    with torch.no_grad():
+        got, aux = moe_model(*port_inputs(inputs), torch.from_numpy(targets),
+                             torch.from_numpy(tlen))
+    assert abs(got.item() - float(want)) <= 1e-5 * abs(float(want))
+    assert abs(aux["moe_aux"].item() - float(jaux["moe_aux"])) <= 1e-5 * float(jaux["moe_aux"])
 
 
 def test_params_round_trip_and_match_the_jax_tree(pair, inputs):
