@@ -213,7 +213,31 @@ each of which raises on failure:
      port's offline chunk-masked encode and its projection against JAX's
      streamed one in ``conformer_streaming_moe.jax_stream.json``, a ctc head
      through ``MultiStreamCTC`` (one kernel-1 launch a tick), and the capacity
-     warning at capacity 1.25.
+     warning at capacity 1.25;
+  16. parallelism on ``torch.distributed`` (``opentransformer_tpu_torch/parallel/``),
+     on phase 7's first 16 wavs in batches of 8 with SpecAugment, dropout and
+     router jitter off: (a) at world 1 through the training CLI (an NCCL
+     process group; each axis has one rank, so no collective is issued),
+     ``transformer_baseline`` with ``scan_layers`` under ``-n 1 --tp 1 --pp 1
+     --ep 1``, ``--pp-schedule sharded`` and ``--pp-schedule 1f1b
+     --pp-micro-batches 2``, and ``transformer_moe`` under ``-n 1 --ep 1``,
+     each run's losses held to the plain trainer's on the same seed (the 1F1B
+     run to its loss rule, two row blocks with the loss over 2, on the plain
+     trainer) within 1e-5 relative, an update's time beside the plain
+     trainer's, then ``eval -n 1`` of the ``-n 1`` checkpoint through kernel
+     1; (b) two ranks on the one card: a child process finds whether NCCL
+     carries two ranks on ``cuda:0`` (it refuses a duplicate device), and the
+     2-rank world runs dp 2, tp 2, pp 2 (sharded, and 1F1B where the backend
+     carries its point-to-point sends: Gloo does not for CUDA tensors) and ep 2
+     at full width over the backend that carries them, each step's loss (1e-5
+     relative), gradients (1e-3 of each tensor's largest) and norm held to the
+     one-rank step, and each rank of the sharded pipe below the one-rank
+     step's peak and held memory, a mode not run printed with its reason
+     (no run here moves data over NCCL between ranks); then ``eval -n
+     2`` of the anchor on 101 test utterances at ``-b 50`` with and without
+     ``-lm`` against ``eval -n 1`` (the same predict.txt and RESULT, predict.log
+     up to a score's last printed digit), kernels 1 and 2 launched on each
+     rank.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -221,10 +245,12 @@ name and power limit; the last line is the run's JSON status.
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4590,6 +4616,508 @@ def phase_moe(workdir: str, data: str, corpus: dict, flagship_secs: float,
             {"phase15c transformer_moe training": fbank})
 
 
+# ---------------------------------------------------------------- phase 16
+# parallelism on torch.distributed (opentransformer_tpu_torch/parallel/). The
+# card is one H100: NCCL will not put two ranks of one communicator on one
+# device, so 16a drives every mode's code at world 1 through the CLIs (an
+# NCCL process group, but every axis has one rank, so the port issues no
+# collective), and 16b runs two ranks on the one card over whichever backend
+# carries each mode (Gloo here): no run on this machine moves data over NCCL
+PARALLEL = dict(train_utts=16, batch=8, eval_utts=101, eval_batch=50, loss_rtol=1e-5,
+                grad_rtol=1e-3, probe_timeout=120, cut_width=False)
+PARALLEL_16A = [  # (config, scan_layers, the CLI's parallel flags of each run)
+    ("transformer_baseline", True, [["-n", "1", "--tp", "1", "--pp", "1", "--ep", "1"],
+                                    ["--pp-schedule", "sharded"],
+                                    ["--pp-schedule", "1f1b", "--pp-micro-batches", "2"]]),
+    (MOE_NAME, False, [["-n", "1", "--ep", "1"]]),
+]
+# 16b: (mode, config, (data, model, pipe, expert), pipe schedule); "one rank"
+# is the plain step in each rank's process, the peak memory the modes' face
+PARALLEL_16B = [("one rank", "transformer_baseline", None, None),
+                ("dp 2", "transformer_baseline", (2, 1, 1, 1), None),
+                ("tp 2", "transformer_baseline", (1, 2, 1, 1), None),
+                ("pp 2 sharded", "transformer_baseline", (1, 1, 2, 1), "sharded"),
+                ("pp 2 1f1b", "transformer_baseline", (1, 1, 2, 1), "1f1b"),
+                ("ep 2", MOE_NAME, (1, 1, 1, 2), None)]
+
+
+def parallel_cfg(workdir: str, corpus: dict, name: str, scan: bool, device: str) -> dict:
+    """``conf/<name>.json`` on the first ``train_utts`` of phase 7's wavs in
+    batches of ``batch``, one epoch, without SpecAugment, dropout or router
+    jitter (so every mode's numbers can be held to another's), the encoder
+    ``scan_layers`` when asked; at a cut width off the card."""
+    root = os.path.join(workdir, "parallel_corpus")
+    os.makedirs(root, exist_ok=True)
+    scp = os.path.join(root, "train.wav.scp")
+    text = os.path.join(root, "train.text")
+    for src, dst in ((corpus["train"][0], scp), (corpus["train"][1], text)):
+        with open(src) as f:
+            lines = f.read().splitlines()[: PARALLEL["train_utts"]]
+        with open(dst, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    model_cfg = None
+    if PARALLEL["cut_width"] or device != "cuda":
+        with open(os.path.join(CONF_DIR, f"{name}.json")) as f:
+            model_cfg = overfit_model_cfg(json.load(f)["model"])
+    cfg = train_config(dict(corpus, train=(scp, text)), epochs=1, model_cfg=model_cfg,
+                       conf=os.path.join(CONF_DIR, f"{name}.json"))
+    cfg["data"].update(batch_size=PARALLEL["batch"], spec_augment=False)
+    cfg["train"]["accum_steps"] = 1
+    enc, dec = cfg["model"]["encoder"], cfg["model"]["decoder"]
+    enc.update(residual_dropout=0.0, moe_router_jitter=0.0)
+    dec["residual_dropout"] = 0.0
+    if scan:
+        enc["scan_layers"] = True
+    return cfg
+
+
+def losses_of(trainer) -> list:
+    return [x for r in trainer.history for x in r["losses"]]
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12)))
+
+
+def microbatch_reference(cfg: dict, device: str, n_micro: int = 2) -> list:
+    """The 1F1B loss rule on the plain trainer: each batch's features made
+    whole, its ``n_micro`` row blocks forward and backward with the loss
+    over ``n_micro`` (accumulation), one update; the mean of the blocks'
+    losses a batch."""
+    from opentransformer_tpu_torch.data.device_pipeline import make_device_frontend
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(7)
+    model = build_model(cfg["model"], dtype=torch.float32, device=device)
+    loader = FeatureLoader(cfg, "train", seed=7)
+    loader.set_epoch(0)
+    trainer = Trainer(dict(cfg["train"], accum_steps=n_micro), model,
+                      make_device_frontend(cfg["data"], device),
+                      torch.Generator(device=device).manual_seed(7))
+    model.train()
+    out = []
+    for batch in loader:
+        for loss in row_blocks_backward(model, trainer.batch_args(batch), n_micro):
+            trainer._window.append(loss)
+            trainer._window_aux.append({})
+        out.append(float(np.mean(trainer.update()["losses"])))
+    return out
+
+
+def row_blocks_backward(model, args, n: int) -> list:
+    """Forward and backward of ``n`` row blocks of a batch's arguments, each
+    loss over ``n`` (the 1F1B rule's gradient); returns the blocks' losses."""
+    rows = args[0].shape[0] // n
+    losses = []
+    for m in range(n):
+        loss, _ = model(*(a[m * rows : (m + 1) * rows] for a in args))
+        (loss / n).backward()
+        losses.append(loss.detach())
+    return losses
+
+
+def update_ms(trainer, cfg: dict, device: str, reps: int = 4) -> float:
+    """Median milliseconds of an update (one micro-batch of ``batch`` and the
+    step, host clock to a synchronize), after a first one."""
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+
+    batch = next(iter(FeatureLoader(cfg, "train", seed=7)))
+    trainer.model.train()
+    secs = []
+    for _ in range(reps):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        trainer.micro_step(batch)
+        trainer.update()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+    return float(np.median(secs[1:]) * 1e3)
+
+
+def phase16a_world_one(workdir: str, corpus: dict, device: str):
+    """16a: each mode through the training CLI at world 1 (an NCCL process
+    group on the card, whose one rank issues no collective) against the
+    plain trainer on the same seed (the 1F1B run against its loss rule on
+    the plain trainer), an update's time under each, then
+    ``eval -n 1`` of the ``-n 1`` checkpoint. Returns ({path: kernel-1
+    launches}, {path: kernel-3 launches})."""
+    from opentransformer_tpu_torch.cli import eval as eval_cli
+    from opentransformer_tpu_torch.cli import run as run_cli
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+
+    k3, dev_args = {}, ([] if device == "cuda" else ["--device", device])
+    for name, scan, modes in PARALLEL_16A:
+        cfg = parallel_cfg(workdir, corpus, name, scan, device)
+        conf = write_conf(workdir, f"parallel_{name}", cfg)
+        base = ["-c", conf, "--log_interval", "100", "-s", "7", *dev_args]
+        reset_launch_counts()
+        plain = run_cli.run(base + ["--expdir", os.path.join(workdir, f"p16_{name}_plain")])
+        want = losses_of(plain)
+        plain_ms = update_ms(plain, cfg, device)
+        for flags in modes:
+            reset_launch_counts()
+            tag = f"phase16a {name} {' '.join(flags)}"
+            expdir = os.path.join(workdir, f"p16_{name}_{'_'.join(f.strip('-') for f in flags)}")
+            trainer = run_cli.run(base + ["--expdir", expdir, *flags])
+            launches = k3[f"{tag} training"] = fk.spec_mel.launches
+            got = losses_of(trainer)
+            ref = microbatch_reference(cfg, device) if "1f1b" in flags else want
+            err = rel_err(got, ref)
+            ms = update_ms(trainer, cfg, device)
+            ok = err <= PARALLEL["loss_rtol"] and trainer.parallel is not None
+            log(f"{tag}: world {trainer.mesh.world} over "
+                f"{'nccl' if device == 'cuda' else 'gloo'}, mesh {trainer.mesh.shape}, losses "
+                f"{[round(x, 5) for x in got]} vs the plain trainer's "
+                f"{'1F1B rule ' if '1f1b' in flags else ''}{[round(x, 5) for x in ref]}: max "
+                f"relative {err:.2e} (limit {PARALLEL['loss_rtol']:.0e}); kernel-3 launches "
+                f"{launches}; an update of {PARALLEL['batch']} utterances "
+                f"{ms:.1f} ms against the plain trainer's {plain_ms:.1f} ms (median of 3) "
+                f"{'ok' if ok else 'FAIL'} [{card_line() if device == 'cuda' else device}]")
+            if not ok:
+                raise AssertionError(f"{tag}: a gate failed (see above)")
+            if flags[0] == "-n" and name == "transformer_baseline":
+                n1_exp = expdir
+    project_logp_topk.launches = 0
+    dec = os.path.join(workdir, "p16_eval_n1")
+    rc = eval_cli.main(["-m", n1_exp, "-d", "dev", "-n", "1", "-b", str(PARALLEL["batch"]),
+                        "-bw", "5", "-ml", "32", "--decode_dir", dec, *dev_args])
+    with open(os.path.join(dec, "RESULT")) as f:
+        result = f.read().splitlines()
+    k1 = project_logp_topk.launches
+    ok = rc == 0 and (k1 > 0) == (device == "cuda") and f"UTTS {TRAIN_CORPUS['dev']} " in result[3]
+    log(f"phase16a eval -n 1 of the -n 1 checkpoint (dev split, beam 5): {' | '.join(result)}, "
+        f"kernel-1 launches {k1} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase16a: the eval -n 1 decode failed its gate (see above)")
+    return {"phase16a eval -n 1 of the -n 1 transformer_baseline checkpoint": k1}, k3
+
+
+def nccl_two_ranks(rank: int) -> None:
+    """One all-reduce on ``cuda:0`` from each of two NCCL ranks."""
+    t = torch.ones(4, device="cuda:0")
+    torch.distributed.all_reduce(t)
+    torch.cuda.synchronize()
+
+
+def nccl_two_ranks_probe() -> tuple[bool, str]:
+    """Whether NCCL carries two ranks on the one card: the all-reduce run in
+    a child process, killed after ``probe_timeout`` seconds."""
+    code = ("import sys; sys.path.insert(0, '.'); import chip_smoke as c; "
+            "from opentransformer_tpu_torch.parallel import launch; "
+            "launch.spawn(c.nccl_two_ranks, 2, backend='nccl')")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=PARALLEL["probe_timeout"])
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        return False, f"the all-reduce did not finish in {PARALLEL['probe_timeout']} s"
+    if proc.returncode == 0:
+        return True, "ran"
+    lines = [ln for ln in out.splitlines() if re.search(r"[Ee]rror|NCCL|[Dd]uplicate", ln)]
+    return False, (lines[-1].strip() if lines else f"exit code {proc.returncode}")[:300]
+
+
+def parallel_step(cfg: dict, device, dims=None, schedule=None):
+    """One training micro-batch of ``cfg``'s first batch (seed 7) on a mesh
+    of ``dims`` (the plain trainer without): (loss, one-card gradients,
+    gradient norm, kernel-3 launches, seconds, (peak GiB, GiB held after
+    the optimizer's first step: weights, gradients and moments), the
+    trainer)."""
+    from opentransformer_tpu_torch.data.device_pipeline import make_device_frontend
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+    from opentransformer_tpu_torch.parallel.mesh import make_mesh
+    from opentransformer_tpu_torch.train.trainer import Trainer
+
+    cuda = torch.device(device).type == "cuda"
+    torch.manual_seed(7)
+    model = build_model(cfg["model"], dtype=torch.float32, device=device)
+    loader = FeatureLoader(cfg, "train", seed=7)
+    loader.set_epoch(0)
+    batch = next(iter(loader))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    pipe = dict(pp_schedule=schedule, pp_micro_batches=2) if schedule == "1f1b" else {}
+    trainer = Trainer(dict(cfg["train"], **pipe), model, make_device_frontend(cfg["data"], device),
+                      torch.Generator(device=device).manual_seed(7),
+                      mesh=None if dims is None else make_mesh(*dims))
+    model.train()
+    t0 = time.time()
+    loss = trainer.micro_step(batch)
+    if trainer.parallel is not None:
+        trainer.parallel.sync_grads(trainer.optimizer)
+        loss = trainer.parallel.report(loss.reshape(1).clone())[0]
+    if cuda:
+        torch.cuda.synchronize()
+    secs = time.time() - t0
+    # Adam's moments come into being at the first step (lr 0 here: the
+    # weights stay): a pipe rank holds the weights, gradients and moments of
+    # the blocks it owns alone
+    trainer.optimizer.step()
+    held = torch.cuda.memory_allocated() / 2**30 if cuda else float("nan")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    if trainer.parallel is None:
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+    else:  # the one-card gathers come after the step's peak is read
+        gnorm = trainer.parallel.grad_norm()
+        grads = trainer.parallel.gather_grads()
+    return (float(loss), grads, float(gnorm), fk.spec_mel.launches, secs, (peak, held),
+            trainer)
+
+
+def grad_rel_err(got: dict, want: dict) -> float:
+    """The largest of each parameter's max |Δ| over its max |g|."""
+    return max(float((got[n].float().cpu() - w.float().cpu()).abs().max()
+                     / w.float().abs().max().clamp_min(1e-30)) for n, w in want.items())
+
+
+def phase16b_rank(rank: int, workdir: str, backend: str, device_type: str) -> None:
+    """One rank of 16b: each mode's step on the 2-rank mesh, held (on rank
+    0) to the one-rank reference ``phase16b_references`` saved; every rank
+    writes its own results."""
+    device = torch.device("cuda", 0) if device_type == "cuda" else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    sys.path.insert(0, REPO)
+    out = {}
+    for mode, name, dims, schedule in PARALLEL_16B:
+        if schedule == "1f1b" and backend != "nccl" and device.type == "cuda":
+            continue
+        with open(os.path.join(workdir, f"parallel_16b_{name}.json")) as f:
+            cfg = json.load(f)
+        loss, grads, gnorm, k3, secs, (peak, held), trainer = parallel_step(cfg, device, dims,
+                                                                            schedule)
+        rec = {"loss": loss, "gnorm": gnorm, "k3": k3, "secs": secs, "peak_gib": peak,
+               "held_gib": held}
+        if rank == 0 and dims is not None:
+            ref = torch.load(os.path.join(workdir, f"parallel_16b_ref_{name}"
+                                          f"{'_1f1b' if schedule == '1f1b' else ''}.pt"))
+            rec.update(loss_err=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                       gnorm_err=abs(gnorm - ref["gnorm"]) / ref["gnorm"],
+                       grad_err=grad_rel_err(grads, ref["grads"]))
+        out[mode] = rec
+        del trainer, grads
+        gc.collect()  # a sharded pipe's hooks close a cycle through the model
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(os.path.join(workdir, f"parallel_16b_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase16b_references(workdir: str, corpus: dict, device: str) -> None:
+    """The one-rank results 16b is held to: the plain trainer's step (and,
+    for 1F1B, its loss rule: two row blocks with the loss over 2)."""
+    from opentransformer_tpu_torch.data.device_pipeline import make_device_frontend
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.train.trainer import Trainer
+
+    card = card_line() if device == "cuda" else device
+    for name, scan in (("transformer_baseline", True), (MOE_NAME, False)):
+        cfg = parallel_cfg(workdir, corpus, name, scan, device)
+        with open(os.path.join(workdir, f"parallel_16b_{name}.json"), "w") as f:
+            json.dump(cfg, f)
+        loss, grads, gnorm, _, secs, (peak, _), trainer = parallel_step(cfg, device)
+        torch.save({"loss": loss, "gnorm": gnorm, "grads": {n: g.cpu() for n, g in grads.items()}},
+                   os.path.join(workdir, f"parallel_16b_ref_{name}.pt"))
+        log(f"phase16b one-rank reference {name}: loss {loss:.6f}, step {secs:.2f} s, peak "
+            f"memory {peak:.3f} GiB [{card}]")
+        del trainer
+        if name != "transformer_baseline":
+            continue
+        torch.manual_seed(7)
+        model = build_model(cfg["model"], dtype=torch.float32, device=device).train()
+        loader = FeatureLoader(cfg, "train", seed=7)
+        loader.set_epoch(0)
+        tr = Trainer(dict(cfg["train"]), model, make_device_frontend(cfg["data"], device),
+                     torch.Generator(device=device).manual_seed(7))
+        losses = row_blocks_backward(model, tr.batch_args(next(iter(loader))), 2)
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        gnorm = float(torch.sqrt(sum(torch.sum(g ** 2) for g in grads.values())))
+        torch.save({"loss": float(torch.stack(losses).mean()), "gnorm": gnorm, "grads": grads},
+                   os.path.join(workdir, f"parallel_16b_ref_{name}_1f1b.pt"))
+
+
+def anchor_subset(workdir: str, data: str, n: int) -> str:
+    """The first ``n`` utterances of phase 2's test split (scp and text)."""
+    root = os.path.join(workdir, "anchor_subset")
+    os.makedirs(os.path.join(root, "test"), exist_ok=True)
+    for name in ("feats.scp", "text"):
+        with open(os.path.join(data, "test", name)) as f:
+            lines = f.read().splitlines()[:n]
+        with open(os.path.join(root, "test", name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    shutil.copy(os.path.join(data, "vocab"), os.path.join(root, "vocab"))
+    return root
+
+
+def nbest_log_equal(a: str, b: str, score_atol: float = 2e-4) -> bool:
+    """Two predict.log files list the same utterances, n-best ranks and
+    hypotheses, with scores within ``score_atol`` (the 4-decimal print of a
+    float32 score can flip its last digit when a batch's rows are decoded
+    in a smaller batch: another matmul blocking, another summation order)."""
+    la, lb = a.splitlines(), b.splitlines()
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        ua, ka, sa, ha = (x.split(" ", 3) + [""])[:4]
+        ub, kb, sb, hb = (y.split(" ", 3) + [""])[:4]
+        if (ua, ka, ha) != (ub, kb, hb) or abs(float(sa[6:]) - float(sb[6:])) > score_atol:
+            return False
+    return True
+
+
+def eval_ranks(tag: str, workdir: str, subset: str, lm_args, device: str) -> dict:
+    """``eval -n 2`` of the anchor on ``subset`` against ``eval -n 1``: the
+    same predict.txt and RESULT (timings aside), predict.log equal up to a
+    score's last printed digit (``nbest_log_equal``), each rank's kernel
+    launches from ``--record``."""
+    from opentransformer_tpu_torch.cli import eval as eval_cli
+
+    out, recs = {}, {}
+    for n in ("1", "2"):
+        d = os.path.join(workdir, f"p16_{tag}_n{n}")
+        rec = d + ".jsonl"
+        t0 = time.time()
+        rc = eval_cli.main(["--npz", ANCHOR + ".npz", "--model_cfg", ANCHOR + ".manifest.json",
+                            "--feats", os.path.join(subset, "test", "feats.scp"),
+                            "--text", os.path.join(subset, "test", "text"),
+                            "--vocab", os.path.join(subset, "vocab"), "-b",
+                            str(PARALLEL["eval_batch"]), "-bw", "5", "-pn", "0.6", "-ml", "32",
+                            "-n", n, "--decode_dir", d, "--record", rec, *lm_args,
+                            *([] if device == "cuda" else ["--device", device])])
+        wall = time.time() - t0
+        files = {}
+        for name in ("predict.txt", "predict.log", "RESULT"):
+            with open(os.path.join(d, name)) as f:
+                files[name] = f.read()
+        files["RESULT"] = re.sub(r"^(RTF|UTTS \d+ DECODE_SECONDS) .*$", r"\1", files["RESULT"],
+                                 flags=re.M)
+        with open(rec) as f:
+            recs[n] = [json.loads(line) for line in f]
+        out[n] = (rc, files, wall)
+    one, two = out["1"][1], out["2"][1]
+    same = (one["predict.txt"] == two["predict.txt"] and one["RESULT"] == two["RESULT"]
+            and nbest_log_equal(one["predict.log"], two["predict.log"]))
+    exact = one["predict.log"] == two["predict.log"]
+    key = "project2_logp_topk" if lm_args else "project_logp_topk"
+    per_rank = {r["rank"]: r["launches"][key] for r in recs["2"]}
+    cuda = device == "cuda"
+    ok = (out["1"][0] == out["2"][0] == 0 and same and sorted(per_rank) == [0, 1]
+          and all((v > 0) == cuda for v in per_rank.values()))
+    log(f"phase16b eval -n 2 {tag}: the anchor on {PARALLEL['eval_utts']} test utterances at "
+        f"-b {PARALLEL['eval_batch']} (the last batch of one decoded whole by rank 0): "
+        f"predict.txt and RESULT {'equal' if same else 'DIFFER'} to -n 1's, predict.log "
+        f"{'byte-equal' if exact else 'equal but for a score digit' if same else 'DIFFERS'}; "
+        f"{key} launches by rank {per_rank} (-n 1: "
+        f"{recs['1'][0]['launches'][key]}); wall -n 1 {out['1'][2]:.1f} s, -n 2 "
+        f"{out['2'][2]:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase16b eval -n 2 {tag}: a gate failed (see above)")
+    return {f"phase16b eval -n 2 {tag}, rank {r}": v for r, v in per_rank.items()}
+
+
+def phase16b_two_ranks(workdir: str, data: str, corpus: dict, device: str):
+    """16b: two ranks sharing the one card. Returns ({kernel-1 path: launches},
+    {kernel-2 ...}, {kernel-3 ...})."""
+    from opentransformer_tpu_torch.parallel import launch
+
+    cuda = device == "cuda"
+    if cuda:
+        nccl_ok, nccl_why = nccl_two_ranks_probe()
+        backend = "nccl" if nccl_ok else "gloo"
+        log(f"phase16b NCCL with two ranks on cuda:0: "
+            f"{'carries them' if nccl_ok else 'refused: ' + nccl_why}; "
+            f"the 2-rank training modes run over {backend}")
+    else:
+        backend = "gloo"
+    phase16b_references(workdir, corpus, device)
+    t0 = time.time()
+    launch.spawn(phase16b_rank, 2, args=(workdir, backend, torch.device(device).type),
+                 backend=backend)
+    wall = time.time() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"parallel_16b_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    k3, ok = {}, True
+    plain = ranks[0]["one rank"]
+    log(f"phase16b the plain one-rank step in a rank's process (transformer_baseline; the "
+        f"process's first step): {plain['secs']:.2f} s, peak memory {plain['peak_gib']:.3f} GiB, "
+        f"held after Adam's first step {plain['held_gib']:.3f} GiB "
+        f"[{card_line() if cuda else device}]")
+    for mode, name, dims, schedule in PARALLEL_16B[1:]:
+        if mode not in ranks[0]:
+            log(f"phase16b {mode} ({name}): not run: its stages hand activations over point to "
+                f"point, which NCCL would carry but refuses for two ranks on one device (above), "
+                f"and Gloo carries for CPU tensors only (torch.distributed's backend table: "
+                f"Gloo on CUDA tensors has broadcast and all-reduce alone); its multi-rank "
+                f"witness is tests/test_torch_port_parallel.py (pp_1f1b_* against JAX's mesh)")
+            continue
+        r0 = ranks[0][mode]
+        good = (r0["loss_err"] <= PARALLEL["loss_rtol"] and r0["grad_err"] <= PARALLEL["grad_rtol"]
+                and r0["gnorm_err"] <= PARALLEL["loss_rtol"] * 10
+                and all((ranks[r][mode]["k3"] > 0) == cuda for r in range(2)))
+        memory_gate = mode == "pp 2 sharded" and cuda  # each rank holds half the blocks
+        if memory_gate:
+            good &= all(ranks[r][mode][k] < plain[k] for r in range(2)
+                        for k in ("peak_gib", "held_gib"))
+        ok &= good
+        for r in range(2):
+            k3[f"phase16b {mode} {name} step, rank {r}"] = ranks[r][mode]["k3"]
+        log(f"phase16b {mode} ({name}, {backend} on one card, mesh {dims}): loss {r0['loss']:.6f} "
+            f"relative to the one-rank step {r0['loss_err']:.2e} (limit "
+            f"{PARALLEL['loss_rtol']:.0e}), gradients max |Δ|/max|g| a tensor {r0['grad_err']:.2e} "
+            f"(limit {PARALLEL['grad_rtol']:.0e}), norm {r0['gnorm_err']:.2e}; kernel-3 launches "
+            f"{[ranks[r][mode]['k3'] for r in range(2)]}; step {r0['secs']:.2f} s, peak memory by "
+            f"rank {[round(ranks[r][mode]['peak_gib'], 3) for r in range(2)]} GiB, held after "
+            f"Adam's first step {[round(ranks[r][mode]['held_gib'], 3) for r in range(2)]} GiB"
+            f"{' (both below the one-rank step in the process: a gate)' if memory_gate else ''} "
+            f"{'ok' if good else 'FAIL'} [{card_line() if cuda else device}]")
+    log(f"phase16b 2-rank world wall {wall:.1f} s")
+    if not ok:
+        raise AssertionError("phase16b: a 2-rank mode disagreed with its one-rank step")
+    subset = anchor_subset(workdir, data, PARALLEL["eval_utts"])
+    lm_npz, lm_json = os.path.join(workdir, "lm.npz"), os.path.join(workdir, "lm.json")
+    if not os.path.exists(lm_npz):  # phase 4's seeded LM
+        from opentransformer_tpu_torch import compat
+        from opentransformer_tpu_torch.models.registry import build_model
+
+        compat.save_npz(lm_npz, seeded_params(build_model(ANCHOR_LM_CFG, device="cpu"), seed=11,
+                                              embedding_std=ANCHOR_LM_CFG["d_model"] ** -0.5))
+        with open(lm_json, "w") as f:
+            json.dump(ANCHOR_LM_CFG, f)
+    k1 = eval_ranks("without an LM", workdir, subset, (), device)
+    k2 = eval_ranks("with -lm at -lmw 0.1", workdir, subset,
+                    ("-lm", lm_npz, "--lm_cfg", lm_json, "-lmw", "0.1"), device)
+    return k1, k2, k3
+
+
+def phase_parallel(workdir: str, data: str, corpus: dict, device: str = "cuda"):
+    """Phase 16 (module docstring): ``data`` holds phase 2's test split,
+    ``corpus`` phase 7's wavs. Returns ({path: kernel-1 launches}, {path:
+    kernel-2 launches}, {path: kernel-3 launches})."""
+    t_phase = time.time()
+    k1, k3 = phase16a_world_one(workdir, corpus, device)
+    k1b, k2, k3b = phase16b_two_ranks(workdir, data, corpus, device)
+    log(f"phase16 wall {time.time() - t_phase:.1f} s")
+    return {**k1, **k1b}, k2, {**k3, **k3b}
+
+
 def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
     """The kernel's entry of the JSON line: ``launches`` on its first main
     path, ``launches_by_path`` on each path that launches it."""
@@ -4631,14 +5159,16 @@ def main() -> int:
         ref_launches, ref_launches2, ref_launches3 = phase_reference(workdir, data, corpus)
         moe_launches, moe_launches2, moe_launches3 = phase_moe(workdir, data, corpus,
                                                                flagship_secs)
+        par_launches, par_launches2, par_launches3 = phase_parallel(workdir, data, corpus)
 
     # launches: each kernel's count on its own main paths (phase 3 without an
     # LM, phase 8's CTC decodes, phase 9's conformer decodes, phase 10's
     # serving paths, phase 11's transducer paths, phase 12's dev CER
     # probe and averaged-checkpoint decode, phase 13's decodes of the
     # trained families, phase 14's reference-checkpoint and -m decodes and
-    # phase 15's MoE decodes, phases 5, 10d, 13e, 14a and 15d with an LM,
-    # phases 7, 9d, 13c, 14c and 15c's training runs); times at the flagship
+    # phase 15's MoE decodes, phase 16's eval -n 1 and each rank's eval -n 2,
+    # phases 5, 10d, 13e, 14a, 15d and 16b with an LM, phases 7, 9d, 13c,
+    # 14c, 15c and 16's training runs and steps); times at the flagship
     # bf16 beam-step shape and at the 16 x 10 s training batch
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
@@ -4650,18 +5180,20 @@ def main() -> int:
                        "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"],
                        **conformer_launches, **stream_launches, **transducer_launches,
                        **recipe_launches, **family_launches, **ref_launches,
-                       **moe_launches}),
+                       **moe_launches, **par_launches}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
                       timings2["flagship bf16"],
                       {"phase5 flagship decode + LM": launches2,
                        "phase10d batcher, anchor + LM at -lmw 0.0": stream_launches2,
-                       **family_launches2, **ref_launches2, **moe_launches2}),
+                       **family_launches2, **ref_launches2, **moe_launches2,
+                       **par_launches2}),
         kernel_record("fbank_spec_mel", "opentransformer_tpu_torch/csrc/fbank_spec_mel.cu",
                       "opentransformer_tpu/ops/fbank_pallas.py:60", launches3, max_err3, timing3,
                       {"phase7 training": launches3,
                        "phase9d conformer_baseline training": conformer_train_launches,
-                       **family_launches3, **ref_launches3, **moe_launches3}),
+                       **family_launches3, **ref_launches3, **moe_launches3,
+                       **par_launches3}),
     ]}
     log(f"chip_smoke ran every phase in {time.time() - t0:.1f} s")
     print(json.dumps(record))

@@ -41,8 +41,10 @@ supervised training with asynchronous saves, MixSpeech, the fused update,
 the bfloat16 first moment, the psf extractor, host ``gaussian_noise`` and
 the ESPnet dataset; and the mixture-of-experts feed-forward
 (``models/modules.py:MoEFeedForward``) in both encoders and the
-transformer LM, trained with its load-balance loss and streamed.
-Parallelism is still to port (``ROADMAP.md``).
+transformer LM, trained with its load-balance loss and streamed; and
+parallelism on ``torch.distributed`` (``parallel/``): data, tensor,
+pipeline (``sharded`` and 1F1B) and expert parallelism in the training CLI,
+and ``-n`` in the eval CLI.
 
 The Pallas kernels of the JAX package become hand-written CUDA kernels
 under ``csrc/``, built with ``nvcc`` at first use (``ops/cuda_build.py``):

@@ -73,7 +73,13 @@ for ``speech2text`` (``recognize/online.py``).
 overlapping windows with ``--context`` frames each side
 (``recognize/streaming.py``; ``speech2text`` only, other models decode
 offline with a warning). ``-p2w`` joins sentencepiece pieces in the output.
-``-n`` above 1 (several cards) is not ported.
+``-n N`` decodes on N ranks (``parallel/launch.py``, one process a card,
+cards shared round-robin when there are fewer): the rows of each batch are
+split over them, the weights whole on each; a batch they do not divide is
+decoded whole by rank 0, and rank 0 gathers the n-best lists in the
+loader's order and writes the files, which are a one-rank decode's (the
+timings aside). With ``--online`` / ``--long_form``, ``-n`` is ignored with
+a warning.
 
 It runs on the CUDA card unless ``--device cpu`` is given.
 """
@@ -81,6 +87,7 @@ It runs on the CUDA card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -89,6 +96,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import compat
 from ..config import load_config
@@ -97,8 +105,10 @@ from ..data.kaldi_io import load_mat, read_scp
 from ..data.loader import FeatureLoader
 from ..models.registry import build_model
 from ..models.speech2text import CTCModel
+from ..parallel import launch
 from ..train.checkpoint import Checkpointer
 from ..ops.levenshtein import ErrorRateAccumulator, edit_distances
+from ..ops.project_topk import project2_logp_topk, project_logp_topk
 from ..recognize.base import build_recognizer, lm_rescore
 from ..utils import resolve_device
 
@@ -189,8 +199,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None,
                    help="write a torch.profiler trace of the decode loop to DIR/trace.json")
     p.add_argument("-n", "--ngpu", type=int, default=1,
-                   help="cards to decode on: 1 (several cards are not ported)")
+                   help="ranks to decode on (one process a card, the rows of each batch "
+                        "split over them; a card is shared when there are fewer)")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
+    p.add_argument("--record", default=None,
+                   help="append one JSON line a rank (its rank, rows decoded and kernel "
+                        "launches) to this file")
     p.add_argument("--device", default=None, help="default: the CUDA card")
     return p
 
@@ -360,6 +374,25 @@ def split_batches(loader, idx2unit):
                int(np.sum(inputs["inputs_length"])), texts)
 
 
+def _decode_rows(recognize, x, mask, rank: int, world: int):
+    """One batch over the ranks: each decodes its contiguous rows (rank 0
+    the whole batch when the ranks do not divide it), and rank 0 gathers
+    the (texts, scores) in row order (None elsewhere)."""
+    b = len(x)
+    if b % world:
+        part = recognize(x, mask) if rank == 0 else ([], [])
+    else:
+        per = b // world
+        rows = slice(rank * per, (rank + 1) * per)
+        texts, scores = recognize(x[rows], mask[rows])
+        part = (list(texts), [np.asarray(sc) for sc in scores])
+    parts = [None] * world if rank == 0 else None
+    dist.gather_object(part, parts, dst=0)
+    if rank:
+        return None, None
+    return ([t for p in parts for t in p[0]], [sc for p in parts for sc in p[1]])
+
+
 def sort_by_avg_score(texts: list, scores):
     """An n-best list ranked by score / (tokens + 1) (the reference's -sba)."""
     order = sorted(range(len(texts)), key=lambda k: -scores[k] / max(len(texts[k].split()) + 1, 1))
@@ -371,10 +404,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
-    if args.ngpu > 1:
-        raise NotImplementedError(
-            f"-n {args.ngpu}: decoding on several cards is not ported to "
-            "opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: Parallelism)")
     if args.npz:
         missing = [f for f in ("model_cfg", "feats", "text", "vocab", "decode_dir")
                    if getattr(args, f) is None]
@@ -385,7 +414,32 @@ def main(argv=None) -> int:
         raise SystemExit("error: -lm with an npz needs --lm_cfg (the LM's JSON config)")
     if args.mode == "greedy":
         args.beam_width = 1
+    if args.ngpu > 1 and (args.online or args.long_form):
+        logger.warning("-n %d is ignored with --online/--long_form (sequential session "
+                       "decode); using one card", args.ngpu)
+    elif args.ngpu > 1:
+        resolve_device(args.device)  # no card: raise here, not in every rank
+        # the ranks exchange host objects only (the n-best lists): Gloo
+        launch.spawn(_rank_decode, args.ngpu, args=(args,), backend="gloo")
+        return 0
+    return decode(args)
+
+
+def _rank_decode(rank: int, args) -> None:
+    if rank:
+        logging.getLogger().setLevel(logging.WARNING)
+    decode(args, rank, args.ngpu)
+
+
+def decode(args, rank: int = 0, world: int = 1) -> int:
+    """Decode and score (``main`` after its checks). With ``world`` > 1
+    this is one rank: it decodes its contiguous rows of each batch (a batch
+    the ranks do not divide is decoded whole by rank 0), and rank 0 gathers
+    the n-best lists in the loader's order and writes the files, which are
+    then those of a one-rank decode."""
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and world > 1:
+        dev = launch.rank_device("cuda", rank)
     dtype = DTYPES[args.dtype]
     if args.npz:
         model_cfg = load_model_cfg(args.model_cfg)
@@ -426,32 +480,53 @@ def main(argv=None) -> int:
     else:
         recognizer = build_recognizer(model_type, model, lm=lm, args=vars(args),
                                       idx2unit=idx2unit)
-    os.makedirs(decode_dir, exist_ok=True)
+    if rank == 0:
+        os.makedirs(decode_dir, exist_ok=True)
 
     profiler = None
-    if args.profile:
+    if args.profile and rank == 0:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if dev.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.__enter__()
+    def recognize(x, mask):
+        feats = torch.as_tensor(x).to(dev)
+        feat_mask = torch.as_tensor(mask, dtype=torch.bool).to(dev)
+        if (args.lm_rescore_weight > 0.0 and lm is not None and model_type == "speech2text"
+                and not args.online):
+            hyp = lm_rescore(lm, recognizer.recognize_arrays(feats, feat_mask),
+                             args.lm_rescore_weight)
+            texts = recognizer.nbest_translate(hyp.tokens[:, :, 1:].cpu().numpy())
+            return texts, hyp.scores.float().cpu().numpy()
+        return recognizer.recognize(feats, feat_mask)
+
     cer, oracle = ErrorRateAccumulator(), ErrorRateAccumulator()
-    accu_time, total_frames, n_decoded = 0.0, 0, 0
-    with open(os.path.join(decode_dir, "predict.txt"), "w", encoding="utf-8") as ftxt, \
-            open(os.path.join(decode_dir, "predict.log"), "w", encoding="utf-8") as flog:
+    accu_time, total_frames, n_decoded, rows = 0.0, 0, 0, 0
+    launches0 = (project_logp_topk.launches, project2_logp_topk.launches)
+    with contextlib.ExitStack() as files:
+        if rank == 0:
+            ftxt = files.enter_context(open(os.path.join(decode_dir, "predict.txt"), "w",
+                                            encoding="utf-8"))
+            flog = files.enter_context(open(os.path.join(decode_dir, "predict.log"), "w",
+                                            encoding="utf-8"))
         for utt_ids, x, mask, frames, ref_texts in batches:
             t0 = time.time()
-            feats = torch.as_tensor(x).to(dev)
-            feat_mask = torch.as_tensor(mask, dtype=torch.bool).to(dev)
-            if (args.lm_rescore_weight > 0.0 and lm is not None and model_type == "speech2text"
-                    and not args.online):
-                hyp = lm_rescore(lm, recognizer.recognize_arrays(feats, feat_mask),
-                                 args.lm_rescore_weight)
-                texts = recognizer.nbest_translate(hyp.tokens[:, :, 1:].cpu().numpy())
-                scores = hyp.scores.float().cpu().numpy()
+            if world == 1:
+                texts, scores = recognize(x, mask)
             else:
-                texts, scores = recognizer.recognize(feats, feat_mask)
+                texts, scores = _decode_rows(recognize, x, mask, rank, world)
             accu_time += time.time() - t0
+            b = len(utt_ids)  # this rank's rows of the batch (_decode_rows)
+            if world == 1 or b % world == 0:
+                rows += b // world
+            elif rank == 0:
+                rows += b
+            if rank:
+                n_decoded += len(utt_ids)
+                if args.num_sample and n_decoded >= args.num_sample:
+                    break
+                continue
             total_frames += frames
             scores = [np.asarray(sc, dtype=np.float64) for sc in scores]
             for i, utt in enumerate(utt_ids):
@@ -470,6 +545,13 @@ def main(argv=None) -> int:
             logger.info("decoded %d utts, CER %.2f%%", n_decoded, cer.rate * 100)
             if args.num_sample and n_decoded >= args.num_sample:
                 break
+    if args.record:
+        with open(args.record, "a", encoding="utf-8") as f:
+            f.write(json.dumps({"rank": rank, "rows": rows, "launches": {
+                "project_logp_topk": project_logp_topk.launches - launches0[0],
+                "project2_logp_topk": project2_logp_topk.launches - launches0[1]}}) + "\n")
+    if rank:
+        return 0
     if profiler is not None:
         profiler.__exit__(None, None, None)
         os.makedirs(args.profile, exist_ok=True)

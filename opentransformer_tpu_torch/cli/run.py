@@ -50,11 +50,23 @@ run's children each add theirs).
         -c opentransformer_tpu_torch/conf/rnn_lm.json --expdir LM_EXP
 
 The config is JSON with the JAX package's sections and keys. It runs on the
-CUDA card unless ``--device cpu`` is given. The JAX CLI's parallelism
-options (``-n`` above 1, ``--tp``, ``--pp``, ``--pp-schedule``,
-``--pp-micro-batches``, ``--ep``, ``--multihost``) are not ported: each
-raises when given a value other than its default; ``-r``, ``-vb``, ``-ol``,
-``-p`` and ``-g`` are accepted and ignored, as there.
+CUDA card unless ``--device cpu`` is given; ``-r``, ``-vb``, ``-ol``, ``-p``
+and ``-g`` are accepted and ignored, as in the JAX CLI.
+
+Parallelism (``parallel/``), the JAX CLI's options: a mesh of ``-n`` data
+ranks (default: the cards over tp·pp·ep, at least one) × ``--tp`` tensor ×
+``--pp`` pipeline × ``--ep`` expert ranks, one process a rank
+(``parallel/launch.py``: spawned on this host, or with ``--multihost``
+the world ``torchrun`` describes). ``--pp-schedule`` is ``sharded``
+(default) or ``1f1b`` with ``--pp-micro-batches`` microbatches. Rank 0
+writes the logs, checkpoints (the one-card layout) and the record. The
+ranks' collectives run on NCCL for the card and Gloo for the CPU. Without
+any of these options the run is the single-process one; ``-n 1`` is a
+world of one rank.
+
+    python -m opentransformer_tpu_torch.cli.run -c CONF.json --expdir EXP -n 4
+    python -m opentransformer_tpu_torch.cli.run -c CONF.json --expdir EXP --tp 2 --pp 2 \\
+        --pp-schedule 1f1b --pp-micro-batches 4
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import compat
 from ..config import load_config
@@ -77,9 +90,12 @@ from ..data.device_pipeline import make_device_frontend
 from ..data.loader import FeatureLoader
 from ..data.resident import ResidentCorpus
 from ..models.registry import build_model
+from ..models.speech2text import CTCModel
 from ..ops.fbank_kernel import spec_mel
 from ..ops.levenshtein import ErrorRateAccumulator
 from ..ops.project_topk import project2_logp_topk, project_logp_topk
+from ..parallel import launch
+from ..parallel.mesh import make_mesh
 from ..recognize.base import SpeechToTextRecognizer
 from ..train.checkpoint import Checkpointer
 from ..train.trainer import Trainer, feature_args
@@ -88,23 +104,6 @@ from ..utils import resolve_device
 from .eval import load_checkpoint, load_weights
 
 logger = logging.getLogger(__name__)
-
-PARALLELISM = "Parallelism"
-# (flags, default, the ROADMAP.md Queue 1 item) of the JAX CLI's options
-# that are not ported; each raises when given another value
-_NOT_PORTED = [
-    (("--tp",), 1, PARALLELISM),
-    (("--pp",), 1, PARALLELISM),
-    (("--pp-schedule",), None, PARALLELISM),
-    (("--pp-micro-batches",), None, PARALLELISM),
-    (("--ep",), 1, PARALLELISM),
-    (("--multihost",), False, PARALLELISM),
-]
-
-
-def _dest(flags) -> str:
-    return flags[-1].lstrip("-").replace("-", "_")
-
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train a model on the port")
@@ -147,31 +146,56 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-l", "--logging_level", type=str, default="INFO")
     p.add_argument("-lg", "--log_file", type=str, default=None)
     p.add_argument("-n", "--ngpu", type=int, default=0,
-                   help="cards for data parallelism: 0 or 1 (one card)")
+                   help="data-parallel ranks (0: the cards over tp x pp x ep, at least one)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel degree")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline degree over a scan_layers transformer encoder's blocks")
+    p.add_argument("--pp-schedule", type=str, default=None, choices=("sharded", "1f1b"),
+                   help="'sharded' (stage-sharded weights and Adam moments, one device's "
+                        "numbers) or '1f1b' (interleaved pipeline with a recomputed backward)")
+    p.add_argument("--pp-micro-batches", type=int, default=None,
+                   help="microbatches a step for --pp-schedule 1f1b (default: the pp degree)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree (must divide encoder.moe_experts)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the world torchrun describes in the environment")
     for flags in (("-r", "--local_rank"), ("-vb", "--verbose"), ("-ol", "--opt_level"),
                   ("-p", "--parallel_mode"), ("-g", "--gpus")):
         p.add_argument(*flags, default=None, help="accepted for reference-CLI parity; ignored")
-    for flags, default, _ in _NOT_PORTED:
-        if isinstance(default, bool):
-            p.add_argument(*flags, dest=_dest(flags), action="store_true",
-                           help="not ported (raises)")
-        else:
-            p.add_argument(*flags, dest=_dest(flags), default=default,
-                           type=int if isinstance(default, int) else str,
-                           help="not ported (raises on a non-default value)")
     return p
 
 
-def _check_not_ported(args) -> None:
-    for flags, default, item in _NOT_PORTED:
-        if getattr(args, _dest(flags)) != default:
-            raise NotImplementedError(
-                f"{'/'.join(flags)} is not ported to opentransformer_tpu_torch yet "
-                f"(see ROADMAP.md, Queue 1: {item})")
-    if args.ngpu > 1:
-        raise NotImplementedError(
-            f"-n {args.ngpu}: data parallelism over several cards is not ported to "
-            f"opentransformer_tpu_torch yet (see ROADMAP.md, Queue 1: {PARALLELISM})")
+def mesh_dims(args, cfg) -> tuple[int, int, int, int] | None:
+    """(data, model, pipe, expert) of the run's mesh, after the JAX CLI's
+    checks (its messages), or None for a run without parallelism options."""
+    if not (args.ngpu or args.multihost or args.pp_schedule
+            or args.tp * args.pp * args.ep > 1):
+        return None
+    if args.ep > 1:
+        n_experts = int(cfg["model"].get("encoder", {}).get("moe_experts", 0))
+        if n_experts % args.ep != 0:
+            raise SystemExit(f"--ep {args.ep} requires encoder.moe_experts "
+                             f"divisible by it (got {n_experts})")
+    if args.pp > 1:
+        enc = cfg["model"].get("encoder", {})
+        if (cfg["model"].get("encoder_type", "transformer") != "transformer"
+                or not enc.get("scan_layers", False)):
+            raise SystemExit("--pp requires a transformer encoder with "
+                             "scan_layers: true (stacked layer params)")
+        if int(enc.get("n_blocks", 12)) % args.pp != 0:
+            raise SystemExit(f"--pp {args.pp} must divide encoder.n_blocks="
+                             f"{enc.get('n_blocks', 12)} (else stages would "
+                             "silently replicate)")
+    rest = args.tp * args.pp * args.ep
+    if args.multihost:
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit("--multihost needs torchrun's environment (WORLD_SIZE, RANK, "
+                             "MASTER_ADDR, MASTER_PORT)")
+        n_data = args.ngpu or max(int(os.environ["WORLD_SIZE"]) // rest, 1)
+    else:
+        cards = torch.cuda.device_count() if (args.device or "cuda").startswith("cuda") else 1
+        n_data = args.ngpu or max(cards // rest, 1)
+    return n_data, args.tp, args.pp, args.ep
 
 
 class DevCerProbe:
@@ -180,13 +204,15 @@ class DevCerProbe:
     recognizer over the training model with ``max_len = dev_cer_max_len``;
     its greedy step is kernel 1 at k = 1. ``records`` holds, per call, the
     CER, errors, tokens, utterances, greedy steps, kernel-1 launches and
-    host seconds."""
+    host seconds. A sharded run's trainer passes its one-card state dict in
+    place of the model (``model=None`` here): a one-card model built from
+    ``cfg`` decodes it, and is dropped after the call."""
 
     def __init__(self, cfg: dict, model, dev_loader, device, max_batches: int = 4):
         self.idx2unit = load_idx2unit_map(cfg["data"]["vocab"])
         self.max_len = int(cfg["train"].get("dev_cer_max_len", 32))
-        self.recognizer = SpeechToTextRecognizer(model, beam_width=1, max_len=self.max_len,
-                                                 idx2unit=self.idx2unit)
+        self.model_cfg, self.device = cfg["model"], device
+        self.recognizer = None if model is None else self._recognizer(model)
         self.batches = []
         for i, batch in enumerate(dev_loader):
             if i >= max_batches:
@@ -196,18 +222,27 @@ class DevCerProbe:
         self.targets_dict = getattr(dev_loader.dataset, "targets_dict", {})
         self.records: list[dict] = []
 
+    def _recognizer(self, model):
+        return SpeechToTextRecognizer(model, beam_width=1, max_len=self.max_len,
+                                      idx2unit=self.idx2unit)
+
     def __call__(self, model, epoch: int) -> float:
-        if model is not self.recognizer.model:
+        recognizer = self.recognizer
+        if isinstance(model, dict):  # a sharded run's one-card state
+            one_card = build_model(self.model_cfg, dtype=torch.float32, device=self.device)
+            one_card.load_state_dict(model)
+            recognizer = self._recognizer(one_card.eval())
+        elif recognizer is None or model is not recognizer.model:
             raise ValueError("the probe decodes the model it was built with")
         cer = ErrorRateAccumulator()
         n_utts = steps = 0
         launches0 = project_logp_topk.launches
         t0 = time.time()
         for utt_ids, feats, mask in self.batches:
-            hyp = self.recognizer.recognize_arrays(feats, mask)
+            hyp = recognizer.recognize_arrays(feats, mask)
             # the greedy loop stops once every row has emitted EOS
             steps += min(int(hyp.lengths.max()), self.max_len)
-            texts = self.recognizer.nbest_translate(hyp.tokens[:, :, 1:].cpu().numpy())
+            texts = recognizer.nbest_translate(hyp.tokens[:, :, 1:].cpu().numpy())
             for i, utt in enumerate(utt_ids):
                 ref = " ".join(self.idx2unit.get(t, "<UNK>")
                                for t in self.targets_dict.get(utt, []))
@@ -266,8 +301,8 @@ def resume(args, trainer: Trainer, ck: Checkpointer, model, device) -> int | Non
         logger.warning("-ct takes precedence: -im and -ios are ignored when resuming")
     if latest is not None:
         epoch, path = latest
-        compat.load_into(model, ck.load_params(path))
-        trainer.optimizer.load_state_dict(ck.load_optimizer(path, device))
+        load_state(trainer, compat.params_from_jax(ck.load_params(path)))
+        load_optimizer(trainer, ck.load_optimizer(path, device))
         trainer.global_epoch = epoch + 1
         trainer.global_step = int(ck.load_extra(path).get("global_step", 1))
         logger.info("resumed from epoch %d (global step %d)", epoch, trainer.global_step)
@@ -275,12 +310,12 @@ def resume(args, trainer: Trainer, ck: Checkpointer, model, device) -> int | Non
     elif not args.continue_training:
         if args.init_model:
             state, _ = load_checkpoint(args.init_model, None)
-            load_weights(model, state)
+            load_state(trainer, state)
             logger.info("initialized model weights from %s", args.init_model)
         if args.init_optim_state:
             path = args.init_optim_state.rstrip("/")
             src = Checkpointer(os.path.dirname(os.path.abspath(path)))
-            trainer.optimizer.load_state_dict(src.load_optimizer(path, device))
+            load_optimizer(trainer, src.load_optimizer(path, device))
             trainer.global_step = int(src.load_extra(path).get("global_step",
                                                               trainer.global_step))
             logger.info("restored the optimizer state from %s", path)
@@ -289,6 +324,24 @@ def resume(args, trainer: Trainer, ck: Checkpointer, model, device) -> int | Non
     if args.from_step:
         trainer.global_step = args.from_step
     return resumed
+
+
+def load_state(trainer: Trainer, state: dict) -> None:
+    """A one-card state dict into the trainer's model (on a mesh each rank
+    keeps its slices; a ``ctc`` model leaves a speech2text's decoder out)."""
+    if trainer.parallel is None:
+        load_weights(trainer.model, state)
+        return
+    if isinstance(trainer.model, CTCModel):
+        state = {k: v for k, v in state.items() if not k.startswith("decoder.")}
+    trainer.parallel.load_state(state)
+
+
+def load_optimizer(trainer: Trainer, state: dict) -> None:
+    if trainer.parallel is None:
+        trainer.optimizer.load_state_dict(state)
+    else:
+        trainer.parallel.load_optimizer_state(trainer.optimizer, state)
 
 
 def write_record(path: str, trainer: Trainer, resumed: int | None, first_step: int,
@@ -311,29 +364,80 @@ def write_record(path: str, trainer: Trainer, resumed: int | None, first_step: i
         f.write(json.dumps(rec) + "\n")
 
 
-def run(argv=None) -> Trainer:
+def run(argv=None) -> Trainer | None:
     """Parse ``argv``, train, and return the trainer (its ``history``,
     ``dev_losses`` and ``nan_skips`` describe the run;
     ``trainer.dev_probe_fn`` is the ``DevCerProbe``, if any, and
-    ``trainer.resident`` the device-resident corpus, if any)."""
+    ``trainer.resident`` the device-resident corpus, if any). A world of
+    several local ranks is spawned, and None is returned."""
     args = build_argparser().parse_args(argv)
-    logging.basicConfig(level=getattr(logging, args.logging_level.upper(), logging.INFO),
+    _setup_logging(args)
+    cfg = load_config(args.config)
+    dims = mesh_dims(args, cfg)
+    if dims is None:
+        return train(args, cfg)
+    backend = launch.default_backend(resolve_device(args.device).type)
+    world = dims[0] * dims[1] * dims[2] * dims[3]
+    if args.multihost:
+        local_rank = launch.init_from_env(backend)
+        try:
+            if dist.get_world_size() != world:
+                raise SystemExit(f"the mesh {dims} needs {world} ranks, torchrun started "
+                                 f"{dist.get_world_size()}")
+            return train(args, cfg, dims, local_rank)
+        finally:
+            launch.shutdown()
+    if world == 1:
+        launch.init_single(backend)
+        try:
+            return train(args, cfg, dims)
+        finally:
+            launch.shutdown()
+    logger.info("spawning %d ranks: data %d x model %d x pipe %d x expert %d (%s)",
+                world, *dims, backend)
+    launch.spawn(_rank_train, world, args=(args, dims), backend=backend)
+    return None
+
+
+def _setup_logging(args, rank: int = 0) -> None:
+    level = getattr(logging, args.logging_level.upper(), logging.INFO)
+    logging.basicConfig(level=level if rank == 0 else max(level, logging.WARNING),
                         format="%(asctime)s - %(levelname)s - %(message)s", force=True)
-    if args.log_file:
+    if args.log_file and rank == 0:
         handler = logging.FileHandler(args.log_file)
         handler.setFormatter(logging.Formatter("%(asctime)s - %(levelname)s - %(message)s"))
         logging.getLogger().addHandler(handler)
-    _check_not_ported(args)
-    cfg = load_config(args.config)
+
+
+def _rank_train(rank: int, args, dims) -> None:
+    _setup_logging(args, rank)
+    train(args, load_config(args.config), dims, rank)
+
+
+def train(args, cfg, dims=None, local_rank: int = 0) -> Trainer:
+    """One process's training: the whole run, or one rank of a mesh of
+    ``dims`` (its collectives' world initialized)."""
     model_cfg, data_cfg, train_cfg = cfg["model"], cfg["data"], dict(cfg["train"])
     if args.mixed_precision:
         train_cfg["dtype"] = "bfloat16"
     if args.steps_per_exec:
         train_cfg["steps_per_exec"] = int(args.steps_per_exec)
+    if args.pp_schedule:
+        train_cfg["pp_schedule"] = args.pp_schedule
+    if args.pp_micro_batches:
+        train_cfg["pp_micro_batches"] = int(args.pp_micro_batches)
     device = resolve_device(args.device)
+    mesh = None
+    if dims is not None:
+        if device.type == "cuda":
+            device = launch.rank_device("cuda", local_rank)
+        mesh = make_mesh(*dims)
+        logger.info("mesh %s over %d ranks (%s)", mesh.shape, mesh.world, dist.get_backend())
+    rank0 = launch.is_rank0()
     expdir = args.expdir or os.path.join("egs_exp", train_cfg.get("save_name", "exp"))
     os.makedirs(expdir, exist_ok=True)
-    shutil.copy(args.config, os.path.join(expdir, os.path.basename(args.config)))
+    if rank0:
+        shutil.copy(args.config, os.path.join(expdir, os.path.basename(args.config)))
 
     torch.manual_seed(args.seed)  # the model's initial weights
     # float32 master weights; train.dtype sets the forward's autocast
@@ -356,21 +460,24 @@ def run(argv=None) -> Trainer:
     if (dev_loader is not None and not loader.extract_on_device
             and model_cfg["type"] == "speech2text"
             and bool(train_cfg.get("dev_cer_probe", False))):
-        probe = DevCerProbe(cfg, model, dev_loader, device,
+        # a sharded model is probed through a one-card copy made for each call
+        sharded = mesh is not None and args.tp * args.pp * args.ep > 1
+        probe = DevCerProbe(cfg, None if sharded else model, dev_loader, device,
                             max_batches=int(train_cfg.get("dev_cer_batches", 4)))
         logger.info("per-epoch dev greedy-CER probe enabled")
-    ck = Checkpointer(expdir, config=cfg,
+    ck = Checkpointer(expdir, config=cfg if rank0 else None,
                       async_save=args.async_save or bool(train_cfg.get("async_save", False)))
     trainer = Trainer(
         train_cfg, model, frontend, torch.Generator(device=device).manual_seed(args.seed),
         checkpointer=ck, log_interval=args.log_interval,
         keep_last_n=args.keep_last_n_checkpoints, dev_loader=dev_loader, is_debug=args.debug,
         resident=resident, dev_probe_fn=probe, mixspeech=args.mixspeech,
-        visualizer=Visualizer(os.path.join(expdir, "tb")) if args.visual else None)
+        visualizer=Visualizer(os.path.join(expdir, "tb")) if args.visual and rank0 else None,
+        mesh=mesh)
     resumed = resume(args, trainer, ck, model, device)
     first_step, error = trainer.global_step, None
     profiler = None
-    if args.profile:
+    if args.profile and rank0:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -389,7 +496,7 @@ def run(argv=None) -> Trainer:
             profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
         if trainer.visualizer is not None:
             trainer.visualizer.close()
-        if args.record:
+        if args.record and rank0:
             write_record(args.record, trainer, resumed, first_step, error)
     return trainer
 

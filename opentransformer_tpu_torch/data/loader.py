@@ -20,8 +20,11 @@ fixed-size batches), and yields collated batches from a background thread:
 
 Speech targets are BOS ⧺ y ⧺ EOS ⧺ PAD… with ``targets_length = len(y) +
 1``. As in the JAX package, an evaluation split buckets too, so
-``drop_last`` drops its short batches. Multi-host sharding is not ported
-(ROADMAP.md, Queue 1: Parallelism).
+``drop_last`` drops its short batches. On a mesh (``cli/run.py -n``,
+``--multihost``) every rank reads the global batch and the trainer keeps
+its rows (``parallel/engine.py``), so a rank's rows keep the global batch's
+padding; the JAX loader's per-host ``num_shards`` row slicing has no
+counterpart here.
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ import math
 import torch
 from torch import nn
 
+from ..ops.collectives import vocab_parallel_logits
 from ..ops.masks import causal_mask
 from ..ops.project_topk import project_logp_topk
 from .modules import (
@@ -96,6 +97,10 @@ class TransformerDecoderLayer(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
+    # this rank's columns of a tied vocabulary split over a tensor group
+    # (set by parallel/tensor.py), None when the logits are whole
+    vocab_shard = None
+
     def __init__(self, vocab_size: int, d_model: int = 256, n_heads: int = 4, d_ff: int = 2048,
                  memory_dim: int | None = None, n_blocks: int = 6, activation: str = "glu",
                  normalize_before: bool = False, share_embedding: bool = True,
@@ -141,6 +146,8 @@ class TransformerDecoder(nn.Module):
 
     def _project(self, h):
         w, b = self.vocab_head()
+        if self.vocab_shard is not None:  # this rank's columns (tensor parallelism)
+            return vocab_parallel_logits(h, w, b, self.vocab_shard)
         return h.float() @ w.to(h.dtype).float().T + b.float()
 
     def forward(self, targets_in, memory, memory_pad_mask):

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data import PAD
+from ..ops.collectives import vocab_parallel_logits
 from ..ops.loss import label_smoothing_loss
 from ..ops.masks import causal_mask
 from .modules import (
@@ -54,7 +55,13 @@ from .modules import (
 
 class _VocabHead(nn.Module):
     """The output projection both LMs share: the embedding matrix with a
-    separate ``output_bias`` when tied, an ``output_layer`` otherwise."""
+    separate ``output_bias`` when tied, an ``output_layer`` otherwise.
+    Set by ``parallel/``: ``vocab_shard``, this rank's columns of a tied
+    vocabulary split over a tensor group, and ``data_group``, the data group
+    whose batch the loss is a partial of."""
+
+    vocab_shard = None
+    data_group = None
 
     def __init__(self, vocab_size: int, width: int, share_embedding: bool,
                  smoothing: float = 0.1):
@@ -77,6 +84,8 @@ class _VocabHead(nn.Module):
     def _project(self, h):
         """Logits in float32 (products accumulate there, as in the reference)."""
         w, b = self.vocab_head()
+        if self.vocab_shard is not None:  # this rank's columns (tensor parallelism)
+            return vocab_parallel_logits(h, w, b, self.vocab_shard)
         return h.float() @ w.to(h.dtype).float().T + b.float()
 
     def decode_step(self, token_t, state, index=None):
@@ -88,7 +97,8 @@ class _VocabHead(nn.Module):
         """The training loss: (label-smoothed loss over the non-PAD targets,
         {}). ``tgt_length`` is part of the text batch and not read (the PAD
         targets mark the lengths)."""
-        return label_smoothing_loss(self.logits(src), tgt, self.smoothing, pad_id=PAD), {}
+        return label_smoothing_loss(self.logits(src), tgt, self.smoothing, pad_id=PAD,
+                                    vocab_shard=self.vocab_shard, group=self.data_group), {}
 
 
 class TransformerLMLayer(nn.Module):
@@ -178,7 +188,8 @@ class TransformerLanguageModel(_VocabHead):
         """The training loss, with an MoE's ``moe_aux_weight``·``moe_aux``
         added: (loss, {} or {"moe_aux"})."""
         logits, aux = self._forward(src)
-        loss = label_smoothing_loss(logits, tgt, self.smoothing, pad_id=PAD)
+        loss = label_smoothing_loss(logits, tgt, self.smoothing, pad_id=PAD,
+                                    vocab_shard=self.vocab_shard, group=self.data_group)
         if aux is None:
             return loss, {}
         return loss + self.moe_aux_weight * aux, {"moe_aux": aux}

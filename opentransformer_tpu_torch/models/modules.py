@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masks import apply_attn_mask
+from ..ops.collectives import copy_to, count_over, reduce_from, sum_over
 
 LN_EPS = 1e-6
 
@@ -44,19 +45,31 @@ class Dropout(nn.Module):
     """flax ``nn.Dropout``: in training, zero each element with probability
     ``p`` and scale the rest by 1/(1 − p); identity in eval mode or at
     p = 0. Draws from ``self.generator``, which ``set_dropout_generator``
-    sets; training with p > 0 and no generator raises."""
+    sets; training with p > 0 and no generator raises.
+
+    ``shard`` (set by ``parallel.tensor.shard_model`` on a split FFN or MoE
+    hidden) lists (dim, index, count): x is slice ``index`` of ``count``
+    along ``dim`` of the whole activation, so the mask is drawn whole and
+    sliced. The shards' masks are then independent, and the ranks of a
+    tensor group draw what one device draws."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
         self.p = float(p)
         self.generator: torch.Generator | None = None
+        self.shard: list = []
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
         if self.generator is None:
             raise RuntimeError("dropout in training needs a generator (set_dropout_generator)")
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        shape = list(x.shape)
+        for dim, _, count in self.shard:
+            shape[dim] *= count
+        keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.p
+        for dim, index, _ in self.shard:
+            keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
 
@@ -169,7 +182,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.attn_dropout = Dropout(dropout_rate)
 
     def _qkv(self, x):
-        q, k, v = self.qkv_proj(x).split(self.d_model, dim=-1)
+        q, k, v = self.qkv_proj(x).chunk(3, dim=-1)
         return (split_heads(q, self.n_heads), split_heads(k, self.n_heads),
                 split_heads(v, self.n_heads))
 
@@ -238,7 +251,7 @@ class MultiHeadCrossAttention(nn.Module):
         self.attn_dropout = Dropout(dropout_rate)
 
     def project_kv(self, memory):
-        k, v = self.kv_proj(memory).split(self.d_model, dim=-1)
+        k, v = self.kv_proj(memory).chunk(2, dim=-1)
         return split_heads(k, self.n_heads), split_heads(v, self.n_heads)
 
     def forward(self, x, memory, memory_mask=None):
@@ -328,7 +341,7 @@ class RelPosSelfAttention(nn.Module):
         if pos_emb is None:
             pos_emb = rel_pos_embedding(t, self.d_model, x.dtype, x.device)
         y = self.qkv_proj(x)
-        q, k, v = (y, y, y) if self.share_qvk_proj else y.split(self.d_model, dim=-1)
+        q, k, v = (y, y, y) if self.share_qvk_proj else y.chunk(3, dim=-1)
         q, k, v = (split_heads(a, self.n_heads) for a in (q, k, v))
         r = split_heads(self.pos_proj(pos_emb), self.n_heads)  # [1, H, 2T−1, Dh]
         posu, posv = self.posu.to(x.dtype), self.posv.to(x.dtype)
@@ -355,7 +368,7 @@ class RelPosSelfAttention(nn.Module):
         b, c, _ = x.shape
         left = cache_k.shape[2]
         y = self.qkv_proj(x)
-        q, k_c, v_c = (y, y, y) if self.share_qvk_proj else y.split(self.d_model, dim=-1)
+        q, k_c, v_c = (y, y, y) if self.share_qvk_proj else y.chunk(3, dim=-1)
         q, k_c, v_c = (split_heads(a, self.n_heads) for a in (q, k_c, v_c))
         k = torch.cat([cache_k.to(k_c.dtype), k_c], dim=2)
         v = torch.cat([cache_v.to(v_c.dtype), v_c], dim=2)
@@ -442,7 +455,20 @@ class MoEFeedForward(nn.Module):
     layout. The JAX package dispatches with dense one-hot [B, T, E, C]
     products; here each expert's buffer of C token rows is gathered by
     index and the experts run as one batched product over E, which gives
-    the same routing and the same numbers."""
+    the same routing and the same numbers.
+
+    ``shard`` (set by ``parallel.tensor.shard_model``) lists the groups the
+    layer is split over, as (axis, offset, group): on ``expert`` this rank
+    holds experts [offset, offset + E_local), on ``model`` a slice of each
+    expert's hidden columns (index ``offset``). The router and the routing
+    stay whole; this rank computes the combine of its part, which is a
+    partial of the layer's output, summed over the groups (g). The dispatch
+    input and the combine weights' logits pass f, so the partial gradients
+    sum; the aux loss reads the logits without it (its gradient is the same
+    on every rank). With ``data_group`` (set by ``parallel/engine.py``) the
+    aux's expert shares and mean probabilities are that data group's."""
+
+    data_group = None
 
     def __init__(self, d_model: int, d_ff: int, n_experts: int = 4, top_k: int = 1,
                  capacity_factor: float = 1.25, activation: str = "relu",
@@ -467,6 +493,7 @@ class MoEFeedForward(nn.Module):
             nn.init.uniform_(p, -1.0 / math.sqrt(fan_in), 1.0 / math.sqrt(fan_in))
         self.dropout = Dropout(dropout_rate)
         self.generator: torch.Generator | None = None
+        self.shard: list = []
 
     def _apply(self, fn, recurse=True):
         super()._apply(fn, recurse)
@@ -493,20 +520,28 @@ class MoEFeedForward(nn.Module):
         with torch.autocast(x.device.type, enabled=False):
             logits = F.linear(r_in.float(), self.router.weight.float(), self.router.bias.float())
         probs = torch.softmax(logits, dim=-1)
+        # the combine weights' probabilities: f over the shard groups
+        probs_c = probs
+        if self.shard:
+            for _, _, group in self.shard:
+                logits = copy_to(logits, group)
+            probs_c = torch.softmax(logits, dim=-1)
         valid = None if pad_mask is None else pad_mask.to(torch.float32)
-        remaining, gate_sum = probs, torch.zeros_like(probs[..., 0])
+        remaining, remaining_c = probs, probs_c
+        gate_sum = torch.zeros_like(probs[..., 0])
         experts, onehots, gates = [], [], []
         for _ in range(self.top_k):
             idx = torch.argmax(remaining, dim=-1)  # the first maximum on ties
             oh = F.one_hot(idx, e).to(torch.float32)
             if valid is not None:
                 oh = oh * valid[..., None]  # pads dispatch nowhere
-            gate = (remaining * oh).sum(-1)
+            gate = (remaining_c * oh).sum(-1)
             experts.append(idx)
             onehots.append(oh)
             gates.append(gate)
             gate_sum = gate_sum + gate
             remaining = remaining * (1.0 - oh)
+            remaining_c = remaining if probs_c is probs else remaining_c * (1.0 - oh)
         counts = torch.zeros((b, 1, e), dtype=torch.long, device=x.device)
         positions, kept, weights = [], [], []
         for oh, gate in zip(onehots, gates):
@@ -520,9 +555,15 @@ class MoEFeedForward(nn.Module):
             kept.append(keep.any(-1))
             g = gate / torch.clamp_min(gate_sum, 1e-9) if self.top_k > 1 else gate
             weights.append(g * kept[-1])
-        denom = torch.clamp_min(valid.sum(), 1.0) if valid is not None else float(b * t)
-        f_frac = onehots[0].sum(dim=(0, 1)) / denom
         masked = probs if valid is None else probs * valid[..., None]
+        if self.data_group is None:
+            denom = torch.clamp_min(valid.sum(), 1.0) if valid is not None else float(b * t)
+            f_frac = onehots[0].sum(dim=(0, 1)) / denom
+        else:  # the data group's shares: the aux is this rank's partial
+            group = self.data_group
+            denom = torch.clamp_min(count_over(
+                valid.sum() if valid is not None else float(b * t), group, x.device), 1.0)
+            f_frac = count_over(onehots[0].sum(dim=(0, 1)), group) / denom
         aux = e * torch.sum(f_frac * masked.sum(dim=(0, 1)) / denom)
         return Routing(torch.stack(experts), torch.stack(positions), torch.stack(kept),
                        torch.stack(weights), probs, aux, cap)
@@ -531,14 +572,24 @@ class MoEFeedForward(nn.Module):
         """x [B, T, D] → (y [B, T, D], aux f32 scalar)."""
         b, t, d = x.shape
         r = self.route(x, pad_mask)
-        e, k, cap = self.n_experts, self.top_k, r.cap
+        k, cap = self.top_k, r.cap
+        e0, e = 0, self.w1.shape[0]  # this rank's experts
+        kept = r.kept
+        b2 = self.b2
+        for axis, offset, group in self.shard:
+            x = copy_to(x, group)
+            if axis == "expert":
+                e0 = offset
+                kept = kept & (r.experts >= e0) & (r.experts < e0 + e)
+            else:  # the bias joins the partial once, on the first hidden shard
+                b2 = copy_to(b2, group) * (1.0 if offset == 0 else 0.0)
         dev = x.device
         rows = torch.arange(b, device=dev)[None, :, None]
         # buffer slot of each (choice, token), expert-major: (e·B + b)·C + c;
         # what is not kept goes to one spare slot past the end
-        slot = (r.experts * b + rows) * cap + r.positions
+        slot = ((r.experts - e0) * b + rows) * cap + r.positions
         n_slots = e * b * cap
-        dest = torch.where(r.kept, slot, n_slots).reshape(-1)
+        dest = torch.where(kept, slot, n_slots).reshape(-1)
         token = torch.arange(b * t, device=dev).view(1, b, t).expand(k, b, t).reshape(-1)
         src = torch.full((n_slots + 1,), b * t, dtype=torch.long, device=dev)
         src.scatter_(0, dest, token)
@@ -552,19 +603,25 @@ class MoEFeedForward(nn.Module):
         else:
             h = ACTIVATIONS[self.activation](h)
         h = self.dropout(h)
-        ye = torch.bmm(h, self.w2.to(h.dtype)) + self.b2.to(h.dtype)[:, None, :]
-        picked = ye.reshape(n_slots, d)[torch.where(r.kept, slot, 0).reshape(-1)]
+        ye = torch.bmm(h, self.w2.to(h.dtype)) + b2.to(h.dtype)[:, None, :]
+        picked = ye.reshape(n_slots, d)[torch.where(kept, slot, 0).reshape(-1)]
         picked = picked.view(k, b, t, d).float()
-        w = r.weights.to(ye.dtype).float()[..., None]
-        return (picked * w).sum(0).to(ye.dtype), r.aux
+        weights = r.weights if kept is r.kept else torch.where(kept, r.weights, 0.0)
+        w = weights.to(ye.dtype).float()[..., None]
+        y = (picked * w).sum(0)
+        for _, _, group in self.shard:
+            y = reduce_from(y, group)
+        return y.to(ye.dtype), r.aux
 
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the last axis (flax 0.12.3's semantics):
     ``(x − mean) · rsqrt(var + 1e-5) · scale + bias``, computed in float32
     and returned in x's dtype. In training, mean and variance are those of
-    the batch over every position of the leading axes (pads included), in
-    float32 whatever the autocast, the variance ``E[x²] − E[x]²`` clipped
+    the batch over every position of the leading axes (pads included; with
+    ``data_group``, set by ``parallel/engine.py``, that group's whole
+    batch), in float32
+    whatever the autocast, the variance ``E[x²] − E[x]²`` clipped
     at 0 (biased), and the running averages of the JAX ``batch_stats``
     collection (the ``running_mean`` / ``running_var`` buffers) move in
     place as ``ra = 0.99·ra + 0.01·batch``; in eval mode they normalize.
@@ -572,6 +629,7 @@ class BatchNorm(nn.Module):
     not this."""
 
     MOMENTUM = 0.99
+    data_group = None
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -585,8 +643,15 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+            if self.data_group is None:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+            else:  # the data group's global batch statistics
+                group = self.data_group
+                n = count_over(float(xf.numel() // xf.shape[-1]), group, xf.device)
+                mean = sum_over(xf.sum(dim=axes), group) / n
+                var = torch.clamp_min(sum_over((xf * xf).sum(dim=axes), group) / n
+                                      - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

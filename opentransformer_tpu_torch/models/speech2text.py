@@ -45,7 +45,11 @@ class CTCAssistor(nn.Module):
     """Frame-level vocabulary projection and CTC loss (blank 0), with the
     optional causal look-ahead depthwise conv that mixes the next
     ``lookahead_steps`` frames into each frame before the projection (flax
-    ``Conv`` kernel [K, 1, D] ↔ ``Conv1d`` weight [D, 1, K], no bias)."""
+    ``Conv`` kernel [K, 1, D] ↔ ``Conv1d`` weight [D, 1, K], no bias).
+    ``data_group`` (set by ``parallel/engine.py``) makes the loss this
+    rank's partial of that data group's batch mean."""
+
+    data_group = None
 
     def __init__(self, d_model: int, vocab_size: int, lookahead_steps: int = 0):
         super().__init__()
@@ -87,7 +91,8 @@ class CTCAssistor(nn.Module):
         return vals.reshape(b, t, k), idx.reshape(b, t, k), label_lp.reshape(b, t)
 
     def forward(self, memory, memory_lengths, labels, label_lengths):
-        return ctc_loss(self.project(memory), memory_lengths, labels, label_lengths, blank_id=BLK)
+        return ctc_loss(self.project(memory), memory_lengths, labels, label_lengths, blank_id=BLK,
+                        group=self.data_group)
 
 
 def encode_with(model, feats, feat_mask, return_aux: bool):
@@ -109,6 +114,8 @@ def add_moe_aux(loss, aux: dict, moe_aux, weight: float):
 
 
 class SpeechToText(nn.Module):
+    data_group = None  # the data group whose batch the loss is a partial of (parallel/engine.py)
+
     def __init__(self, frontend_cfg: dict, encoder_cfg: dict, decoder_cfg: dict,
                  ctc_weight: float = 0.0, smoothing: float = 0.1, lookahead_steps: int = 0,
                  frontend_type: str = "conv", encoder_type: str = "transformer",
@@ -146,7 +153,9 @@ class SpeechToText(nn.Module):
         memory, memory_mask, moe_aux = self.encode(feats, feat_mask, return_aux=True)
         target_out = targets[:, 1:]
         logits = self.decoder(targets[:, :-1], memory, memory_mask)
-        att_loss = label_smoothing_loss(logits, target_out, self.smoothing, pad_id=PAD)
+        att_loss = label_smoothing_loss(logits, target_out, self.smoothing, pad_id=PAD,
+                                        vocab_shard=self.decoder.vocab_shard,
+                                        group=self.data_group)
         if self.ctc_weight <= 0.0:
             return add_moe_aux(att_loss, {}, moe_aux, self.moe_aux_weight)
         closs = self.ctc(memory, mask_to_length(memory_mask), target_out, targets_length)

@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data import BLK, BOS
+from ..ops.collectives import batch_mean
 from ..ops.masks import mask_to_length
 from ..ops.project_topk import project_logp_topk, topk_smallest_id
 from ..ops.rnnt_loss import rnnt_loss_from_blank_emit, rnnt_loss_mean
@@ -155,7 +156,11 @@ class TransducerModel(nn.Module):
     ``joint_t_block`` picks how the loss evaluates the joint: −1 the full
     joint while its f32 logits take at most 2 GiB, else T-blocks of 32; 0
     the full joint; N > 0 T-blocks of N. ``moe_aux_weight`` weighs an MoE
-    encoder's load-balance loss in the training loss."""
+    encoder's load-balance loss in the training loss. ``data_group`` (set
+    by ``parallel/engine.py``) makes the loss this rank's partial of that
+    data group's batch mean."""
+
+    data_group = None
 
     def __init__(self, frontend_cfg: dict, encoder_cfg: dict, vocab_size: int,
                  predictor_cfg: dict | None = None, d_joint: int | None = None,
@@ -204,11 +209,12 @@ class TransducerModel(nn.Module):
             u_max = pred_in.shape[1] - 1
             lp_blank, emit = self.joint.blank_emit_log_probs(
                 memory, pred, targets[:, 1 : 1 + u_max], blank=BLK, t_block=t_block)
-            loss = rnnt_loss_from_blank_emit(lp_blank, emit, frame_len, targets_length - 1).mean()
+            loss = batch_mean(rnnt_loss_from_blank_emit(lp_blank, emit, frame_len,
+                                                        targets_length - 1), self.data_group)
         else:
             log_probs = torch.log_softmax(self.joint(memory, pred), dim=-1)
             loss = rnnt_loss_mean(log_probs, targets[:, 1:], frame_len, targets_length - 1,
-                                  blank=BLK)
+                                  blank=BLK, group=self.data_group)
         return add_moe_aux(loss, {}, moe_aux, self.moe_aux_weight)
 
     def init_decode_state(self, batch: int):

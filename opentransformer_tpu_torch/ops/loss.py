@@ -25,30 +25,68 @@ sequence takes the recursion, for optax's finite values.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.nn import functional as F
 
 from ..data import PAD
+from .collectives import VocabShard, batch_mean, copy_to, gather_cat, global_mean, reduce_from
 
 LOG_EPSILON = -1e5  # optax's numerically stable log(+0)
 
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor, smoothing: float = 0.1,
-                         pad_id: int = PAD, normalize_length: bool = True) -> torch.Tensor:
-    """logits f[B, U, V], targets int[B, U] → scalar float32 loss."""
-    vocab = logits.shape[-1]
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    fill = smoothing / (vocab - 1)
-    true_dist = torch.full_like(logp, fill)
-    true_dist.scatter_(-1, targets.long()[..., None], 1.0 - smoothing)
-    log_true = torch.where(true_dist > 0, torch.log(torch.clamp_min(true_dist, 1e-20)),
-                           torch.zeros_like(true_dist))
-    kl = torch.sum(true_dist * (log_true - logp), dim=-1)  # [B, U]
+                         pad_id: int = PAD, normalize_length: bool = True,
+                         vocab_shard: VocabShard | None = None, group=None) -> torch.Tensor:
+    """logits f[B, U, V], targets int[B, U] → scalar float32 loss. With
+    ``vocab_shard`` the logits are this rank's columns of the vocabulary
+    (``sharded_smoothing_kl``); with a data ``group`` the rows are this
+    rank's share of the group's batch and the loss is its partial (the
+    count summed over the group)."""
+    if vocab_shard is not None:
+        kl = sharded_smoothing_kl(logits, targets, smoothing, vocab_shard)
+    else:
+        vocab = logits.shape[-1]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        fill = smoothing / (vocab - 1)
+        true_dist = torch.full_like(logp, fill)
+        true_dist.scatter_(-1, targets.long()[..., None], 1.0 - smoothing)
+        log_true = torch.where(true_dist > 0, torch.log(torch.clamp_min(true_dist, 1e-20)),
+                               torch.zeros_like(true_dist))
+        kl = torch.sum(true_dist * (log_true - logp), dim=-1)  # [B, U]
     token_mask = (targets != pad_id).float()
     total = torch.sum(kl * token_mask)
+    if group is not None:  # this rank's partial of the data group's mean
+        return global_mean(total, token_mask.sum() if normalize_length else logits.shape[0],
+                           group)
     if normalize_length:
         return total / torch.clamp_min(token_mask.sum(), 1.0)
     return total / logits.shape[0]
+
+
+def sharded_smoothing_kl(logits: torch.Tensor, targets: torch.Tensor, smoothing: float,
+                         shard: VocabShard) -> torch.Tensor:
+    """The label-smoothing KL a position [B, U] from this rank's vocabulary
+    columns [start, start + V/n) of the logits (tensor parallelism): the
+    log-partition is a logsumexp over the group (the row maxima gathered,
+    each rank's sum of exponentials summed with g, read back through f), and
+    of the smoothed target only Σ_v logp_v and the target's logp are
+    needed, each summed over the group with g; Σ t·log t is a constant."""
+    x = logits.float()
+    with torch.no_grad():  # the shift only steadies exp; any value gives the same lse
+        peak = gather_cat(x.amax(-1, keepdim=True), -1, shard.group).amax(-1)
+    lse = peak + torch.log(reduce_from(torch.exp(x - peak[..., None]).sum(-1), shard.group))
+    # every rank's columns read the whole row's lse: f sums their parts of its gradient
+    logp = x - copy_to(lse, shard.group)[..., None]
+    local = targets.long() - shard.start
+    inside = (local >= 0) & (local < x.shape[-1])
+    picked = logp.gather(-1, local.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+    logp_target = reduce_from(torch.where(inside, picked, torch.zeros_like(picked)), shard.group)
+    sum_logp = reduce_from(logp.sum(-1), shard.group)
+    fill, conf = smoothing / (shard.size - 1), 1.0 - smoothing
+    const = sum(w * n * math.log(w) for w, n in ((fill, shard.size - 1), (conf, 1)) if w > 0)
+    return const - (fill * sum_logp + (conf - fill) * logp_target)
 
 
 def _add_to_phi(phi: torch.Tensor, added: torch.Tensor) -> torch.Tensor:
@@ -120,10 +158,11 @@ def all_aligned(logit_lengths: torch.Tensor, labels: torch.Tensor,
 
 
 def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor, labels: torch.Tensor,
-             label_lengths: torch.Tensor, blank_id: int = 0) -> torch.Tensor:
+             label_lengths: torch.Tensor, blank_id: int = 0, group=None) -> torch.Tensor:
     """Mean over the batch of each sequence's CTC loss divided by its label
-    length (torch's 'mean' reduction). logits f[B, T, V], labels int[B, U]
-    PAD-padded, lengths int[B]."""
+    length (torch's 'mean' reduction; over a data ``group``'s batch, this
+    rank's partial). logits f[B, T, V], labels int[B, U] PAD-padded,
+    lengths int[B]."""
     t, u = logits.shape[1], labels.shape[1]
     dev = logits.device
     logit_pad = torch.arange(t, device=dev)[None, :] >= logit_lengths[:, None]
@@ -137,4 +176,4 @@ def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor, labels: torch.Te
     # the JAX package's zero_infinity guard; optax's values are always finite
     per_seq = torch.where(torch.isfinite(per_seq), per_seq, torch.zeros_like(per_seq))
     per_seq = per_seq / torch.clamp_min(label_lengths.float(), 1.0)
-    return per_seq.mean()
+    return batch_mean(per_seq, group)

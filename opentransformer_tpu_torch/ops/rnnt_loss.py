@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from .collectives import batch_mean
+
 NEG_INF = -1.0e30
 
 
@@ -84,6 +86,8 @@ def rnnt_loss(log_probs: torch.Tensor, labels: torch.Tensor, frame_lengths: torc
     return rnnt_loss_from_blank_emit(log_probs[..., blank], emit, frame_lengths, label_lengths)
 
 
-def rnnt_loss_mean(log_probs, labels, frame_lengths, label_lengths, blank: int = 0):
-    """Batch-mean RNN-T loss (scalar)."""
-    return rnnt_loss(log_probs, labels, frame_lengths, label_lengths, blank).mean()
+def rnnt_loss_mean(log_probs, labels, frame_lengths, label_lengths, blank: int = 0,
+                   group=None):
+    """Batch-mean RNN-T loss (scalar; over a data ``group``'s batch, this
+    rank's partial)."""
+    return batch_mean(rnnt_loss(log_probs, labels, frame_lengths, label_lengths, blank), group)

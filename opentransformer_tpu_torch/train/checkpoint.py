@@ -106,17 +106,23 @@ class Checkpointer:
         os.rename(tmp, path)
 
     def save(self, epoch: int, model: torch.nn.Module, optimizer,
-             extra: Optional[dict] = None, keep_last_n: int = 0) -> str:
+             extra: Optional[dict] = None, keep_last_n: int = 0, state: Optional[dict] = None,
+             optimizer_state: Optional[dict] = None) -> str:
+        """Write ``model.epoch.N``. ``state`` / ``optimizer_state`` give the
+        values in place of the live model's and optimizer's (a sharded
+        model's, gathered to the one-card layout)."""
         path = self.epoch_path(epoch)
         extra = dict(extra or {})
+        if optimizer_state is None:
+            optimizer_state = optimizer.state_dict()
         if not self.async_save:
-            self._write_params(path, model, None, optimizer.state_dict(), extra)
+            self._write_params(path, model, state, optimizer_state, extra)
             if keep_last_n > 0:
                 self.prune(keep_last_n)
             return path
         self.wait()
-        state = _clone(model.state_dict())
-        opt_state = _clone(optimizer.state_dict())
+        state = _clone(model.state_dict() if state is None else state)
+        opt_state = _clone(optimizer_state)
 
         def work():
             try:
@@ -130,9 +136,10 @@ class Checkpointer:
         self._thread.start()
         return path
 
-    def save_params_only(self, name: str, model: torch.nn.Module) -> str:
+    def save_params_only(self, name: str, model: torch.nn.Module,
+                         state: Optional[dict] = None) -> str:
         path = os.path.join(self.expdir, name)
-        self._write_params(path, model)
+        self._write_params(path, model, state)
         return path
 
     def load_params(self, path: str) -> dict:

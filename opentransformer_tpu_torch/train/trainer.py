@@ -52,8 +52,28 @@ BatchNorm moves once, as in the JAX trainer's one-rng pair of applies.
 ``OT_FAULT_INJECT_STEP=N`` crashes the run once an update reaches step N,
 and ``OT_FAULT_INJECT_MARKER=FILE`` disarms it once FILE exists (it is
 written before the crash): the supervised restart of ``cli/run.py
---supervise`` is proven with it. The pipeline schedules of a mesh are not
-ported (ROADMAP.md, Queue 1: Parallelism).
+--supervise`` is proven with it.
+
+On a mesh (``parallel/mesh.py``; ``mesh=``) the model is sharded over its
+``model``, ``expert`` and ``pipe`` axes (``parallel/engine.py``) and each
+micro-batch is this rank's rows of the global batch. ``train.pp_schedule``
+``sharded`` (the default) keeps one device's numbers: each loss is a
+partial of the global batch's, the gradients are summed over ``data``, the
+norm, clip, NaN guard and Adam see the one-card gradient. ``1f1b`` runs the
+speech2text loss through the pipeline schedule of ``parallel/pipeline.py``
+with ``train.pp_micro_batches`` microbatches (the pipe size by default),
+whose loss is the mean over (microbatch, data shard) of each one's loss; a
+batch that micro × data does not divide is dropped with a warning, as in
+JAX. A draw for the whole step (the gradient noise, drawn in the one-card
+shapes with each rank adding its slice, and MixSpeech's λ) comes from
+``step_generator``, which every rank holds alike; a draw for the rows
+(dropout, noise, SpecAugment) from ``generator``. With more than one data
+rank they are two streams: the step's from the seed, each data rank's rows
+from the seed plus its index + 1 times a constant (the ranks of one data
+index share it). A MixSpeech batch whose rank share is odd runs whole on
+every data rank, so the pairs are one device's. Checkpoints are the
+one-card layout, gathered and written by rank 0; the dev probe decodes a
+one-card model built for the call on rank 0.
 """
 
 from __future__ import annotations
@@ -67,22 +87,15 @@ from typing import Any
 import torch
 
 from ..models.modules import BatchNorm, set_dropout_generator
+from ..ops.collectives import all_reduce_
+from ..parallel.launch import is_rank0
 from .scheduler import adam_update, build_optimizer, build_scheduler, moment_dtype
 from .utils import AverageMeter, MeanLoss, Summary
 
 logger = logging.getLogger(__name__)
 
-# train-section options of the JAX trainer that are not ported, with the
-# value that means "off"
-_NOT_PORTED = {"pp_schedule": "sharded", "pp_micro_batches": None}
 AUTOCAST_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 FUSED_ADAM_KEYS = {"lr", "betas", "eps", "weight_decay", "adam_m_dtype"}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to opentransformer_tpu_torch yet "
-        "(see ROADMAP.md, Queue 1: Parallelism)")
 
 
 class FusedAdam:
@@ -155,6 +168,17 @@ def feature_args(batch, device):
             _tensor(targets["targets_length"], device, torch.long))
 
 
+def slice_rows(batch, rows: list):
+    """The rows ``rows`` of a host batch (utt_ids, inputs, targets): every
+    array is indexed on its first dimension, nothing is re-padded."""
+    utts, inputs, targets = batch
+
+    def pick(d):
+        return {k: v[rows] if getattr(v, "ndim", 0) > 0 else v for k, v in d.items()}
+
+    return ([utts[i] for i in rows] if utts is not None else None), pick(inputs), pick(targets)
+
+
 def text_args(batch, device):
     """A text batch → (src, tgt, tgt_length) on ``device``."""
     _, inputs, targets = batch
@@ -171,10 +195,32 @@ class Trainer:
     def __init__(self, train_cfg: Any, model: torch.nn.Module, frontend,
                  generator: torch.Generator, checkpointer=None, log_interval: int = 10,
                  keep_last_n: int = 30, dev_loader=None, is_debug: bool = False,
-                 resident=None, dev_probe_fn=None, mixspeech: bool = False, visualizer=None):
-        for key, off in _NOT_PORTED.items():
-            if train_cfg.get(key, off) != off:
-                raise _not_ported(f"train.{key}={train_cfg[key]!r}")
+                 resident=None, dev_probe_fn=None, mixspeech: bool = False, visualizer=None,
+                 mesh=None):
+        # the pipeline schedule of a pipe axis: 'sharded' (stage-sharded
+        # weights and moments, one device's numbers) or '1f1b'
+        self.pp_schedule = str(train_cfg.get("pp_schedule") or "sharded")
+        if self.pp_schedule not in ("sharded", "1f1b"):
+            raise ValueError(f"pp_schedule {self.pp_schedule!r} not in ['1f1b', 'sharded']")
+        self.pp_micro_batches = train_cfg.get("pp_micro_batches")
+        self.fused = bool(train_cfg.get("fused_update", False))
+        # the JAX trainer's refusals, in its words, before anything is sharded
+        if self.pp_schedule == "1f1b":
+            if mesh is None:
+                raise ValueError("pp_schedule=1f1b needs a mesh with a pipe axis")
+            if mixspeech:
+                raise ValueError("mixspeech is not supported under pp_schedule=1f1b")
+            if int(train_cfg.get("steps_per_exec", 1)) > 1:
+                raise ValueError("steps_per_exec > 1 does not support pp_schedule=1f1b")
+            if self.fused:
+                raise ValueError("train.fused_update does not compose with pp_schedule=1f1b")
+            from ..parallel.pipeline import check_1f1b_model
+
+            check_1f1b_model(model, mesh.size("pipe"))
+        if self.fused and mesh is not None and any(mesh.size(a) > 1
+                                                   for a in ("model", "pipe", "expert")):
+            raise ValueError("train.fused_update needs replicated params (data-axis-only "
+                             "mesh): the flat moment buffer has no per-leaf shardings")
         dtype = str(train_cfg.get("dtype", "float32"))
         if dtype not in AUTOCAST_DTYPES:
             raise ValueError(f"train.dtype {dtype!r} not in {sorted(AUTOCAST_DTYPES)}")
@@ -191,6 +237,18 @@ class Trainer:
             raise ValueError(f"the generator lives on {generator.device}, the model on "
                              f"{self.device}")
         self.generator = generator
+        self.step_generator = generator  # the step's draws, alike on every rank
+        self.mesh = mesh
+        self.parallel = None
+        self.pipeline = None
+        if mesh is not None:
+            from ..parallel.engine import ParallelModel
+
+            if mesh.size("data") > 1:  # the rows' stream of each data rank its own
+                seed = generator.initial_seed()
+                self.step_generator = torch.Generator(device=generator.device).manual_seed(seed)
+                generator.manual_seed(seed + 1000003 * (mesh.index("data") + 1))
+            self.parallel = ParallelModel(model, mesh, self.pp_schedule)
         set_dropout_generator(model, generator)
         self.checkpointer = checkpointer
         self.log_interval = log_interval
@@ -205,7 +263,6 @@ class Trainer:
         self.visualizer = visualizer
         opt_cfg = train_cfg.get("optimizer", {}) or {}
         opt_type = train_cfg.get("optimizer_type", "adam")
-        self.fused = bool(train_cfg.get("fused_update", False))
         if self.fused:
             unknown = set(opt_cfg) - FUSED_ADAM_KEYS
             if opt_type != "adam" or unknown:
@@ -230,6 +287,12 @@ class Trainer:
         self.dev_losses: list[float] = []
         self._window: list[torch.Tensor] = []
         self._window_aux: list[dict] = []
+        if self.pp_schedule == "1f1b":
+            from ..parallel.pipeline import Speech2Text1F1B
+
+            self.pipeline = Speech2Text1F1B(
+                model, mesh, int(self.pp_micro_batches or mesh.size("pipe")), generator,
+                self.autocast)
 
     # ------------------------------------------------------------ one step
     def autocast(self):
@@ -262,10 +325,13 @@ class Trainer:
             return text_args(batch, self.device)
         return feature_args(batch, self.device)
 
-    def micro_step(self, batch) -> torch.Tensor:
+    def micro_step(self, batch) -> torch.Tensor | None:
         """Forward and backward of one micro-batch; its gradient, scaled by
         1/accum_steps, adds to the parameters' ``.grad``. Returns the
-        (unscaled) loss."""
+        (unscaled) loss (on a mesh this rank's partial of it), or None for a
+        batch the 1F1B schedule drops."""
+        if self.parallel is not None:
+            return self._parallel_micro_step(batch)
         args = self.batch_args(batch)
         with self.autocast():
             loss, aux = self.mix_loss(*args) if self.mixspeech else self.model(*args)
@@ -274,8 +340,40 @@ class Trainer:
         self._window_aux.append({k: v.detach() for k, v in aux.items()})
         return loss.detach()
 
+    def _parallel_micro_step(self, batch):
+        n_rows = len(batch[2]["targets"])
+        if self.pipeline is not None:
+            n_micro = self.pipeline.n_micro
+            div = n_micro * self.mesh.size("data")
+            if n_rows % div:
+                logger.warning("1f1b: dropping ragged batch of %d (not divisible by "
+                               "micro x dp = %d)", n_rows, div)
+                return None
+            rows, _ = self.parallel.rows(n_rows, n_micro)
+            args = self.batch_args(slice_rows(batch, rows))
+            scale = 1.0 / (n_micro * self.mesh.size("data") * self.accum_steps)
+            with self.parallel.stage_only():
+                loss, moe_aux = self.pipeline.step(*args, scale=scale)
+            loss, aux = loss * self.accum_steps, {}
+            if moe_aux is not None:
+                aux = {"moe_aux": moe_aux * self.accum_steps}
+        else:
+            rows, ragged = self.parallel.rows(n_rows)
+            if self.mixspeech and len(rows) % 2 and not ragged:  # a pair would straddle ranks
+                rows, ragged = list(range(n_rows)), True
+            args = self.batch_args(slice_rows(batch, rows))
+            with self.parallel.loss_context(ragged), self.autocast():
+                loss, aux = self.mix_loss(*args) if self.mixspeech else self.model(*args)
+            if ragged:  # every data rank ran the whole batch
+                share = 1.0 / self.mesh.size("data")
+                loss, aux = loss * share, {k: v * share for k, v in aux.items()}
+            (loss / self.accum_steps).backward()
+        self._window.append(loss.detach())
+        self._window_aux.append({k: v.detach() for k, v in aux.items()})
+        return loss.detach()
+
     def mix_lambda(self) -> torch.Tensor:
-        return beta_half(self.generator, self.device)
+        return beta_half(self.step_generator, self.device)
 
     def mix_loss(self, feats, mask, targets, targets_length):
         """MixSpeech: rows 2i and 2i+1 mixed at λ, the loss ``λ·L(mix,
@@ -303,28 +401,35 @@ class Trainer:
     def update(self, epoch: int = 0) -> dict:
         """Clip, noise, NaN guard and one optimizer step on the accumulated
         gradient; clears it and advances ``global_step``."""
+        if self.parallel is not None:  # summed over the mesh, only this rank's blocks
+            grads = self.parallel.sync_grads(self.optimizer)
         if self.fused:
             grads = [self.optimizer.grad]
-        else:
+        elif self.parallel is None:
             params = list(self.model.parameters())
             for p in params:  # an unused parameter takes part with a zero gradient
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads = [p.grad for p in params]
-        gnorm = torch.sqrt(torch.stack([torch.sum(torch.square(g.float())) for g in grads]).sum())
+        if self.parallel is not None and not self.fused:  # the one-card norm
+            gnorm = self.parallel.grad_norm()
+        else:
+            gnorm = torch.sqrt(torch.stack([torch.sum(torch.square(g.float()))
+                                            for g in grads]).sum())
         if self.grad_clip > 0:
             scale = torch.clamp_max(self.grad_clip / (gnorm + 1e-6), 1.0)
             for g in grads:
                 g.mul_(scale.to(g.dtype))
         if self.grad_noise > 0:
-            for g in grads:
-                noise = torch.randn(g.shape, generator=self.generator, device=g.device,
-                                    dtype=g.dtype)
+            for g, noise in self.grad_noise_draws(grads):
                 g.add_(noise * self.grad_noise / self.accum_steps)
         aux_keys = sorted(self._window_aux[0]) if self._window_aux else []
         aux_vals = [a[k].float() for a in self._window_aux for k in aux_keys]
         # one host sync per update
-        values = torch.stack([gnorm, *self._window, *aux_vals]).tolist()
+        values = torch.stack([gnorm, *self._window, *aux_vals])
+        if self.parallel is not None:  # the partials summed to the step's
+            values = torch.cat([values[:1], self.parallel.report(values[1:].clone())])
+        values = values.tolist()
         n = len(self._window)
         gnorm_val, losses = values[0], values[1 : 1 + n]
         aux = {k: values[1 + n + i :: len(aux_keys)] for i, k in enumerate(aux_keys)}
@@ -352,6 +457,16 @@ class Trainer:
         self.global_step += 1
         return record
 
+    def grad_noise_draws(self, grads: list):
+        """(gradient, its N(0, 1) noise) pairs: one device's draws from
+        ``step_generator``, gradient by gradient (on a sharded mesh in the
+        one-card shapes of every parameter, each rank keeping its slices)."""
+        gen = self.step_generator
+        if self.parallel is None or self.fused or not self.parallel.sharded:
+            return [(g, torch.randn(g.shape, generator=gen, device=g.device, dtype=g.dtype))
+                    for g in grads]
+        return self.parallel.noise_draws(gen)
+
     def maybe_inject_fault(self) -> None:
         """Crash once ``global_step`` reaches ``OT_FAULT_INJECT_STEP``; the
         marker file, written first, disarms it for the restarted run."""
@@ -374,9 +489,9 @@ class Trainer:
         span_t0 = time.time()
         micro = 0
         for step, batch in enumerate(train_loader):
-            self.micro_step(batch)
-            micro += 1
-            if micro == self.accum_steps or step == n_batches - 1:
+            if self.micro_step(batch) is not None:
+                micro += 1
+            if micro > 0 and (micro == self.accum_steps or step == n_batches - 1):
                 rec = self.update(epoch)
                 micro = 0
                 if rec["step"] % self.log_interval == 0:
@@ -401,10 +516,13 @@ class Trainer:
             self.train_one_epoch(epoch, train_loader)
             self.global_epoch = epoch + 1
             if self.checkpointer is not None:
-                self.checkpointer.save(epoch, self.model, self.optimizer,
-                                       extra={"global_step": self.global_step,
-                                              "nan_skips": self.nan_skips},
-                                       keep_last_n=self.keep_last_n)
+                state, opt_state = self.one_card_state(with_optimizer=True)
+                if is_rank0():
+                    self.checkpointer.save(epoch, self.model, self.optimizer,
+                                           extra={"global_step": self.global_step,
+                                                  "nan_skips": self.nan_skips},
+                                           keep_last_n=self.keep_last_n, state=state,
+                                           optimizer_state=opt_state)
             if self.dev_loader is not None:
                 dev_loss = self.evaluate(self.dev_loader)
                 self.dev_losses.append(dev_loss)
@@ -412,24 +530,49 @@ class Trainer:
                 if self.visualizer is not None:
                     self.visualizer.add_scalar("dev_loss", dev_loss, self.global_step)
                 if best.update(epoch, dev_loss) and self.checkpointer is not None:
-                    self.checkpointer.save_params_only("model.best", self.model)
+                    state, _ = self.one_card_state()
+                    if is_rank0():
+                        self.checkpointer.save_params_only("model.best", self.model, state)
                     logger.info("new best epoch %d (dev loss %.5f)", epoch, dev_loss)
             if self.dev_probe_fn is not None:
-                self.model.eval()
-                with self.autocast():
-                    self.dev_probe_fn(self.model, epoch)
+                # a sharded model is decoded as its one-card state
+                state, _ = self.one_card_state()
+                if is_rank0():
+                    self.model.eval()
+                    with self.autocast():
+                        self.dev_probe_fn(self.model if state is None else state, epoch)
                 self.model.train()
         if self.checkpointer is not None:
             self.checkpointer.wait()  # an asynchronous save still in flight
 
+    def one_card_state(self, with_optimizer: bool = False):
+        """(the model's state dict, the optimizer's or None) in the one-card
+        layout; on a sharded mesh gathered (every rank takes part), else
+        None, None (the live model and optimizer are the one-card ones)."""
+        if self.parallel is None or not self.parallel.sharded:
+            return None, None
+        state = self.parallel.gather_state()
+        opt = self.parallel.gather_optimizer_state(self.optimizer) if with_optimizer else None
+        return state, opt
+
     def evaluate(self, dev_loader) -> float:
         """Mean deterministic loss over a loader of host-feature batches,
-        in the training forward's precision."""
+        in the training forward's precision (on a mesh each rank's rows, the
+        batch's loss summed from the partials)."""
         self.model.eval()
         meter = AverageMeter()
         with torch.no_grad(), self.autocast():
             for batch in dev_loader:
-                loss, _ = self.model(*self.batch_args(batch, train=False))
+                if self.parallel is None:
+                    loss, _ = self.model(*self.batch_args(batch, train=False))
+                else:
+                    rows, ragged = self.parallel.rows(len(batch[2]["targets"]))
+                    with self.parallel.loss_context(ragged):
+                        loss, _ = self.model(*self.batch_args(slice_rows(batch, rows),
+                                                              train=False))
+                    if ragged:
+                        loss = loss / self.mesh.size("data")
+                    loss = all_reduce_(loss.reshape(1).float(), self.mesh.group("data"))
                 meter.update(float(loss))
         self.model.train()
         return meter.avg

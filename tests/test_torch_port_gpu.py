@@ -734,3 +734,73 @@ def test_moe_forward_and_backward_on_card_match_cpu(cuda):
     with torch.no_grad():
         r32 = card.route(x.to(cuda), pad.to(cuda))
     assert r16.probs.dtype == torch.float32 and torch.equal(r16.probs, r32.probs)
+
+
+PARALLEL_CFG = {
+    "type": "speech2text",
+    "frontend": {"input_size": 20, "output_size": 32, "mid_channel": 4, "out_channel": 8},
+    "encoder": {"d_model": 32, "n_heads": 4, "d_ff": 48, "n_blocks": 2, "activation": "glu",
+                "residual_dropout": 0.0, "scan_layers": True},
+    "decoder": {"vocab_size": 300, "d_model": 32, "n_heads": 4, "d_ff": 48, "memory_dim": 32,
+                "n_blocks": 1, "residual_dropout": 0.0}}
+
+
+def parallel_batch():
+    rng = np.random.default_rng(5)
+    feats = rng.normal(size=(4, 40, 20)).astype(np.float32)
+    mask = np.arange(40)[None] < np.array([40, 33, 29, 36])[:, None]
+    tgt = rng.integers(3, 300, size=(4, 8)).astype(np.int64)
+    tgt[:, 0], tgt[:, 7] = 1, 1
+    return None, {"inputs": feats, "mask": mask}, {"targets": tgt,
+                                                   "targets_length": np.full(4, 7)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["data", "tensor", "pipe sharded", "pipe 1f1b", "expert"])
+def test_parallel_mode_at_world_one_over_nccl_matches_the_plain_step(cuda, mode):
+    """Each parallel mode on a world of one rank over NCCL (the mesh's
+    collectives over one rank): one micro-batch's loss and one-card
+    gradients equal the plain trainer's on the card (1F1B: its loss rule,
+    two row blocks with the loss over 2), within 1e-5 relative."""
+    import torch.distributed as dist
+
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.parallel import launch
+    from opentransformer_tpu_torch.parallel.mesh import make_mesh
+    from opentransformer_tpu_torch.train.trainer import Trainer
+
+    cfg = PARALLEL_CFG
+    if mode == "expert":
+        cfg = dict(cfg, encoder=dict(cfg["encoder"], moe_experts=4, moe_top_k=2))
+    tcfg = {"optimizer_type": "adam", "optimizer": {}, "scheduler_type": "constant",
+            "scheduler": {"lr": 1e-3}}
+
+    def model():
+        torch.manual_seed(3)
+        return build_model(cfg, device="cuda").train()
+
+    plain = Trainer(dict(tcfg), model(), None, torch.Generator(device="cuda"))
+    args = plain.batch_args(parallel_batch())
+    blocks = 2 if mode == "pipe 1f1b" else 1
+    want = 0.0
+    for m in range(blocks):
+        loss, _ = plain.model(*(a[2 * m : 2 * m + 4 // blocks] for a in args))
+        (loss / blocks).backward()
+        want += loss.item() / blocks
+    ref = {n: p.grad for n, p in plain.model.named_parameters()}
+    launch.init_single("nccl")
+    try:
+        pipe = (dict(pp_schedule="1f1b", pp_micro_batches=2) if mode == "pipe 1f1b"
+                else dict(pp_schedule="sharded"))
+        trainer = Trainer(dict(tcfg, **pipe), model(), None, torch.Generator(device="cuda"),
+                          mesh=make_mesh(1, 1, 1, 1))
+        assert dist.get_backend() == "nccl" and trainer.mesh.world == 1
+        got = float(trainer.micro_step(parallel_batch()))
+        trainer.parallel.sync_grads(trainer.optimizer)
+        grads = trainer.parallel.gather_grads()
+    finally:
+        launch.shutdown()
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for name, g in ref.items():
+        torch.testing.assert_close(grads[name], g, rtol=1e-5, atol=1e-5 * float(g.abs().max()),
+                                   msg=name)

@@ -227,8 +227,8 @@ def test_edit_distance_matches_jax(ref, hyp):
 def test_unported_configs_raise():
     """MoE used to raise here: an MoE encoder now builds and holds to JAX
     (the port's weights carried over; loss and ``moe_aux`` within 1e-5
-    relative), while the options still unported (``--ep 2``) keep their
-    refusal and name the roadmap."""
+    relative); ``--ep 2``, which raised until parallelism was ported, sets an
+    expert axis of 2, and ``--ep 3`` fails the JAX CLI's check."""
     from opentransformer_tpu_torch.cli import run as run_cli
 
     cfg = small_cfg()
@@ -247,9 +247,13 @@ def test_unported_configs_raise():
         got, aux = model(*(torch.from_numpy(a) for a in args))
     assert abs(got.item() - float(want)) <= 1e-5 * abs(float(want))
     assert abs(aux["moe_aux"].item() - float(jaux["moe_aux"])) <= 1e-5 * float(jaux["moe_aux"])
-    argv = run_cli.build_argparser().parse_args(["-c", "conf.json", "--ep", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_cli._check_not_ported(argv)
+    run_cfg = {"model": cfg}
+    argv = run_cli.build_argparser().parse_args(["-c", "conf.json", "--ep", "2",
+                                                 "--device", "cpu"])
+    assert run_cli.mesh_dims(argv, run_cfg) == (1, 1, 1, 2)
+    argv = run_cli.build_argparser().parse_args(["-c", "conf.json", "--ep", "3"])
+    with pytest.raises(SystemExit, match="--ep 3 requires encoder.moe_experts divisible by it"):
+        run_cli.mesh_dims(argv, run_cfg)
     # the transducer is ported: a transducer config builds and decodes
     cfg = small_cfg()
     model = build_model({"type": "transducer", "frontend": cfg["frontend"],

@@ -634,7 +634,9 @@ def test_cli_trains_averages_and_reloads_an_moe_model(tmp_path):
     """The training CLI on a tiny MoE model with router jitter and dropout
     on: ``moe_aux`` of every micro-batch in the history, finite; the two
     epochs' checkpoints average (``cli/average.py``) and reload; ``--ep 1``
-    is accepted and ``--ep 2`` raises, naming the roadmap's Parallelism."""
+    is accepted, and ``--ep 2`` (which raised until parallelism was ported)
+    trains on two ranks that split the experts, with the single run's losses
+    (the two ranks draw the single run's dropout and jitter)."""
     root = str(tmp_path)
     chip_smoke.make_ctc_corpus(root)
     cfg = chip_smoke.ctc_corpus_config(root, epochs=2)
@@ -647,10 +649,15 @@ def test_cli_trains_averages_and_reloads_an_moe_model(tmp_path):
     with open(conf, "w") as f:
         json.dump(cfg, f)
     expdir = os.path.join(root, "exp")
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        run_cli.run(["-c", conf, "--expdir", expdir, "--ep", "2", "--device", "cpu"])
     trainer = run_cli.run(["-c", conf, "--expdir", expdir, "--ep", "1", "--device", "cpu",
                            "--log_interval", "1"])
+    record = os.path.join(root, "ep2.jsonl")
+    assert run_cli.run(["-c", conf, "--expdir", os.path.join(root, "ep2"), "--ep", "2",
+                        "--device", "cpu", "--record", record]) is None
+    with open(record) as f:
+        ep2 = json.loads(f.readline())
+    np.testing.assert_allclose(ep2["losses"], [x for r in trainer.history for x in r["losses"]],
+                               rtol=1e-5)
     aux = [x for r in trainer.history for x in r["aux"]["moe_aux"]]
     assert len(aux) == sum(len(r["losses"]) for r in trainer.history) > 0
     assert np.isfinite(aux).all() and trainer.nan_skips == 0

@@ -440,11 +440,20 @@ def test_cli_needs_a_card_unless_told_the_cpu(corpus):
     ["--tp", "2"], ["--pp", "2"], ["--pp-schedule", "1f1b"], ["--pp-micro-batches", "2"],
     ["--ep", "2"], ["--multihost"], ["-n", "2"]],
     ids=lambda f: f[0])
-def test_flags_not_ported_raise(flags):
-    """Only the parallelism flags are left unported; each names its
-    ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="not ported.*Queue 1: Parallelism"):
-        run_cli.run(["-c", "never-read.json", "--device", "cpu", *flags])
+def test_flags_not_ported_raise(flags, monkeypatch):
+    """The parallelism flags, the last options that raised, are ported: each
+    sets the run's (data, model, pipe, expert) mesh as the JAX CLI's does
+    (``--pp-micro-batches`` alone changes nothing: it applies to 1F1B;
+    ``--multihost`` takes the world size from torchrun's environment)."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    cfg = {"model": {"encoder_type": "transformer",
+                     "encoder": {"scan_layers": True, "n_blocks": 4, "moe_experts": 2}}}
+    want = {"--tp": (1, 2, 1, 1), "--pp": (1, 1, 2, 1), "--pp-schedule": (1, 1, 1, 1),
+            "--pp-micro-batches": None, "--ep": (1, 1, 1, 2), "--multihost": (2, 1, 1, 1),
+            "-n": (2, 1, 1, 1)}[flags[0]]
+    args = run_cli.build_argparser().parse_args(["-c", "never-read.json", "--device", "cpu",
+                                                 *flags])
+    assert run_cli.mesh_dims(args, cfg) == want
 
 
 @pytest.mark.parametrize("form", ["dir", "file"])
@@ -473,6 +482,9 @@ def test_init_model_warm_starts_the_weights(trained, corpus, tmp_path, form):
     ("train", "pp_schedule", "1f1b"), ("train", "pp_micro_batches", 2),
 ], ids=lambda v: str(v) if not isinstance(v, dict) else "dict")
 def test_config_options_not_ported_raise(corpus, tmp_path, section, key, value):
+    """The train section's pipeline options are ported: ``pp_schedule:
+    1f1b`` without a mesh raises the JAX trainer's refusal, and
+    ``pp_micro_batches`` alone is read only under 1F1B (the run trains)."""
     _, _, cfg = corpus
     cfg = json.loads(json.dumps(cfg))
     cfg[section][key] = value
@@ -480,8 +492,13 @@ def test_config_options_not_ported_raise(corpus, tmp_path, section, key, value):
     conf = str(tmp_path / "conf.json")
     with open(conf, "w") as f:
         json.dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="not ported.*Queue 1: Parallelism"):
-        run_cli.run(["-c", conf, "--expdir", str(tmp_path / "exp"), "--device", "cpu"])
+    argv = ["-c", conf, "--expdir", str(tmp_path / "exp"), "--device", "cpu"]
+    if key == "pp_schedule":
+        with pytest.raises(ValueError, match="pp_schedule=1f1b needs a mesh with a pipe axis"):
+            run_cli.run(argv)
+    else:
+        trainer = run_cli.run(argv)
+        assert trainer.pipeline is None and trainer.history and trainer.nan_skips == 0
 
 
 def kaldi_copy(cfg, root):
