@@ -237,7 +237,33 @@ each of which raises on failure:
      2`` of the anchor on 101 test utterances at ``-b 50`` with and without
      ``-lm`` against ``eval -n 1`` (the same predict.txt and RESULT, predict.log
      up to a score's last printed digit), kernels 1 and 2 launched on each
-     rank.
+     rank;
+  17. the port's measuring tools and recipe, each tool's ``main`` run in
+     this process at its own sizes: (a) ``tools/torch_profile_decode.py
+     --quick`` (encode, searches of 24 and 4 steps and their slope, B=512
+     x 500 frames, bf16, beam 5) and ``--lm`` (no LM, LMs of 0, 1 and 6
+     blocks): kernel 1 launched once a search step without an LM and never
+     with one, kernel 2 once a step with one, each timing's device time
+     (``torch.profiler``) above 0; (b) ``tools/torch_profile_train.py
+     --iters 4`` (the flagship update, B16 x T512, bf16): its categories sum
+     to the device total, its idle share in [0, 1]; (c)
+     ``tools/torch_stream_latency.py -n 16 --seconds 10`` and ``--paced
+     --seconds 5``: a FINAL on every stream, one kernel-1 launch a tick; (d)
+     ``tools/torch_probe_decode_precision.py``: the anchor's 500 test
+     utterances in five precision configurations, f32 within phase 2's
+     limits (CER 0.75%, 5 of 500 ids off JAX's), the others recorded; (e)
+     ``tools/torch_probe_cost_analysis.py``: the flagship update's FLOPs
+     (20 updates and 4 micro-batches counting 20 and 4 times one) and its
+     MFU; (f) ``--multihost``'s per-host loading: two processes in
+     torchrun's environment on the one card (Gloo), each reading only its
+     data shard of phase 16's corpus in batches of 7 (4 + 3 rows: gathered
+     whole), each step's loss and gradients held to the plain trainer's
+     step on the host-major global batch within 16b's limits; (g)
+     ``conf/flagship.json`` on phase 12's corpus through the training CLI,
+     cut to its first epoch's 32 updates (``-debug``) with the resident
+     corpus and the dev probe (one kernel-1 launch a greedy step), then
+     the average, decode (500 utterances) and export commands of
+     ``egs/synth_bench/continue_torch.sh``, each run as the script runs it.
 
 The two lines before the last are the kernels' JSON record and the card's
 name and power limit; the last line is the run's JSON status.
@@ -5118,6 +5144,387 @@ def phase_parallel(workdir: str, data: str, corpus: dict, device: str = "cuda"):
     return {**k1, **k1b}, k2, {**k3, **k3b}
 
 
+# ---------------------------------------------------------------- phase 17
+# the port's measuring tools (tools/torch_*.py) run in this process, at
+# their own sizes on the card (TOOL_CPU_ARGS cut them for a CPU rehearsal);
+# 17f's two ranks read their data shards; 17g's flagship cut to 32 updates
+TOOL_STREAMS = dict(streams=16, seconds=10.0, paced_seconds=5.0)
+TOOL_TRAIN_ITERS = 4
+TOOL_CPU_ARGS = {
+    "torch_profile_decode": ["-b", "2", "--frames", "40", "--iters", "1"],
+    "torch_profile_train": ["-b", "2", "-t", "64", "-u", "4"],
+    "torch_stream_latency": [],
+    "torch_probe_decode_precision": ["--utts", "16"],
+    "torch_probe_cost_analysis": ["-b", "2", "-t", "64", "-u", "4", "--time-iters", "1"],
+}
+MULTIHOST = dict(batch=7, steps=2, timeout=600)  # 7 rows: 4 + 3, the shards split unevenly
+# cli/run.py -debug: an epoch's first 32 updates; a CPU rehearsal cuts the
+# width and the batch
+RECIPE_CUT = dict(updates=32, timeout=900,
+                  cpu_sets=["--set", "model.encoder.n_blocks=1", "--set",
+                            "model.decoder.n_blocks=1", "--set", "data.batch_size=4"])
+
+
+def load_tool(name: str):
+    """``tools/<name>.py`` as a module."""
+    import importlib.util
+
+    tools = os.path.join(REPO, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    spec = importlib.util.spec_from_file_location(name, os.path.join(tools, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_tool(tag: str, name: str, argv: list, device: str) -> dict | None:
+    """``main(argv)`` of a tool in this process (its output echoed under
+    ``tag``) → its last line as JSON (None when that is not a JSON object).
+    Off the card ``--device`` and the cut sizes of ``TOOL_CPU_ARGS`` go in."""
+    import contextlib
+    import io
+
+    if device != "cuda":
+        argv = argv + TOOL_CPU_ARGS[name] + ["--device", device]
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = load_tool(name).main(argv)
+    text = out.getvalue().strip()
+    for line in text.splitlines():
+        if not line.startswith("{"):
+            log(f"{tag} | {line}")
+    log(f"{tag} tools/{name}.py {' '.join(argv)}: {time.time() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"{tag}: tools/{name}.py exited {rc}")
+    last = text.splitlines()[-1] if text else ""
+    return json.loads(last) if last.startswith("{") else None
+
+
+def phase17a_decode_split(device: str) -> tuple[dict, dict]:
+    """The decode split without an LM (--quick) and the LM attribution
+    (--lm): kernel 1 once a search step without an LM and never with one,
+    kernel 2 once a step with one; device time > 0."""
+    from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
+
+    cuda = device == "cuda"
+    reset_launch_counts()
+    rec = run_tool("phase17a", "torch_profile_decode", ["--quick"], device)
+    k1_quick = project_logp_topk.launches
+    bad = []
+    if cuda:
+        for s in rec["searches"]:
+            if s["k1"] != s["max_len"] or s["k2"] != 0 or not s["device_ms"] > 0:
+                bad.append(f"--quick max_len {s['max_len']}: {s}")
+        if not rec["encode"]["device_ms"] > 0:
+            bad.append(f"encode: {rec['encode']}")
+    reset_launch_counts()
+    lm = run_tool("phase17a", "torch_profile_decode", ["--lm"], device)
+    k1_lm, k2_lm = project_logp_topk.launches, project2_logp_topk.launches
+    if cuda:
+        for v in lm["lm"]:
+            for s in v["searches"]:
+                want = (s["max_len"], 0) if v["num_blocks"] is None else (0, s["max_len"])
+                if (s["k1"], s["k2"]) != want or not s["device_ms"] > 0:
+                    bad.append(f"--lm {v['label']} max_len {s['max_len']}: {s}")
+    if bad:
+        raise AssertionError("phase17a: launches or device time wrong: " + "; ".join(bad))
+    log(f"phase17a decode split: kernel-1 launches {k1_quick} (--quick), {k1_lm} (--lm, the "
+        f"no-LM variant), kernel-2 launches {k2_lm} (--lm) ok")
+    return ({"phase17a profile_decode --quick": k1_quick,
+             "phase17a profile_decode --lm, no-LM searches": k1_lm},
+            {"phase17a profile_decode --lm, LM searches": k2_lm})
+
+
+def phase17b_train_profile(workdir: str, device: str) -> None:
+    """The flagship update's trace: categories sum to the total, idle share
+    in [0, 1]."""
+    rec = run_tool("phase17b", "torch_profile_train",
+                   ["--iters", str(TOOL_TRAIN_ITERS), "--trace-dir",
+                    os.path.join(workdir, "train_trace")], device)
+    total = rec["device_ms"] if device == "cuda" else rec["cpu_self_ms"]
+    cats = sum(rec["by_category"].values())
+    ok = abs(cats - total) <= 1e-6 * total and total > 0
+    if device == "cuda":
+        ok &= 0.0 <= rec["idle_share"] <= 1.0
+    if not ok:
+        raise AssertionError(f"phase17b: categories {cats} against total {total}, idle share "
+                             f"{rec.get('idle_share')}")
+
+
+def phase17c_stream_latency(device: str) -> dict:
+    """Saturated and paced multi-stream CTC: one kernel-1 launch a tick,
+    a FINAL on every stream."""
+    out = {}
+    s = TOOL_STREAMS
+    for mode, argv in (("saturated", ["-n", str(s["streams"]), "--seconds", str(s["seconds"])]),
+                       ("paced", ["-n", str(s["streams"]), "--paced", "--seconds",
+                                  str(s["paced_seconds"])])):
+        reset_launch_counts()
+        rec = run_tool("phase17c", "torch_stream_latency", argv, device)
+        good = rec["finals"] == s["streams"] and (
+            rec["kernel1_launches"] == rec["ticks"] if device == "cuda" else True)
+        if not good:
+            raise AssertionError(f"phase17c {mode}: finals {rec['finals']}, kernel-1 launches "
+                                 f"{rec['kernel1_launches']} against {rec['ticks']} ticks")
+        out[f"phase17c stream_latency {mode}"] = rec["kernel1_launches"]
+    return out
+
+
+def phase17d_precision(workdir: str, device: str) -> dict:
+    """The five precision configurations on the anchor's test split: f32
+    within phase 2's CER and id limits, the others recorded."""
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+
+    path = os.path.join(workdir, "probe_results.jsonl")
+    reset_launch_counts()
+    run_tool("phase17d", "torch_probe_decode_precision", ["--out", path], device)
+    with open(path) as f:
+        recs = {r["probe"]: r for r in map(json.loads, f)}
+    f32 = recs["f32"]
+    limit_ids = ANCHOR_ID_LIMIT if device == "cuda" else 1
+    if f32["cer_pct"] > ANCHOR_CER_LIMIT or f32["ids_off_jax"] > limit_ids:
+        raise AssertionError(f"phase17d f32: CER {f32['cer_pct']}% (limit {ANCHOR_CER_LIMIT}%), "
+                             f"{f32['ids_off_jax']} ids off JAX's (limit {limit_ids})")
+    log("phase17d " + ", ".join(f"{k} CER {r['cer_pct']}% ({r['ids_off_jax']} off JAX's ids)"
+                                for k, r in recs.items()) + " ok")
+    return {"phase17d probe_decode_precision, 5 configurations": project_logp_topk.launches}
+
+
+def phase17e_cost(device: str) -> None:
+    """FLOPs of the flagship update (eager: 20 and 4 times one update) and
+    its MFU on the card."""
+    rec = run_tool("phase17e", "torch_probe_cost_analysis", [], device)
+    ok = rec["accum4"] == 4 * rec["single"] and rec["steps_per_exec20"] == 20 * rec["single"]
+    if device == "cuda":
+        ok &= 0.0 < rec["mfu"] < 1.0
+        log(f"phase17e flagship update B{rec['b']} T{rec['t']} U{rec['u']}: {rec['single']:.4e} "
+            f"FLOPs counted ({rec['single/hand_roofline']:.3f} of the hand roofline), "
+            f"{rec['update_ms']:.2f} ms an update, MFU {rec['mfu']:.4f} of 989 TFLOP/s "
+            f"[{card_line()}]")
+    if not ok:
+        raise AssertionError(f"phase17e: counts or MFU wrong: {rec}")
+
+
+def multihost_cfg(workdir: str, corpus: dict, device: str) -> str:
+    cfg = parallel_cfg(workdir, corpus, "transformer_baseline", False, device)
+    cfg["data"]["batch_size"] = MULTIHOST["batch"]
+    path = os.path.join(workdir, "multihost_17f.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def multihost_trainer(cfg: dict, device, mesh=None):
+    from opentransformer_tpu_torch.data.device_pipeline import make_device_frontend
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(7)
+    model = build_model(cfg["model"], dtype=torch.float32, device=device).train()
+    return Trainer(dict(cfg["train"]), model, make_device_frontend(cfg["data"], device),
+                   torch.Generator(device=device).manual_seed(7), log_interval=10 ** 9,
+                   mesh=mesh, data_shards=mesh is not None)
+
+
+def phase17f_rank(conf: str, out: str, device_type: str) -> None:
+    """One rank of 17f in torchrun's environment: its data shard of each of
+    the first steps' batches, one step each from the same weights; rank 0
+    saves the steps' losses and one-card gradients."""
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+    from opentransformer_tpu_torch.ops import fbank_kernel as fk
+    from opentransformer_tpu_torch.parallel import launch
+    from opentransformer_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device("cuda", 0) if device_type == "cuda" else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    launch.init_from_env("gloo")
+    try:
+        with open(conf) as f:
+            cfg = json.load(f)
+        mesh = make_mesh(2, 1, 1, 1)
+        loader = FeatureLoader(cfg, "train", seed=7, num_shards=mesh.size("data"),
+                               shard_id=mesh.index("data"))
+        loader.set_epoch(0)
+        trainer = multihost_trainer(cfg, device, mesh)
+        steps = []
+        reset_launch_counts()
+        for j, batch in zip(range(MULTIHOST["steps"]), loader):
+            trainer.optimizer.zero_grad(set_to_none=True)
+            loss = trainer.micro_step(batch)
+            trainer.parallel.sync_grads(trainer.optimizer)
+            loss = trainer.parallel.report(loss.reshape(1).float().clone())
+            grads = trainer.parallel.gather_grads()
+            trainer._window, trainer._window_aux = [], []
+            steps.append({"loss": float(loss[0]), "rows": len(batch[0]),
+                          "grads": {n: g.cpu() for n, g in grads.items()}})
+        if mesh.rank == 0:
+            torch.save({"steps": steps, "k3": fk.spec_mel.launches}, out)
+        else:
+            torch.save({"k3": fk.spec_mel.launches}, out + ".rank1")
+    finally:
+        launch.shutdown()
+
+
+def multihost_references(cfg: dict, device: str) -> list:
+    """The plain trainer's step on each host-major global batch: shard i's
+    rows (``idxs[i::2]``) in shard order, read and collated as one batch."""
+    from opentransformer_tpu_torch.data.device_pipeline import collate_waveforms
+    from opentransformer_tpu_torch.data.loader import FeatureLoader
+
+    loader = FeatureLoader(cfg, "train", seed=7)
+    loader.set_epoch(0)
+    trainer = multihost_trainer(cfg, device)
+    out = []
+    for _, (_, idxs) in zip(range(MULTIHOST["steps"]), loader.sampler):
+        order = [k for i in range(2) for k in (idxs[i::2] or [idxs[0]])]
+        batch = collate_waveforms([loader.dataset[k] for k in order])
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss = trainer.micro_step(batch)
+        trainer._window, trainer._window_aux = [], []
+        out.append({"loss": float(loss), "rows": len(order),
+                    "grads": {n: p.grad.detach().cpu().clone()
+                              for n, p in trainer.model.named_parameters()}})
+    return out
+
+
+def phase17f_multihost(workdir: str, corpus: dict, device: str) -> dict:
+    """``--multihost``'s data path: two processes in torchrun's environment on
+    the one card (Gloo), each reading its data shard of every batch (7 rows:
+    4 + 3, gathered whole; then the next batch), each step's loss (1e-5
+    relative) and gradients (1e-3 of each tensor's largest) held to the
+    plain trainer's step on the host-major global batch."""
+    from opentransformer_tpu_torch.parallel import launch
+
+    conf = multihost_cfg(workdir, corpus, device)
+    with open(conf) as f:
+        cfg = json.load(f)
+    want = multihost_references(cfg, device)
+    out = os.path.join(workdir, "multihost_17f.pt")
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(launch.free_port()),
+               WORLD_SIZE="2", PYTHONPATH=REPO)
+    code = (f"import chip_smoke as c; c.phase17f_rank({conf!r}, {out!r}, "
+            f"{torch.device(device).type!r})")
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=MULTIHOST["timeout"]) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"phase17f: the ranks exited {rcs}")
+    got = torch.load(out)
+    k3 = {"phase17f --multihost data shards, rank 0": got["k3"],
+          "phase17f --multihost data shards, rank 1": torch.load(out + ".rank1")["k3"]}
+    ok = len(got["steps"]) == len(want) == MULTIHOST["steps"]
+    for j, (g, w) in enumerate(zip(got["steps"], want)):
+        loss_err = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+        grad_err = grad_rel_err(g["grads"], w["grads"])
+        good = loss_err <= PARALLEL["loss_rtol"] and grad_err <= PARALLEL["grad_rtol"]
+        ok &= good
+        log(f"phase17f step {j}: global batch of {w['rows']} rows, rank 0's shard {g['rows']} "
+            f"rows; loss {g['loss']:.6f} relative to the plain step {loss_err:.2e} (limit "
+            f"{PARALLEL['loss_rtol']:.0e}), gradients max |Δ|/max|g| a tensor {grad_err:.2e} "
+            f"(limit {PARALLEL['grad_rtol']:.0e}) {'ok' if good else 'FAIL'}")
+    if device == "cuda":
+        ok &= all(v > 0 for v in k3.values())
+    log(f"phase17f 2-rank --multihost world (Gloo, one card) wall {time.time() - t0:.1f} s, "
+        f"kernel-3 launches {list(k3.values())} [{card_line() if device == 'cuda' else device}]")
+    if not ok:
+        raise AssertionError("phase17f: the sharded steps disagree with the global batch's")
+    return k3
+
+
+def phase17g_recipe(workdir: str, data: str, device: str) -> dict:
+    """``conf/flagship.json`` on phase 12's corpus through the training CLI,
+    cut to an epoch's first 32 updates (``-debug``), then the average,
+    decode and export commands of ``egs/synth_bench/continue_torch.sh``."""
+    from opentransformer_tpu_torch.cli import run as run_cli
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+
+    conf = os.path.join(workdir, "flagship_17g.json")
+    cut = [] if device == "cuda" else RECIPE_CUT["cpu_sets"]
+    if load_tool("torch_edit_config").main([os.path.join(CONF_DIR, "flagship.json"), conf,
+                                            "--data", data, "--set", "train.epochs=1",
+                                            *cut]):
+        raise AssertionError("phase17g: the config edit failed")
+    expdir = os.path.join(workdir, "exp_flagship_17g")
+    argv = ["-c", conf, "--expdir", expdir, "--debug", "--log_interval", "8"]
+    if device != "cuda":
+        argv += ["--device", device]
+    reset_launch_counts()
+    t0 = time.time()
+    trainer = run_cli.run(argv)
+    train_secs = time.time() - t0
+    k1 = project_logp_topk.launches
+    losses = losses_of(trainer)
+    probe = trainer.dev_probe_fn.records[0]
+    ok = (len(trainer.history) == RECIPE_CUT["updates"] and trainer.nan_skips == 0
+          and all(np.isfinite(losses)) and (k1 == probe["steps"] if device == "cuda" else True))
+    log(f"phase17g flagship.json, {len(trainer.history)} updates (-debug) in {train_secs:.1f} s "
+        f"with the resident corpus and the dev probe; loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+        f"dev greedy CER {probe['cer'] * 100:.2f}% over {probe['steps']} greedy steps, "
+        f"kernel-1 launches {k1} [{card_line() if device == 'cuda' else device}]")
+    del trainer
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # continue_torch.sh's last three commands, on the one epoch (0) trained
+    avg = os.path.join(expdir, "model.average.from0to0")
+    result = os.path.join(expdir, "decode_test_bw5_pn0.6_ml32_avg0-0", "RESULT")
+    export = os.path.join(expdir, "flagship_synth_f16.npz")
+    dev = [] if device == "cuda" else ["--device", device]
+    commands = [
+        ["tools/torch_average.py", expdir, "0", "0"],
+        ["-m", "opentransformer_tpu_torch.cli.eval", "-m", avg, "-bw", "5", "-pn", "0.6",
+         "-ml", "32", "-b", "100", "-d", "test", *dev],
+        ["tools/torch_export_trained_synth.py", avg, export, "--result", result,
+         "--embed-model-cfg", "--regenerate", "bash egs/synth_bench/run_torch.sh"]]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.time()
+    for argv in commands:
+        run = subprocess.run([sys.executable, *argv], cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=RECIPE_CUT["timeout"])
+        if run.returncode != 0:
+            log(f"phase17g {argv[0] if argv[0] != '-m' else argv[1]} exited {run.returncode}: "
+                f"{run.stderr[-2000:]}")
+            ok = False
+            break
+    ok &= os.path.exists(result) and os.path.exists(export)
+    if ok:
+        with open(result) as f:
+            text = f.read()
+        ok &= "UTTS 500 " in text or device != "cuda"
+        log(f"phase17g continue_torch.sh's average, decode and export commands in "
+            f"{time.time() - t0:.1f} s: {' | '.join(text.strip().splitlines())}")
+    if not ok:
+        raise AssertionError("phase17g: the flagship recipe's cut failed")
+    return {"phase17g flagship recipe, the dev probe": k1}
+
+
+def phase_tools(workdir: str, data: str, corpus: dict, device: str = "cuda"):
+    """Phase 17 (module docstring): ``data`` holds phase 12's corpus,
+    ``corpus`` phase 7's wavs. Returns ({path: kernel-1 launches}, {path:
+    kernel-2 launches}, {path: kernel-3 launches})."""
+    t_phase = time.time()
+    k1, k2 = phase17a_decode_split(device)
+    phase17b_train_profile(workdir, device)
+    k1.update(phase17c_stream_latency(device))
+    k1.update(phase17d_precision(workdir, device))
+    phase17e_cost(device)
+    k3 = phase17f_multihost(workdir, corpus, device)
+    k1.update(phase17g_recipe(workdir, data, device))
+    log(f"phase17 wall {time.time() - t_phase:.1f} s")
+    return k1, k2, k3
+
+
 def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
     """The kernel's entry of the JSON line: ``launches`` on its first main
     path, ``launches_by_path`` on each path that launches it."""
@@ -5160,6 +5567,7 @@ def main() -> int:
         moe_launches, moe_launches2, moe_launches3 = phase_moe(workdir, data, corpus,
                                                                flagship_secs)
         par_launches, par_launches2, par_launches3 = phase_parallel(workdir, data, corpus)
+        tool_launches, tool_launches2, tool_launches3 = phase_tools(workdir, data, corpus)
 
     # launches: each kernel's count on its own main paths (phase 3 without an
     # LM, phase 8's CTC decodes, phase 9's conformer decodes, phase 10's
@@ -5167,8 +5575,9 @@ def main() -> int:
     # probe and averaged-checkpoint decode, phase 13's decodes of the
     # trained families, phase 14's reference-checkpoint and -m decodes and
     # phase 15's MoE decodes, phase 16's eval -n 1 and each rank's eval -n 2,
-    # phases 5, 10d, 13e, 14a, 15d and 16b with an LM, phases 7, 9d, 13c,
-    # 14c, 15c and 16's training runs and steps); times at the flagship
+    # phase 17's tools and the flagship recipe's dev probe, phases 5, 10d,
+    # 13e, 14a, 15d, 16b and 17a with an LM, phases 7, 9d, 13c, 14c, 15c,
+    # 16 and 17f's training runs and steps); times at the flagship
     # bf16 beam-step shape and at the 16 x 10 s training batch
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
@@ -5180,20 +5589,20 @@ def main() -> int:
                        "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"],
                        **conformer_launches, **stream_launches, **transducer_launches,
                        **recipe_launches, **family_launches, **ref_launches,
-                       **moe_launches, **par_launches}),
+                       **moe_launches, **par_launches, **tool_launches}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
                       timings2["flagship bf16"],
                       {"phase5 flagship decode + LM": launches2,
                        "phase10d batcher, anchor + LM at -lmw 0.0": stream_launches2,
                        **family_launches2, **ref_launches2, **moe_launches2,
-                       **par_launches2}),
+                       **par_launches2, **tool_launches2}),
         kernel_record("fbank_spec_mel", "opentransformer_tpu_torch/csrc/fbank_spec_mel.cu",
                       "opentransformer_tpu/ops/fbank_pallas.py:60", launches3, max_err3, timing3,
                       {"phase7 training": launches3,
                        "phase9d conformer_baseline training": conformer_train_launches,
                        **family_launches3, **ref_launches3, **moe_launches3,
-                       **par_launches3}),
+                       **par_launches3, **tool_launches3}),
     ]}
     log(f"chip_smoke ran every phase in {time.time() - t0:.1f} s")
     print(json.dumps(record))

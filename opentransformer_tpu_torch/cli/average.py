@@ -15,12 +15,16 @@ import argparse
 from ..train.checkpoint import Checkpointer
 
 
-def main(argv=None) -> int:
+def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Average checkpoints over an epoch range")
     p.add_argument("expdir", type=str)
     p.add_argument("start_epoch", type=int)
     p.add_argument("end_epoch", type=int)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
     print(Checkpointer(args.expdir).average(args.start_epoch, args.end_epoch))
     return 0
 

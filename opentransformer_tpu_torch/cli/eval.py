@@ -21,7 +21,9 @@ Two sources of weights and data, one of which is given:
 It decodes with batched beam search and writes the JAX CLI's artifacts:
 ``predict.txt`` (1-best), ``predict.log`` (n-best with scores) and
 ``RESULT`` (corpus CER, oracle CER, RTF). ``-ns N`` stops after the batch
-that reaches N utterances, ``-sba`` ranks each n-best list by score /
+that reaches N utterances (``-debug`` after the one that reaches 10;
+``-pf``, ``-test``, ``-resc`` and ``-rw`` are accepted and ignored, as in
+the JAX CLI), ``-sba`` ranks each n-best list by score /
 (tokens + 1), ``-ld`` is the length penalty's lamda, ``--profile DIR``
 writes a ``torch.profiler`` trace of the decode loop (``DIR/trace.json``).
 With ``-lm`` (an npz with ``--lm_cfg``, a training checkpoint directory of
@@ -195,6 +197,18 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="rank each n-best list by score / (tokens + 1) instead of score")
     p.add_argument("-ns", "--num_sample", type=int, default=0,
                    help="stop after the batch that reaches this many utterances (0: all)")
+    p.add_argument("-debug", "--debug", action="store_true",
+                   help="stop after the batch that reaches 10 utterances")
+    p.add_argument("-pf", "--path_fusion", action="store_true",
+                   help="accepted for reference-CLI parity (transducer path fusion was "
+                        "vestigial upstream); ignored")
+    p.add_argument("-test", "--test", action="store_true",
+                   help="accepted for reference-CLI parity; ignored")
+    p.add_argument("-resc", "--apply_rescoring", action="store_true",
+                   help="accepted for parity; use -ctcw for working joint CTC/attention "
+                        "rescoring")
+    p.add_argument("-rw", "--rescore_weight", type=float, default=1.0,
+                   help="accepted for parity (see -ctcw / -lm_resc)")
     p.add_argument("-s", "--suffix", default=None, help="appended to the decode directory's name")
     p.add_argument("--profile", default=None,
                    help="write a torch.profiler trace of the decode loop to DIR/trace.json")
@@ -399,6 +413,15 @@ def sort_by_avg_score(texts: list, scores):
     return [texts[k] for k in order], np.asarray([scores[k] for k in order])
 
 
+DEBUG_UTTS = 10  # -debug stops after the batch that reaches this many
+
+
+def stop_after(args, n_decoded: int) -> bool:
+    """Whether ``-ns`` or ``-debug`` ends the decode after this batch."""
+    return bool((args.num_sample and n_decoded >= args.num_sample)
+                or (args.debug and n_decoded >= DEBUG_UTTS))
+
+
 def main(argv=None) -> int:
     parser = build_argparser()
     args = parser.parse_args(argv)
@@ -524,7 +547,7 @@ def decode(args, rank: int = 0, world: int = 1) -> int:
                 rows += b
             if rank:
                 n_decoded += len(utt_ids)
-                if args.num_sample and n_decoded >= args.num_sample:
+                if stop_after(args, n_decoded):
                     break
                 continue
             total_frames += frames
@@ -543,7 +566,7 @@ def decode(args, rank: int = 0, world: int = 1) -> int:
                     flog.write(f"{utt} nbest{k} score={float(sc):.4f} {h}\n")
                 n_decoded += 1
             logger.info("decoded %d utts, CER %.2f%%", n_decoded, cer.rate * 100)
-            if args.num_sample and n_decoded >= args.num_sample:
+            if stop_after(args, n_decoded):
                 break
     if args.record:
         with open(args.record, "a", encoding="utf-8") as f:

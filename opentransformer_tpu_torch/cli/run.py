@@ -57,7 +57,8 @@ Parallelism (``parallel/``), the JAX CLI's options: a mesh of ``-n`` data
 ranks (default: the cards over tp·pp·ep, at least one) × ``--tp`` tensor ×
 ``--pp`` pipeline × ``--ep`` expert ranks, one process a rank
 (``parallel/launch.py``: spawned on this host, or with ``--multihost``
-the world ``torchrun`` describes). ``--pp-schedule`` is ``sharded``
+the world ``torchrun`` describes, where each data rank reads only its
+shard of every batch, as JAX's hosts do). ``--pp-schedule`` is ``sharded``
 (default) or ``1f1b`` with ``--pp-micro-batches`` microbatches. Rank 0
 writes the logs, checkpoints (the one-card layout) and the record. The
 ranks' collectives run on NCCL for the card and Gloo for the CPU. Without
@@ -159,9 +160,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="expert-parallel degree (must divide encoder.moe_experts)")
     p.add_argument("--multihost", action="store_true",
                    help="join the world torchrun describes in the environment")
-    for flags in (("-r", "--local_rank"), ("-vb", "--verbose"), ("-ol", "--opt_level"),
-                  ("-p", "--parallel_mode"), ("-g", "--gpus")):
-        p.add_argument(*flags, default=None, help="accepted for reference-CLI parity; ignored")
+    for flags, kind, default in ((("-r", "--local_rank"), int, 0), (("-vb", "--verbose"), int, 0),
+                                 (("-ol", "--opt_level"), str, "O1"),
+                                 (("-p", "--parallel_mode"), str, "dp"),
+                                 (("-g", "--gpus"), str, None)):
+        p.add_argument(*flags, type=kind, default=default,
+                       help="accepted for reference-CLI parity; ignored")
     return p
 
 
@@ -443,7 +447,12 @@ def train(args, cfg, dims=None, local_rank: int = 0) -> Trainer:
     # float32 master weights; train.dtype sets the forward's autocast
     model = build_model(model_cfg, dtype=torch.float32, device=device)
     logger.info("model: %d parameters on %s", sum(p.numel() for p in model.parameters()), device)
-    loader = FeatureLoader(cfg, "train", seed=args.seed)
+    # --multihost: each data rank reads its shard of every batch (the JAX
+    # CLI's per-host slicing); the ranks of one data index read the same rows
+    shard_kw = {}
+    if args.multihost and mesh is not None and mesh.size("data") > 1:
+        shard_kw = {"num_shards": mesh.size("data"), "shard_id": mesh.index("data")}
+    loader = FeatureLoader(cfg, "train", seed=args.seed, **shard_kw)
     logger.info("train loader: %d batches", len(loader))
     frontend = make_device_frontend(data_cfg, device) if loader.extract_on_device else None
     resident = None
@@ -473,7 +482,7 @@ def train(args, cfg, dims=None, local_rank: int = 0) -> Trainer:
         keep_last_n=args.keep_last_n_checkpoints, dev_loader=dev_loader, is_debug=args.debug,
         resident=resident, dev_probe_fn=probe, mixspeech=args.mixspeech,
         visualizer=Visualizer(os.path.join(expdir, "tb")) if args.visual and rank0 else None,
-        mesh=mesh)
+        mesh=mesh, data_shards=bool(shard_kw))
     resumed = resume(args, trainer, ck, model, device)
     first_step, error = trainer.global_step, None
     profiler = None

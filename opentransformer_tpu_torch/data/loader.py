@@ -20,11 +20,15 @@ fixed-size batches), and yields collated batches from a background thread:
 
 Speech targets are BOS ⧺ y ⧺ EOS ⧺ PAD… with ``targets_length = len(y) +
 1``. As in the JAX package, an evaluation split buckets too, so
-``drop_last`` drops its short batches. On a mesh (``cli/run.py -n``,
-``--multihost``) every rank reads the global batch and the trainer keeps
-its rows (``parallel/engine.py``), so a rank's rows keep the global batch's
-padding; the JAX loader's per-host ``num_shards`` row slicing has no
-counterpart here.
+``drop_last`` drops its short batches. On a spawned mesh (``cli/run.py
+-n``) every rank reads the global batch and the trainer keeps its rows
+(``parallel/engine.py``), so a rank's rows keep the global batch's padding.
+With ``num_shards`` > 1 (``cli/run.py --multihost``: a rank's data index
+over the data axis' size) each shard iterates the same sampler sequence and
+reads only its rows of each batch, ``idxs[shard_id::num_shards]`` (row 0
+when that slice is empty), as the JAX loader slices per host; the trainer
+assembles the global batch from the shards. The device-resident corpus is
+then off, with the JAX loader's warning.
 """
 
 from __future__ import annotations
@@ -194,17 +198,23 @@ class FeatureLoader:
     """Dataset + sampler + collate for one split of ``params['data']``."""
 
     def __init__(self, params: Any, name: str = "train", is_eval: bool = False,
-                 batch_size: Optional[int] = None, seed: int = 0):
+                 batch_size: Optional[int] = None, seed: int = 0, num_shards: int = 1,
+                 shard_id: int = 0):
         data_cfg = params["data"] if "data" in params else params
         self.data_cfg = data_cfg
         dataset_type = data_cfg.get("dataset_type", "kaldi")
         if dataset_type not in DATASETS:
             raise ValueError(f"unknown dataset_type {dataset_type!r} (known: {sorted(DATASETS)})")
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} not in [0, {num_shards})")
+        self.num_shards, self.shard_id = int(num_shards), int(shard_id)
         want_resident = bool(data_cfg.get("device_resident", False)) and not is_eval
-        self.device_resident = want_resident and dataset_type in ("kaldi", "espnet")
+        self.device_resident = (want_resident and dataset_type in ("kaldi", "espnet")
+                                and self.num_shards == 1)
         if want_resident and not self.device_resident:
-            logger.warning("device_resident needs precomputed features (dataset_type kaldi or "
-                           "espnet, got %r): the split streams from the host", dataset_type)
+            logger.warning("device_resident requested but unsupported here (dataset_type=%s, "
+                           "num_shards=%d) — using the host path", dataset_type,
+                           self.num_shards)
         self.target_pad_multiple = int(data_cfg.get("target_pad_multiple", 8))
         self.num_workers = int(data_cfg.get("num_workers", 0))
         self.dataset = DATASETS[dataset_type](data_cfg, data_cfg[name], is_eval=is_eval,
@@ -268,6 +278,13 @@ class FeatureLoader:
         return ([u for u, _ in rows], {"corpus_idx": np.asarray(idxs, np.int32)},
                 collate_targets(tgts, [len(t) for t in tgts], self.target_pad_multiple))
 
+    def _shard(self, idxs):
+        """This shard's rows of a batch (the JAX loader's rule: the same
+        batches and steps on every shard; row 0 when the slice is empty)."""
+        if self.num_shards == 1:
+            return idxs
+        return idxs[self.shard_id :: self.num_shards] or [idxs[0]]
+
     def _iter_batches(self):
         if self.device_resident:
             for _, idxs in self.sampler:
@@ -276,6 +293,7 @@ class FeatureLoader:
         pool = ThreadPoolExecutor(self.num_workers) if self.num_workers > 1 else None
         try:
             for boundary, idxs in self.sampler:
+                idxs = self._shard(idxs)
                 if pool is not None:
                     samples = list(pool.map(self.dataset.__getitem__, idxs))
                 else:

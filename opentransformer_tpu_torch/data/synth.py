@@ -96,13 +96,17 @@ def write_corpus(root: str, splits=("train", "dev", "test"), n_utts=None) -> Non
             f.write("\n".join(lines) + "\n")
 
 
-def main(argv=None) -> int:
+def build_argparser():
     import argparse
 
     p = argparse.ArgumentParser(description="Generate the synthetic benchmark corpus")
     p.add_argument("root", help="output directory")
     p.add_argument("--splits", nargs="*", default=["train", "dev", "test"])
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
     write_corpus(args.root, splits=tuple(args.splits))
     return 0
 

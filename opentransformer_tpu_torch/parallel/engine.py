@@ -33,6 +33,11 @@ Under GSPMD a mesh step equals one device's step on the global batch, and
     alone (``stage_only``; ``parallel/pipeline.py``), and the hooks fetch
     blocks only outside the schedule (the dev loss, ``gather_state``).
 
+Under ``--multihost`` a data rank's loader reads only its shard of each
+batch (``data/loader.py``), and ``assemble`` makes the shard this rank's
+rows of the global batch (or, for a batch the shards split unevenly, the
+global batch gathered whole): the step is then the one above.
+
 The global gradient norm weighs each local gradient by one over the number
 of ranks holding that same tensor, summed over the world. ``gather_state``
 and ``gather_optimizer_state`` rebuild the one-card layout (a checkpoint
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -249,6 +255,41 @@ class ParallelModel:
         rows = batch_sharding(n_rows, self.mesh)
         return list(range(rows.start, rows.stop)), dp > 1 and n_rows % dp != 0
 
+    def assemble(self, batch, whole: bool = False):
+        """A data shard's batch (``FeatureLoader(num_shards=`` the data
+        size, ``shard_id=`` this rank's data index ``)``, under
+        ``--multihost``) → (batch, local). The global batch is the
+        host-major concatenation of the shards, as JAX's multihost trainer
+        assembles it, with each array padded to the largest of its shards
+        (per dimension), which is what one collate of the global batch pads
+        it to. ``local`` is True when every shard holds as many rows and
+        ``whole`` is False: the returned batch is then this rank's rows of
+        the global batch, padded, and is not sliced again. Otherwise (a
+        ragged batch, which JAX's hosts would shape differently, or a caller
+        that needs the whole batch) the global batch itself is returned,
+        gathered from the shards. ``whole`` must be alike on the ranks whose
+        shards hold as many rows."""
+        utts, inputs, targets = batch
+        keys = [("i", k) for k in sorted(inputs) if getattr(inputs[k], "ndim", 0) > 0]
+        keys += [("t", k) for k in sorted(targets) if getattr(targets[k], "ndim", 0) > 0]
+        parts = {"i": inputs, "t": targets}
+        desc = [len(targets["targets"])] + [tuple(parts[p][k].shape) for p, k in keys]
+        descs = [None] * group_size(self.data_group)
+        dist.all_gather_object(descs, desc, group=self.data_group)
+        padded = {"i": dict(inputs), "t": dict(targets)}
+        for j, (p, k) in enumerate(keys, start=1):
+            x = parts[p][k]
+            top = [max(d[j][a] for d in descs) for a in range(1, x.ndim)]
+            widths = [(0, 0)] + [(0, t - n) for t, n in zip(top, x.shape[1:])]
+            if any(w for _, w in widths):
+                padded[p][k] = np.pad(x, widths)  # zeros: PAD, False, silence
+        mine = (utts, padded["i"], padded["t"])
+        if not whole and len({d[0] for d in descs}) == 1:
+            return mine, True
+        shards = [None] * len(descs)
+        dist.all_gather_object(shards, mine, group=self.data_group)
+        return concat_batches(shards), False
+
     @contextlib.contextmanager
     def loss_context(self, ragged: bool):
         """Within the block, the losses, the MoE aux and BatchNorm's moments
@@ -424,6 +465,19 @@ class ParallelModel:
                                  and v.shape != params[name].shape else v)
                              for k, v in st.items()}
         optimizer.load_state_dict({"state": state, "param_groups": full["param_groups"]})
+
+
+def concat_batches(batches: list):
+    """Host batches of one shape but the rows → one batch, rows in order
+    (a 0-d array is taken from the first)."""
+    utts = None if batches[0][0] is None else [u for b in batches for u in b[0]]
+
+    def cat(part: int) -> dict:
+        first = batches[0][part]
+        return {k: (np.concatenate([b[part][k] for b in batches])
+                    if getattr(v, "ndim", 0) > 0 else v) for k, v in first.items()}
+
+    return utts, cat(1), cat(2)
 
 
 def _coalesced_all_reduce(tensors: list, group) -> None:

@@ -73,7 +73,11 @@ from the seed plus its index + 1 times a constant (the ranks of one data
 index share it). A MixSpeech batch whose rank share is odd runs whole on
 every data rank, so the pairs are one device's. Checkpoints are the
 one-card layout, gathered and written by rank 0; the dev probe decodes a
-one-card model built for the call on rank 0.
+one-card model built for the call on rank 0. With ``data_shards`` (the
+loader of ``--multihost`` reads each data rank's shard of a batch) the
+micro-batch is that shard, which ``ParallelModel.assemble`` turns into this
+rank's rows of the global batch, or into the global batch for a ragged
+batch, a MixSpeech batch of odd shards and the 1F1B schedule.
 """
 
 from __future__ import annotations
@@ -196,7 +200,7 @@ class Trainer:
                  generator: torch.Generator, checkpointer=None, log_interval: int = 10,
                  keep_last_n: int = 30, dev_loader=None, is_debug: bool = False,
                  resident=None, dev_probe_fn=None, mixspeech: bool = False, visualizer=None,
-                 mesh=None):
+                 mesh=None, data_shards: bool = False):
         # the pipeline schedule of a pipe axis: 'sharded' (stage-sharded
         # weights and moments, one device's numbers) or '1f1b'
         self.pp_schedule = str(train_cfg.get("pp_schedule") or "sharded")
@@ -239,6 +243,8 @@ class Trainer:
         self.generator = generator
         self.step_generator = generator  # the step's draws, alike on every rank
         self.mesh = mesh
+        # the loader reads this rank's data shard of each batch (--multihost)
+        self.data_shards = bool(data_shards) and mesh is not None and mesh.size("data") > 1
         self.parallel = None
         self.pipeline = None
         if mesh is not None:
@@ -341,6 +347,11 @@ class Trainer:
         return loss.detach()
 
     def _parallel_micro_step(self, batch):
+        local = False
+        if self.data_shards:  # this rank's shard: its rows, or the batch gathered whole
+            n_local = len(batch[2]["targets"])
+            batch, local = self.parallel.assemble(
+                batch, whole=self.pipeline is not None or (self.mixspeech and n_local % 2 == 1))
         n_rows = len(batch[2]["targets"])
         if self.pipeline is not None:
             n_micro = self.pipeline.n_micro
@@ -358,9 +369,12 @@ class Trainer:
             if moe_aux is not None:
                 aux = {"moe_aux": moe_aux * self.accum_steps}
         else:
-            rows, ragged = self.parallel.rows(n_rows)
-            if self.mixspeech and len(rows) % 2 and not ragged:  # a pair would straddle ranks
-                rows, ragged = list(range(n_rows)), True
+            if local:
+                rows, ragged = list(range(n_rows)), False
+            else:
+                rows, ragged = self.parallel.rows(n_rows)
+                if self.mixspeech and len(rows) % 2 and not ragged:  # a pair would straddle
+                    rows, ragged = list(range(n_rows)), True
             args = self.batch_args(slice_rows(batch, rows))
             with self.parallel.loss_context(ragged), self.autocast():
                 loss, aux = self.mix_loss(*args) if self.mixspeech else self.model(*args)

@@ -214,3 +214,61 @@ def test_serve_m_equals_serve_npz(run, tmp_path):
     with open(out_m) as a, open(out_npz) as b:
         got, want = sorted(a.read().splitlines()), sorted(b.read().splitlines())
     assert len(got) == 3 and got == want
+
+
+# ------------------------------------------------ the reference flags
+def _sample_value(action):
+    """A value for an option that differs from its default."""
+    if action.nargs == 0:
+        return []
+    if action.choices:
+        return [str(list(action.choices)[-1])]
+    if action.type is int:
+        return ["3"]
+    if action.type is float:
+        return ["0.25"]
+    return ["given"]
+
+
+@pytest.mark.parametrize("cli", ["eval", "run"])
+def test_every_jax_option_parses_to_the_same_value(cli):
+    """Every option string of the JAX CLI's parser parses in the port's to
+    the same destination and value (the port may have more)."""
+    import argparse
+
+    from opentransformer_tpu.cli import eval as jax_eval
+    from opentransformer_tpu.cli import run as jax_run
+
+    jax_parser = (jax_eval if cli == "eval" else jax_run).build_argparser()
+    ours = (eval_cli if cli == "eval" else run_cli).build_argparser()
+    required = ["-m", "m"] if cli == "eval" else ["-c", "c"]
+    checked = 0
+    for action in jax_parser._actions:
+        if isinstance(action, argparse._HelpAction):
+            continue
+        for opt in action.option_strings:
+            argv = ([] if opt in required else required) + [opt] + _sample_value(action)
+            if cli == "eval" and opt in ("-c", "--config"):
+                argv = ["-m", "m"] + argv
+            want = vars(jax_parser.parse_args(argv))[action.dest]
+            got = vars(ours.parse_args(argv))
+            assert action.dest in got and got[action.dest] == want, (opt, got.get(action.dest))
+            checked += 1
+    assert checked > 30
+
+
+def test_debug_and_ignored_flags_decode_ten_utterances_as_jax(run):
+    """``-debug`` stops after the batch that reaches 10 utterances (at -b 2,
+    exactly 10), with ``-pf -test -resc -rw 0.5`` accepted and ignored, in
+    both CLIs; ``-debug`` is no longer ``-d ebug``."""
+    _, port_exp, jax_exp, epoch, _ = run
+    flags = ["-b", "2", "-debug", "-pf", "-test", "-resc", "-rw", "0.5"]
+    args = eval_cli.build_argparser().parse_args(["-m", "x", "-debug"])
+    assert args.debug and args.decode_set == "test"
+    w_name, (w_best, w_nbest) = jax_decode(os.path.join(jax_exp, f"model.epoch.{epoch}"), *flags)
+    g_name, (g_best, g_nbest) = port_decode(os.path.join(port_exp, f"model.epoch.{epoch}"),
+                                            *flags)
+    assert g_name == w_name and len(g_best) == len(w_best) == 10
+    assert g_best == w_best and g_nbest.keys() == w_nbest.keys()
+    for utt, hyps in w_nbest.items():
+        assert [h for _, h in g_nbest[utt]] == [h for _, h in hyps], utt

@@ -38,7 +38,7 @@ def checkpoint_dir(path: str) -> str:
     return ck.epoch_path(epochs[-1])
 
 
-def main(argv=None) -> int:
+def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Export port params as the f16 npz + manifest")
     p.add_argument("checkpoint", help="checkpoint directory (model.average.*) or expdir")
     p.add_argument("out", help="output .npz path")
@@ -48,7 +48,11 @@ def main(argv=None) -> int:
                    help="write the run's model config into the manifest")
     p.add_argument("--regenerate", default="python tools/torch_anchor_recipe.py",
                    help="recipe recorded in the manifest's regenerate field")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
 
     src = checkpoint_dir(args.checkpoint)
     with np.load(os.path.join(src, PARAMS)) as z:
