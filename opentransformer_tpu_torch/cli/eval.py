@@ -25,7 +25,9 @@ that reaches N utterances (``-debug`` after the one that reaches 10;
 ``-pf``, ``-test``, ``-resc`` and ``-rw`` are accepted and ignored, as in
 the JAX CLI), ``-sba`` ranks each n-best list by score /
 (tokens + 1), ``-ld`` is the length penalty's lamda, ``--profile DIR``
-writes a ``torch.profiler`` trace of the decode loop (``DIR/trace.json``).
+writes a ``torch.profiler`` trace of the decode loop (``DIR/trace.json``)
+and the port's spans recorded in it (``DIR/spans.json``, on the host's
+``perf_counter_ns`` with ``offset_ns``, the trace's clock minus it).
 With ``-lm`` (an npz with ``--lm_cfg``, a training checkpoint directory of
 ``cli/run.py`` whose run's ``config.json`` sits beside it, or a reference
 LM ``.pt``) an external language model (``transformer_lm`` or ``rnn_lm``)
@@ -100,7 +102,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import compat
+from .. import compat, profiling
 from ..config import load_config
 from ..data import UNK, load_idx2unit_map, load_vocab
 from ..data.kaldi_io import load_mat, read_scp
@@ -211,7 +213,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="accepted for parity (see -ctcw / -lm_resc)")
     p.add_argument("-s", "--suffix", default=None, help="appended to the decode directory's name")
     p.add_argument("--profile", default=None,
-                   help="write a torch.profiler trace of the decode loop to DIR/trace.json")
+                   help="write a torch.profiler trace of the decode loop to DIR/trace.json "
+                        "and the port's spans to DIR/spans.json")
     p.add_argument("-n", "--ngpu", type=int, default=1,
                    help="ranks to decode on (one process a card, the rows of each batch "
                         "split over them; a card is shared when there are fewer)")
@@ -513,6 +516,7 @@ def decode(args, rank: int = 0, world: int = 1) -> int:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.__enter__()
+        marker_ns = profiling.mark_clock(dev)
     def recognize(x, mask):
         feats = torch.as_tensor(x).to(dev)
         feat_mask = torch.as_tensor(mask, dtype=torch.bool).to(dev)
@@ -576,10 +580,13 @@ def decode(args, rank: int = 0, world: int = 1) -> int:
     if rank:
         return 0
     if profiler is not None:
+        profiling.synchronize(dev)
         profiler.__exit__(None, None, None)
         os.makedirs(args.profile, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-        logger.info("profiler trace written to %s", os.path.join(args.profile, "trace.json"))
+        profiling.write_spans(os.path.join(args.profile, "spans.json"),
+                              profiling.clock_offset_ns(profiler, marker_ns, dev))
+        logger.info("profiler trace and spans written to %s", args.profile)
 
     # RTF: frames are 10 ms each
     rtf = accu_time / max(total_frames, 1) * 100

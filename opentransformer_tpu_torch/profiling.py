@@ -15,16 +15,36 @@ CPU there is no device, and a window reports its host time alone.
 (the card's) into the categories of ``CATEGORIES``. The times a tool
 prints carry the clock they were taken on: ``device`` for the card's
 profiler, ``host`` for the host clock of a card run, ``cpu`` for a CPU run.
+
+The recorder: ``span(name, device)`` (and ``spanned(name)``, the same
+around a whole function) marks the port's own layers where the work
+happens (``recognize/beam.py``, ``train/trainer.py``,
+``recognize/multistream.py``). It records only while a ``torch.profiler``
+session is active in the process (``Window``, the eval CLI's
+``--profile``, the benchmark's traced window); otherwise a span is one
+check. A span records its name, its parent (the
+span open around it in the same thread), start and end on
+``time.perf_counter_ns()``, and with a CUDA ``device`` a timing event on
+the device's current stream at each end, resolved by ``spans()`` after the
+caller has synchronised: the device time from the stream reaching the
+span's first work to finishing its last, idle between included. No span
+synchronises. ``spans()`` and ``reset()`` read and clear what was
+recorded; ``write_spans`` saves it beside a trace, with the offset
+that maps it onto the trace's clock.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import tempfile
+import threading
 import time
+from typing import NamedTuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .config import CONF_DIR
 
@@ -98,12 +118,208 @@ def busy_us(events: list[dict]) -> float:
     return total
 
 
+# ---------------------------------------------------------------- recorder
+_now_ns = time.perf_counter_ns
+
+if hasattr(_autograd_profiler, "_is_profiler_enabled"):
+    def _recording() -> bool:
+        """Whether a ``torch.profiler`` session is active in the process:
+        the profiler's process-wide flag (``torch.autograd._profiler_enabled()``
+        is false in threads other than the session's, such as the serve CLI's
+        tick threads)."""
+        return _autograd_profiler._is_profiler_enabled
+else:  # a torch without the flag: the session's own thread records
+    _recording = torch.autograd._profiler_enabled
+
+
+class Span(NamedTuple):
+    """A recorded span: host times on ``time.perf_counter_ns()``; ``depth``
+    counts the spans open around it in its thread; ``device_ms`` only for a
+    span given a CUDA device."""
+
+    name: str
+    parent: str | None
+    depth: int
+    start_ns: int
+    end_ns: int
+    device_ms: float | None
+
+
+class _Recorder:
+    """The process's closed spans, and each thread's open spans."""
+
+    def __init__(self):
+        self.done: list = []   # closed _Span objects, in the order they closed
+        self.local = threading.local()
+
+    def stack(self) -> list:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+
+_RECORDER = _Recorder()
+
+
+class _Span:
+    """One recording span; made by ``span`` only while recording."""
+
+    __slots__ = ("name", "device", "parent", "depth", "start_ns", "end_ns", "events",
+                 "device_ms")
+
+    def __init__(self, name: str, device: torch.device | None):
+        self.name, self.device = name, device
+        self.events, self.device_ms = [], None
+
+    def _event(self) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        self.events.append(ev)
+
+    def __enter__(self):
+        stack = _RECORDER.stack()
+        self.parent = stack[-1].name if stack else None
+        self.depth = len(stack)
+        stack.append(self)
+        if self.device is not None:
+            self._event()
+        self.start_ns = _now_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = _now_ns()
+        if self.device is not None:
+            self._event()
+        stack = _RECORDER.stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        _RECORDER.done.append(self)
+        return False
+
+    def resolve(self) -> Span:
+        if self.events:
+            first, last = self.events
+            last.synchronize()
+            self.device_ms, self.events = first.elapsed_time(last), []
+        return Span(self.name, self.parent, self.depth, self.start_ns, self.end_ns,
+                    self.device_ms)
+
+
+class _NoSpan:
+    """The span of a process that is not recording: nothing on entry or exit."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, device: torch.device | None = None):
+    """``with span(name[, device]): ...`` — a span of the port's work.
+    While no ``torch.profiler`` session is active in the process this is
+    one check and returns a shared no-op: no clock read, no allocation, no
+    CUDA event. ``device``, a CUDA device, adds a timing event on its
+    current stream at each end (resolved by ``spans()``)."""
+    if not _recording():
+        return _NO_SPAN
+    return _Span(name, device if device is not None and device.type == "cuda" else None)
+
+
+def spanned(name: str):
+    """``@spanned(name)``: the decorated function's every call in a
+    ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def spans() -> list[Span]:
+    """The closed spans, in the order they closed. The caller synchronises
+    the device first where spans carry CUDA events."""
+    return [s.resolve() for s in _RECORDER.done]
+
+
+def reset() -> None:
+    """Forget every closed span (open spans still close)."""
+    _RECORDER.done = []
+
+
+def span_totals(recorded: list[Span], per: float = 1) -> dict:
+    """{name: {n, host_ms, device_ms}}: the spans' count, summed host and
+    device milliseconds (device None where no span of the name has it), each
+    divided by ``per``."""
+    out: dict = {}
+    for s in recorded:
+        t = out.setdefault(s.name, {"n": 0, "host_ms": 0.0, "device_ms": None})
+        t["n"] += 1
+        t["host_ms"] += (s.end_ns - s.start_ns) / 1e6
+        if s.device_ms is not None:
+            t["device_ms"] = (t["device_ms"] or 0.0) + s.device_ms
+    for t in out.values():
+        t["n"] /= per
+        t["host_ms"] /= per
+        if t["device_ms"] is not None:
+            t["device_ms"] /= per
+    return out
+
+
+def format_span_totals(totals: dict, clock: str = "host") -> str:
+    """One line of ``span_totals``: name, count, ``clock`` ms and device ms."""
+    return " | ".join(
+        f"{name} {t['n']:g}x {t['host_ms']:.3f} ms {clock}"
+        + ("" if t["device_ms"] is None else f" {t['device_ms']:.3f} ms device")
+        for name, t in totals.items())
+
+
+def mark_clock(device: torch.device) -> int:
+    """The host's ``perf_counter_ns`` just before a marker op on ``device``:
+    called first thing in a ``torch.profiler`` session, the marker is the
+    session's first event of that device (``clock_offset_ns``)."""
+    t = _now_ns()
+    torch.ones(1, device=device).add_(1)
+    return t
+
+
+def clock_offset_ns(prof, marker_ns: int, device: torch.device) -> int | None:
+    """The finished profile's clock minus the host's ``perf_counter_ns``,
+    from its first event on ``device``'s kind (the marker of ``mark_clock``);
+    None when it holds none."""
+    from torch.autograd import DeviceType
+
+    kind = DeviceType.CUDA if device.type == "cuda" else DeviceType.CPU
+    starts = [e.start_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == kind]
+    return int(min(starts)) - marker_ns if starts else None
+
+
+def write_spans(path: str, offset_ns: int | None) -> None:
+    """The recorded spans as JSON, with ``offset_ns``: the
+    profiler's clock (its events' ``start_ns``; in its chrome trace ``ts``
+    × 1000 plus ``baseTimeNanoseconds``) minus ``perf_counter_ns``."""
+    out = {"clock": "time.perf_counter_ns", "offset_ns": offset_ns,
+           "spans": [s._asdict() for s in spans()]}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(out, f)
+
+
 class Window:
     """``with Window(device) as w: ...`` — the block's host seconds
     (``w.seconds``, ending in a synchronise) and, on the card, its
     ``torch.profiler`` device time (``w.device_ms``, ``w.busy_ms``,
     ``w.idle_share``, ``w.trace`` the chrome trace, saved to ``keep`` if
-    given). ``profile=False`` times the host clock alone."""
+    given) and the port's spans recorded inside it (``w.spans``).
+    ``profile=False`` times the host clock alone."""
 
     def __init__(self, device: torch.device, profile: bool = True, keep: str | None = None):
         self.device = device
@@ -112,10 +328,12 @@ class Window:
         self.seconds = 0.0
         self.device_ms = self.busy_ms = self.idle_share = None
         self.trace: dict | None = None
+        self.spans: list[Span] = []
         self._prof = None
 
     def __enter__(self):
         synchronize(self.device)
+        self._mark = len(_RECORDER.done)
         if self.profile:
             self._prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
@@ -131,6 +349,7 @@ class Window:
         self._prof.__exit__(*exc)
         if exc[0] is not None:
             return False
+        self.spans = [s.resolve() for s in _RECORDER.done[self._mark:]]
         path = self.keep
         with tempfile.TemporaryDirectory() as tmp:
             if path is None:

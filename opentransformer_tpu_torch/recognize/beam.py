@@ -15,6 +15,11 @@ materialized distributions.
 
 The JAX reference runs the loop as one ``lax.while_loop`` on the device;
 here it is a Python loop with one host sync per step for the early exit.
+Under a ``torch.profiler`` session the search records its spans
+(``profiling.span``): ``beam.search`` around it all, and a step's
+``beam.wait`` (that sync), ``beam.decode`` (the decoder step through its
+top-k, timed on the device too) and ``beam.select`` (the beam's
+book-keeping).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from .. import profiling
 from ..data import BOS, EOS
 from ..ops.masks import NEG_INF
 from ..ops.project_topk import topk_smallest_id
@@ -57,6 +63,7 @@ def _gather_rows(state, rows: torch.Tensor):
     return type(state)(_gather_rows(val, rows) for val in state)
 
 
+@profiling.spanned("beam.search")
 def beam_search(
     decode_step: Callable,  # (tokens[B·K], cache, index, mem_mask, src) -> (logp, cache)
     init_cache: Callable,   # (memory, max_len, beam_width) -> cache
@@ -106,41 +113,45 @@ def beam_search(
     row_base = torch.arange(b, device=dev)[:, None] * k
 
     for step in range(max_len):
-        if bool(end_flag.all()):
+        with profiling.span("beam.wait"):
+            ended = bool(end_flag.all())
+        if ended:
             break
-        cur = tokens[:, step]
-        if decode_topk_lm is not None and lm_step is not None:
-            top_vals, top_idx, cache, lm_state = decode_topk_lm(
-                cur, cache, lm_state, step, memory_mask, src, k)
-        elif decode_topk is not None and lm_step is None:
-            top_vals, top_idx, cache = decode_topk(cur, cache, step, memory_mask, src, k)
-        else:
-            logp, cache = decode_step(cur, cache, step, memory_mask, src)
-            if lm_step is not None:
-                lm_logp, lm_state = lm_step(cur, lm_state, step)
-                logp = logp + lm_weight * lm_logp
-            top_vals, top_idx = topk_smallest_id(logp, k)
-        # finished beams: one alive branch with additive score 0, forced EOS
-        fin = end_flag.reshape(b * k, 1)
-        top_vals = torch.where(fin, fin_vals, top_vals)
-        top_idx = torch.where(fin, eos_id, top_idx.long())
+        with profiling.span("beam.decode", dev):
+            cur = tokens[:, step]
+            if decode_topk_lm is not None and lm_step is not None:
+                top_vals, top_idx, cache, lm_state = decode_topk_lm(
+                    cur, cache, lm_state, step, memory_mask, src, k)
+            elif decode_topk is not None and lm_step is None:
+                top_vals, top_idx, cache = decode_topk(cur, cache, step, memory_mask, src, k)
+            else:
+                logp, cache = decode_step(cur, cache, step, memory_mask, src)
+                if lm_step is not None:
+                    lm_logp, lm_state = lm_step(cur, lm_state, step)
+                    logp = logp + lm_weight * lm_logp
+                top_vals, top_idx = topk_smallest_id(logp, k)
+        with profiling.span("beam.select"):
+            # finished beams: one alive branch with additive score 0, forced EOS
+            fin = end_flag.reshape(b * k, 1)
+            top_vals = torch.where(fin, fin_vals, top_vals)
+            top_idx = torch.where(fin, eos_id, top_idx.long())
 
-        cand = scores[:, :, None] + top_vals.reshape(b, k, k)
-        best_scores, best_flat = topk_smallest_id(cand.reshape(b, k * k), k)
-        parent = best_flat // k
-        tok = torch.gather(top_idx.reshape(b, k * k), 1, best_flat)
+            cand = scores[:, :, None] + top_vals.reshape(b, k, k)
+            best_scores, best_flat = topk_smallest_id(cand.reshape(b, k * k), k)
+            parent = best_flat // k
+            tok = torch.gather(top_idx.reshape(b, k * k), 1, best_flat)
 
-        flat_parent = (row_base + parent).reshape(-1)
-        tokens = tokens[flat_parent]
-        tokens[:, step + 1] = tok.reshape(-1)
-        # positions <= step inherit the parent's lineage; step+1 is written
-        # by each row itself next iteration
-        src = torch.gather(src, 1, parent[:, :, None].expand(b, k, max_len + 1))
-        src[:, :, step + 1] = ident
-        if lm_state is not None and not lm_ancestral:
-            lm_state = _gather_rows(lm_state, flat_parent)
-        end_flag = end_flag.reshape(-1)[flat_parent].reshape(b, k) | (tok == eos_id)
-        scores = best_scores
+            flat_parent = (row_base + parent).reshape(-1)
+            tokens = tokens[flat_parent]
+            tokens[:, step + 1] = tok.reshape(-1)
+            # positions <= step inherit the parent's lineage; step+1 is written
+            # by each row itself next iteration
+            src = torch.gather(src, 1, parent[:, :, None].expand(b, k, max_len + 1))
+            src[:, :, step + 1] = ident
+            if lm_state is not None and not lm_ancestral:
+                lm_state = _gather_rows(lm_state, flat_parent)
+            end_flag = end_flag.reshape(-1)[flat_parent].reshape(b, k) | (tok == eos_id)
+            scores = best_scores
 
     tokens = tokens.reshape(b, k, max_len + 1)
     lengths = _lengths(tokens, eos_id, max_len)

@@ -21,6 +21,13 @@ reading the memory accumulated on the device.
 Threads: ``_lock`` guards the slots' host state, ``_tick_lock`` serializes
 the device steps (every launch happens under it); the PARTIAL/FINAL
 callbacks run outside both locks.
+
+Under a ``torch.profiler`` session a tick records its spans
+(``profiling.span``): ``multistream.tick`` around ``multistream.pack`` (the
+per-slot loop under the lock), ``multistream.advance`` (the copies to the
+device, the encoder and the head's step up to its host read, timed on the
+device too), ``multistream.wait`` (that read) and ``multistream.collect``
+(the per-slot ``_collect``, the callbacks and the slots freed).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..data import BLK
 from ..utils import GrowingBuffer
 from .base import make_memory_search
@@ -216,12 +224,12 @@ class _MultiStreamBase:
     def tick(self) -> int:
         """Advance every slot with a pending chunk; returns the number of
         slots advanced. Threads may call it concurrently (ticks serialize)."""
-        with self._tick_lock:
+        with self._tick_lock, profiling.span("multistream.tick"):
             return self._tick_inner()
 
     def _tick_inner(self) -> int:
         n = self.n_streams
-        with self._lock:
+        with profiling.span("multistream.pack"), self._lock:
             plan = []  # (slot index, valid frames)
             window = np.zeros((n, self.window, self.n_feat), np.float32)
             start = np.zeros((n,), np.int64)
@@ -257,6 +265,12 @@ class _MultiStreamBase:
         self.ticks += 1
         self.chunks_advanced += len(plan)
 
+        with profiling.span("multistream.collect"):
+            return self._collect_all(out, plan)
+
+    def _collect_all(self, out, plan) -> int:
+        """The advanced slots' tokens, their PARTIAL and FINAL callbacks,
+        and the finished slots freed."""
         finals, partials = [], []
         with self._lock:
             for i, v in plan:
@@ -315,8 +329,11 @@ class MultiStreamCTC(_MultiStreamBase):
         super().__init__(model, n_streams, idx2unit)
 
     def _advance_rows(self, window, start, cache_len, chunk_mask, advance, fresh, fin_now):
-        y = self._encode(window, start, cache_len, chunk_mask, advance, fresh)
-        return ctc_frame_ids(self.model, y).cpu().numpy()
+        with profiling.span("multistream.advance", self.device):
+            y = self._encode(window, start, cache_len, chunk_mask, advance, fresh)
+            ids = ctc_frame_ids(self.model, y)
+        with profiling.span("multistream.wait"):
+            return ids.cpu().numpy()
 
     def _collect(self, ids, row, valid, s):
         new = []
@@ -346,18 +363,20 @@ class MultiStreamTransducer(_MultiStreamBase):
             self._state, self._hidden = model.init_decode_state(self.n_streams)
 
     def _advance_rows(self, window, start, cache_len, chunk_mask, advance, fresh, fin_now):
-        y = self._encode(window, start, cache_len, chunk_mask, advance, fresh)
-        if fresh.any():
-            new = torch.from_numpy(fresh).to(self.device)
-            s0, h0 = self.model.init_decode_state(self.n_streams)
-            self._state = _row_where(new, s0, self._state)
-            self._hidden = [(_row_where(new, c0, c), _row_where(new, x0, x))
-                            for (c0, x0), (c, x) in zip(h0, self._hidden)]
-        frame_len = torch.from_numpy(chunk_mask.sum(axis=1)).to(self.device)
-        toks, n, self._state, self._hidden = self.model.greedy_frames(
-            y, frame_len, self._state, self._hidden, self.chunk * self.max_per_frame,
-            self.max_per_frame)
-        return toks.cpu().numpy(), n.cpu().numpy()
+        with profiling.span("multistream.advance", self.device):
+            y = self._encode(window, start, cache_len, chunk_mask, advance, fresh)
+            if fresh.any():
+                new = torch.from_numpy(fresh).to(self.device)
+                s0, h0 = self.model.init_decode_state(self.n_streams)
+                self._state = _row_where(new, s0, self._state)
+                self._hidden = [(_row_where(new, c0, c), _row_where(new, x0, x))
+                                for (c0, x0), (c, x) in zip(h0, self._hidden)]
+            frame_len = torch.from_numpy(chunk_mask.sum(axis=1)).to(self.device)
+            toks, n, self._state, self._hidden = self.model.greedy_frames(
+                y, frame_len, self._state, self._hidden, self.chunk * self.max_per_frame,
+                self.max_per_frame)
+        with profiling.span("multistream.wait"):
+            return toks.cpu().numpy(), n.cpu().numpy()
 
     def _collect(self, out, row, valid, s):
         toks, n = out
@@ -392,26 +411,29 @@ class MultiStreamAttention(_MultiStreamBase):
                                           float(penalty), float(lamda), eos_id=eos_id)
 
     def _advance_rows(self, window, start, cache_len, chunk_mask, advance, fresh, fin_now):
-        y = self._encode(window, start, cache_len, chunk_mask, advance, fresh)
-        decode_rows = []
-        for i in np.flatnonzero(advance):
-            if fresh[i]:
-                self._mem[i] = GrowingBuffer()
-                self._since_decode[i] = 0
-            v = int(chunk_mask[i].sum())
-            if v:
-                self._mem[i].append(y[i, :v])
-            self._since_decode[i] += 1
-            if fin_now[i] or self._since_decode[i] >= self.partial_every:
-                decode_rows.append(int(i))
-        if not decode_rows:
-            return {}
-        self._since_decode[decode_rows] = 0
-        # rows not due, and due rows without a frame yet, decode a dummy frame
-        rows = [self._mem[i].view() if i in decode_rows else None for i in range(self.n_streams)]
-        hyp = self._search(*pad_memory(rows, self.mem_bucket, y))
-        self.decode_dispatches += 1
-        return best_tokens(hyp, decode_rows)
+        with profiling.span("multistream.advance", self.device):
+            y = self._encode(window, start, cache_len, chunk_mask, advance, fresh)
+            decode_rows = []
+            for i in np.flatnonzero(advance):
+                if fresh[i]:
+                    self._mem[i] = GrowingBuffer()
+                    self._since_decode[i] = 0
+                v = int(chunk_mask[i].sum())
+                if v:
+                    self._mem[i].append(y[i, :v])
+                self._since_decode[i] += 1
+                if fin_now[i] or self._since_decode[i] >= self.partial_every:
+                    decode_rows.append(int(i))
+            if not decode_rows:
+                return {}
+            self._since_decode[decode_rows] = 0
+            # rows not due, and due rows without a frame yet, decode a dummy frame
+            rows = [self._mem[i].view() if i in decode_rows else None
+                    for i in range(self.n_streams)]
+            hyp = self._search(*pad_memory(rows, self.mem_bucket, y))
+            self.decode_dispatches += 1
+        with profiling.span("multistream.wait"):
+            return best_tokens(hyp, decode_rows)
 
     def _collect(self, out, row, valid, s):
         return out.get(row)  # None: no decode this tick, the hypothesis stays

@@ -78,6 +78,13 @@ loader of ``--multihost`` reads each data rank's shard of a batch) the
 micro-batch is that shard, which ``ParallelModel.assemble`` turns into this
 rank's rows of the global batch, or into the global batch for a ragged
 batch, a MixSpeech batch of odd shards and the 1F1B schedule.
+
+Under a ``torch.profiler`` session the one-card micro-step records its
+spans (``profiling.span``): ``trainer.micro_step`` around
+``trainer.features`` (``batch_args``), ``trainer.forward`` and
+``trainer.backward``; an update records ``trainer.update`` around
+``trainer.wait`` (its one host read) and ``trainer.optimizer`` (the step
+and ``zero_grad``).
 """
 
 from __future__ import annotations
@@ -90,6 +97,7 @@ from typing import Any
 
 import torch
 
+from .. import profiling
 from ..models.modules import BatchNorm, set_dropout_generator
 from ..ops.collectives import all_reduce_
 from ..parallel.launch import is_rank0
@@ -338,13 +346,16 @@ class Trainer:
         batch the 1F1B schedule drops."""
         if self.parallel is not None:
             return self._parallel_micro_step(batch)
-        args = self.batch_args(batch)
-        with self.autocast():
-            loss, aux = self.mix_loss(*args) if self.mixspeech else self.model(*args)
-        (loss / self.accum_steps).backward()
-        self._window.append(loss.detach())
-        self._window_aux.append({k: v.detach() for k, v in aux.items()})
-        return loss.detach()
+        with profiling.span("trainer.micro_step"):
+            with profiling.span("trainer.features"):
+                args = self.batch_args(batch)
+            with profiling.span("trainer.forward"), self.autocast():
+                loss, aux = self.mix_loss(*args) if self.mixspeech else self.model(*args)
+            with profiling.span("trainer.backward"):
+                (loss / self.accum_steps).backward()
+            self._window.append(loss.detach())
+            self._window_aux.append({k: v.detach() for k, v in aux.items()})
+            return loss.detach()
 
     def _parallel_micro_step(self, batch):
         local = False
@@ -412,6 +423,7 @@ class Trainer:
         l2, _ = self.model(mixed, mixed_mask, targets[1:b:2], targets_length[1:b:2])
         return lam * l1 + (1.0 - lam) * l2, {}
 
+    @profiling.spanned("trainer.update")
     def update(self, epoch: int = 0) -> dict:
         """Clip, noise, NaN guard and one optimizer step on the accumulated
         gradient; clears it and advances ``global_step``."""
@@ -443,19 +455,21 @@ class Trainer:
         values = torch.stack([gnorm, *self._window, *aux_vals])
         if self.parallel is not None:  # the partials summed to the step's
             values = torch.cat([values[:1], self.parallel.report(values[1:].clone())])
-        values = values.tolist()
+        with profiling.span("trainer.wait"):
+            values = values.tolist()
         n = len(self._window)
         gnorm_val, losses = values[0], values[1 : 1 + n]
         aux = {k: values[1 + n + i :: len(aux_keys)] for i, k in enumerate(aux_keys)}
         applied = math.isfinite(gnorm_val)
         lr = self.schedule(self.global_step, self.global_epoch)
-        if applied:
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-            self.optimizer.step()
-        else:
-            self.nan_skips += 1
-        self.optimizer.zero_grad(set_to_none=True)
+        with profiling.span("trainer.optimizer"):
+            if applied:
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
+            else:
+                self.nan_skips += 1
+            self.optimizer.zero_grad(set_to_none=True)
         self._window, self._window_aux = [], []
         record = {"epoch": epoch, "step": self.global_step, "lr": lr, "losses": losses,
                   "gnorm": gnorm_val, "applied": applied, "time": time.time()}

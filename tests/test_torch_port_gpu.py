@@ -804,3 +804,56 @@ def test_parallel_mode_at_world_one_over_nccl_matches_the_plain_step(cuda, mode)
     for name, g in ref.items():
         torch.testing.assert_close(grads[name], g, rtol=1e-5, atol=1e-5 * float(g.abs().max()),
                                    msg=name)
+
+
+@pytest.mark.gpu
+def test_program_spans_time_the_device_inside_a_window(cuda):
+    """A beam search and multi-stream ticks run from threads, inside
+    ``profiling.Window`` on the card: ``w.spans`` holds the program's spans,
+    ``beam.decode`` and ``multistream.advance`` with device milliseconds
+    from their CUDA events, the ticks' spans from the threads that ticked;
+    the same calls outside a window record nothing."""
+    import threading
+
+    from opentransformer_tpu_torch import profiling
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.recognize.base import make_memory_search
+    from opentransformer_tpu_torch.recognize.multistream import MultiStreamCTC
+
+    torch.manual_seed(0)
+    model = build_model(SMALL_CFG, device=cuda).eval()
+    streamer = build_model(STREAM_CTC_CFG, device=cuda)
+    x = torch.randn(4, 64, 20, device=cuda)
+    search = make_memory_search(model, 3, 8, eos_id=-1)
+    rng = np.random.default_rng(5)
+    utts = [rng.normal(size=(t, 20)).astype(np.float32) for t in (90, 57, 130)]
+
+    def work():
+        with torch.inference_mode():
+            memory, mask = model.encode(x, torch.ones(4, 64, dtype=torch.bool, device=cuda))
+            hyp = search(memory, mask)
+        ms = MultiStreamCTC(streamer, n_streams=2)
+        threads = [threading.Thread(target=ms.run_stream, args=(u, lambda _t: None))
+                   for u in utts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        return hyp, ms.ticks
+
+    profiling.reset()
+    off, _ = work()
+    assert profiling.spans() == []
+    with profiling.Window(cuda) as w:
+        on, ticks = work()
+    assert torch.equal(on.tokens, off.tokens) and torch.equal(on.scores, off.scores)
+    names = {}
+    for s in w.spans:
+        names.setdefault(s.name, []).append(s)
+    assert len(names["beam.decode"]) == 8 and len(names["multistream.tick"]) == ticks > 0
+    for name in ("beam.decode", "multistream.advance"):
+        assert all(s.device_ms is not None and s.device_ms > 0 for s in names[name])
+    assert all(s.device_ms is None for s in names["beam.select"] + names["multistream.pack"])
+    assert len(names["beam.wait"]) == 8 and len(names["beam.search"]) == 1
+    profiling.reset()

@@ -196,6 +196,12 @@ def test_profile_train_runs_on_cpu(tiny_conf, tmp_path):
     assert rec["updates"] == 2 and np.isfinite(rec["last_loss"])
     assert sum(rec["by_category"].values()) == pytest.approx(rec["cpu_self_ms"], rel=1e-9)
     assert os.path.exists(os.path.join(tmp_path, "trace.json"))
+    # the trainer's spans under the CPU profile, an update each (one micro-batch an update)
+    assert {k: v["n"] for k, v in rec["spans"].items()} == {
+        k: 1.0 for k in ("trainer.micro_step", "trainer.features", "trainer.forward",
+                         "trainer.backward", "trainer.update", "trainer.wait",
+                         "trainer.optimizer")}
+    assert "the trainer's spans, an update: trainer.features 1x" in text
 
 
 @pytest.mark.parametrize("paced", [False, True], ids=["saturated", "paced"])

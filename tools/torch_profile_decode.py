@@ -23,8 +23,11 @@ and each call gets its own perturbed copy of the memory. Every figure is
 the mean over ``--iters`` calls after a warm-up call (the surgery: the
 medians over ``PAIRS`` pairs): the host clock of the window, ending in
 ``torch.cuda.synchronize()``, and beside it the device time of the same
-window from ``torch.profiler`` (kernels, copies and memsets summed). The launches of kernel 1 (``project_logp_topk``) and
-kernel 2 (``project2_logp_topk``) are counted a call.
+window from ``torch.profiler`` (kernels, copies and memsets summed), and
+the search's spans a call (``profiling.span``: each one's count, host
+milliseconds and, for ``beam.decode``, device milliseconds). The launches
+of kernel 1 (``project_logp_topk``) and kernel 2 (``project2_logp_topk``)
+are counted a call.
 
   --micro      each per-step op at the step's shapes in a 24-step chained
                loop timed with CUDA events: the QKV and GLU FFN products,
@@ -139,6 +142,8 @@ class Runner:
                "k2": (project2_logp_topk.launches - k0[1]) / calls}
         if w.device_ms is not None:
             out["device_ms"] = w.device_ms / self.iters
+        if w.spans:
+            out["spans"] = profiling.span_totals(w.spans, self.iters)
         return out
 
     def window(self, fn, args) -> dict:
@@ -176,6 +181,8 @@ class Runner:
         s = f"{t[f'{self.clock}_ms']:8.2f} ms {self.clock}"
         if "device_ms" in t:
             s += f" | {t['device_ms']:8.2f} ms device"
+        if "spans" in t:
+            s += f" | spans: {profiling.format_span_totals(t['spans'])}"
         return s
 
     def encode(self, model, rng, b=None) -> tuple[dict, torch.Tensor, torch.Tensor]:

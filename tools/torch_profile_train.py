@@ -15,6 +15,8 @@ call, two calls, under ``torch.profiler`` after a warm-up call, and prints:
     sum to the total;
   * the top ``--top`` kernels by device self time, with their launches;
   * the device's idle share over the window;
+  * the trainer's spans (``profiling.span``) an update: count and host
+    milliseconds of each;
   * one JSON line of the figures.
 
 Features are host arrays copied to the card each micro-batch (B x T x 40
@@ -172,6 +174,7 @@ def main(argv=None) -> int:
               f"({w.seconds * 1e3 / updates:.3f} ms an update), device busy "
               f"{w.busy_ms:.2f} ms, idle share {w.idle_share:.3f}")
         record["card"] = profiling.card_line()
+        spans = w.spans
     else:
         import time
 
@@ -185,6 +188,10 @@ def main(argv=None) -> int:
         summary.update(cpu_ms=secs * 1e3, cpu_ms_per_update=secs * 1e3 / updates)
         print("device: cpu (CPU times; no device in this run)")
         report(summary, args.top, "cpu")
+        spans = profiling.spans()
+    record["spans"] = profiling.span_totals(spans, updates)
+    print(f"\nthe trainer's spans, an update: "
+          f"{profiling.format_span_totals(record['spans'], profiling.clock(device))}")
     print(f"trace written to {path} ({args.iters} updates/call x {CALLS} calls, B{args.b}"
           f"{f'x{args.accum}accum' if args.accum > 1 else ''} T{args.t}"
           f"{' devgen' if args.devgen else ''})")
