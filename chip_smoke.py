@@ -24,6 +24,15 @@ each of which raises on failure:
   1b. the same for the two-head ``project2_logp_topk`` kernel of LM shallow
      fusion: flagship, LSTM-LM and anchor widths, the tile edges (D2=1024
      among them), lm weights 0.1, 0 and -0.3, ties;
+  1c. hold kernel 4 (``beam_attention``, the beam step's attention over its
+     caches, both entries) against its plain version on the card at the
+     offline decode cell's shapes (B = 1,024 utterances, beam 5, 4 heads of
+     64, bf16; 62 and 374 frames, steps 1 and 54) and in float32 at heads of
+     32 and 96, and time the kernel, the plain version and, for the cross
+     entry, ``scaled_dot_product_attention`` beside the byte bound, and the
+     wrapper's host time a call; every later phase counts kernel 4's
+     launches in this process (phase 3's decode: one of each entry per
+     decoder block and step);
   2. decode the 500-utterance synthetic test split with the committed
      anchor weights through the eval CLI in float32 (fails above 0.75% CER;
      the JAX package scored 0.65%; fails when more than 5 utterances' 1-best
@@ -440,12 +449,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
+def cuda_ms(fn, iters: int = 50, warmup: int = 5, queued: bool = False) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events).
+    ``queued``: the calls wait behind a spin of the card (``torch.cuda._sleep``,
+    ~60 ms at 1.7 GHz) while the host queues them, so that the card runs them
+    back to back even where a call's host work outlasts its device work."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -482,6 +496,27 @@ def topk2_bound_ms(n: int, d1: int, d2: int, v: int, k: int,
     nbytes = (n + v) * (d1 + d2) * esize + 8 * v + 8 * n * k
     t_ops, t_bytes = topk_ops_ms(2.0 * n * v * (d1 + d2), dtype), nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def beam_attention_bound_ms(entry: str, b: int, k: int, h: int, dh: int, n_pos: int,
+                            dtype: torch.dtype, distinct_rows: int = 0) -> tuple[float, str, int]:
+    """Least time for one call of kernel 4 (the beam step's attention): its
+    bytes at the memory rate (K beams do 2K operations an element of keys
+    and values read, far under the ~295 a byte at which the tensor cores
+    would bind). Cross: each utterance's keys and values [H, T, Dh] read
+    once, q and the mask read, the context written. Self: each distinct
+    (row, position) below
+    ``index`` that some lineage reads, read once (``distinct_rows``: a row
+    shared by several lineages counts once), the step's keys and values read
+    and written into the caches, q and the context, the lineage map. Returns
+    (ms, "bytes", bytes)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    if entry == "cross":
+        nbytes = 2 * b * h * n_pos * dh * es + 2 * b * k * h * dh * es + b * n_pos
+    else:
+        nbytes = (2 * distinct_rows * h * dh * es + 6 * b * k * h * dh * es
+                  + b * k * n_pos * 8)
+    return nbytes / PEAK_BYTES * 1e3, "bytes", nbytes
 
 
 def fbank_bound_ms(frames: int, mel: int, mel_nnz: int, window: int = 400,
@@ -874,6 +909,196 @@ def phase_kernel2():
     return max_err, timings
 
 
+# ---------------------------------------------------------------- phase 1c
+def beam_attention_case(entry: str, b: int, k: int, h: int, dh: int, n_pos: int,
+                        dtype: torch.dtype, seed: int, device="cuda"):
+    """Inputs of one entry of kernel 4 in the layouts the decoder hands
+    over: q (and the step's key and value) head splits of one projection's
+    output, the cross keys and values the halves of kv_proj's, a padded key
+    mask (every third utterance a third shorter), and lineages that merge
+    going back as a beam search leaves them (every slot from slot 0 at the
+    first step, then a random parent a step, the identity at ``index``).
+    Cross: (q, k, v, mask) over ``n_pos`` frames; self: (q, k_t, v_t,
+    cache_k, cache_v, index, src) at index ``n_pos`` - 1."""
+    from opentransformer_tpu_torch.models.modules import split_heads
+
+    g = torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g).to(device, dtype)
+
+    d = h * dh
+    if entry == "cross":
+        q = split_heads(normal(b * k, 1, d), h)[:, :, 0]
+        key, value = (split_heads(a, h) for a in normal(b, n_pos, 2 * d).chunk(2, dim=-1))
+        lens = torch.full((b,), n_pos)
+        lens[::3] = max(1, 2 * n_pos // 3)
+        mask = (torch.arange(n_pos)[None] < lens[:, None]).to(device)
+        return q, key, value, mask
+    q, k_t, v_t = (split_heads(a, h)[:, :, 0] for a in normal(b * k, 1, 3 * d).chunk(3, dim=-1))
+    u_max = n_pos + 3
+    cache_k, cache_v = normal(b * k, h, u_max, dh), normal(b * k, h, u_max, dh)
+    src = torch.arange(k)[None, :, None].repeat(b, 1, u_max)
+    for p in range(n_pos - 1):
+        parent = (torch.randint(0, k, (b, k), generator=g) if p
+                  else torch.zeros((b, k), dtype=torch.long))
+        src = torch.gather(src, 1, parent[:, :, None].expand(b, k, u_max))
+        src[:, :, p + 1] = torch.arange(k)
+    return q, k_t, v_t, cache_k, cache_v, n_pos - 1, src.to(device)
+
+
+def distinct_rows(src: torch.Tensor, index: int) -> int:
+    """The (utterance, row, position)s below ``index`` that some lineage of
+    ``src`` [B, K, U] reads."""
+    b, k, _ = src.shape
+    seen = torch.zeros((b, k, index), dtype=torch.bool, device=src.device)
+    seen.scatter_(1, src[:, :, :index], True)
+    return int(seen.sum())
+
+
+def beam_context_gap(got, ref, weighted_abs) -> tuple[float, float]:
+    """Kernel 4's context against the plain version's, each rounded once to
+    the output type from float32 sums taken in another order: (the largest
+    difference over its room, the share of elements equal). bf16: the room
+    is one bf16 rounding step at the element's magnitude plus 2⁻⁷ of
+    ``weighted_abs`` (Σ w·|v|, the plain version over |v|): a softmax weight
+    w that the two paths compute a few float32 ulps apart can round to
+    neighbouring bf16 values, one bf16 step apart (≤ 2⁻⁷·w); and at least
+    99% of the elements must be equal. float32: 1e-5 of the (beam, head)
+    row's largest magnitude. Within the limit where the first number is at
+    most 1 (and, in bf16, the second at least 0.99)."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError(f"{got.dtype} {tuple(got.shape)} against {ref.dtype} "
+                             f"{tuple(ref.shape)}")
+    bf16 = ref.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    if bf16:
+        mag = torch.maximum(got.abs(), ref.abs())
+        step = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7), 0.0)
+        room = step + weighted_abs.float() * 2.0 ** -7
+    else:
+        room = 1e-5 * ref.abs().amax(-1, keepdim=True)
+    over = torch.where(diff == 0, 0.0, diff / room)
+    return float(over.max()), float((diff == 0).float().mean())
+
+
+def beam_context_within(got, ref, weighted_abs) -> bool:
+    worst, equal = beam_context_gap(got, ref, weighted_abs)
+    return worst <= 1.0 and (equal >= 0.99 or ref.dtype != torch.bfloat16)
+
+
+def beam_attention_host_us(calls: int = 2000) -> dict:
+    """The host's time a call of each entry of kernel 4 at a size whose
+    device work is far shorter (B8 K5 H4 Dh64, 16 positions, bf16): the
+    wrapper's checks, its allocation and the launch."""
+    from opentransformer_tpu_torch.ops import beam_attention as ba
+
+    q, key, value, mask = beam_attention_case("cross", 8, 5, 4, 64, 16, torch.bfloat16, 1)
+    args = beam_attention_case("self", 8, 5, 4, 64, 16, torch.bfloat16, 1)
+    out = {}
+    for name, fn in (("cross_us", lambda: ba.beam_cross_attention(q, key, value, mask)),
+                     ("self_us", lambda: ba.beam_self_attention(*args))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
+# entry, B, K, H, Dh, positions (cross T, self u), dtype: the offline decode
+# cell's beam step (B = 1,024 utterances, beam 5, d256 over 4 heads, bf16)
+# over the shortest and the longest bucket's frames and at the first and the
+# 54th step; float32 models at d128 and d384 over 4 heads
+BEAM_ATTENTION_CASES = [("cross", 1024, 5, 4, 64, 62, torch.bfloat16),
+                        ("cross", 1024, 5, 4, 64, 374, torch.bfloat16),
+                        ("self", 1024, 5, 4, 64, 1, torch.bfloat16),
+                        ("self", 1024, 5, 4, 64, 54, torch.bfloat16),
+                        ("cross", 1024, 5, 4, 32, 374, torch.float32),
+                        ("cross", 1024, 5, 4, 96, 374, torch.float32),
+                        ("self", 1024, 5, 4, 32, 54, torch.float32),
+                        ("self", 1024, 5, 4, 96, 54, torch.float32)]
+
+
+# the case whose times kernel 4's entry of the JSON line carries
+BEAM_ATTENTION_RECORD = "cross B=1024 K=5 H=4 Dh=64 T=374 bf16"
+
+
+def phase_kernel4():
+    """Phase 1c. Kernel 4 (``csrc/beam_attention.cu``, both entries) against
+    its plain version on the card at ``BEAM_ATTENTION_CASES``, held to
+    ``beam_context_gap``'s limit (the self entry's cache writes equal), then
+    timed: the kernel, the plain version and, for the cross entry, PyTorch's
+    ``scaled_dot_product_attention`` over the same tensors (a yardstick: the
+    same function but for where the weights are rounded; the port never
+    calls it), each queued back to back over a mask of no padding, beside
+    ``beam_attention_bound_ms``; and the wrapper's host time a call. Returns
+    (the largest |Δ| of a context, {case: (ms, plain ms, bound ms, bound
+    by)}, {case: library ms}, host µs)."""
+    from opentransformer_tpu_torch.ops import beam_attention as ba
+
+    card = card_line()
+    max_err, timings, library = 0.0, {}, {}
+    for entry, b, k, h, dh, n_pos, dtype in BEAM_ATTENTION_CASES:
+        label = (f"{entry} B={b} K={k} H={h} Dh={dh} {'T' if entry == 'cross' else 'u'}={n_pos} "
+                 f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+        args = beam_attention_case(entry, b, k, h, dh, n_pos, dtype, seed=b + k + dh + n_pos)
+        if entry == "cross":
+            q, key, value, mask = args
+            ref = ba.cross_attention_plain(*args, dtype)
+            weighted_abs = ba.cross_attention_plain(q, key, value.abs(), mask, dtype)
+            got = ba.beam_cross_attention(*args, dtype)
+            writes_ok = True
+        else:
+            q, k_t, v_t, cache_k, cache_v, index, src = args
+            ref_k, ref_v = cache_k.clone(), cache_v.clone()
+            ref = ba.self_attention_plain(q, k_t, v_t, ref_k, ref_v, index, src)
+            weighted_abs = ba.self_attention_plain(q, k_t, v_t.abs(), cache_k.clone(),
+                                                   cache_v.abs(), index, src)
+            got = ba.beam_self_attention(*args)
+            writes_ok = torch.equal(cache_k, ref_k) and torch.equal(cache_v, ref_v)
+        torch.cuda.synchronize()
+        worst, equal = beam_context_gap(got, ref, weighted_abs)
+        err = float((got.float() - ref.float()).abs().max())
+        max_err = max(max_err, err)
+        ok = beam_context_within(got, ref, weighted_abs) and writes_ok
+        writes = "" if entry == "cross" else f", cache writes equal {writes_ok}"
+        log(f"phase1c {label}: max|dctx|={err:.3e}, {worst:.3f} of the room, {100 * equal:.2f}% "
+            f"of the elements equal{writes} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"kernel 4 disagrees with its plain version: {label}")
+
+        if entry == "cross":
+            mask = torch.ones_like(mask)
+            kern = cuda_ms(lambda: ba.beam_cross_attention(q, key, value, mask), 20, 3, True)
+            plain = cuda_ms(lambda: ba.cross_attention_plain(q, key, value, mask, dtype),
+                            20, 3, True)
+            qb = q.reshape(b, k, h, dh).transpose(1, 2)
+            library[label] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qb, key, value), 20, 3, True)
+            bound, bound_by, nbytes = beam_attention_bound_ms(entry, b, k, h, dh, n_pos, dtype)
+            extra = f", scaled_dot_product_attention {library[label]:.4f} ms"
+        else:
+            kern = cuda_ms(lambda: ba.beam_self_attention(*args), 20, 3, True)
+            plain = cuda_ms(lambda: ba.self_attention_plain(*args), 20, 3, True)
+            rows = distinct_rows(src, index)
+            bound, bound_by, nbytes = beam_attention_bound_ms(entry, b, k, h, dh, n_pos, dtype,
+                                                              rows)
+            extra = f" ({rows} distinct (row, position)s of {b * k * index} lineage references)"
+        timings[label] = (kern, plain, bound, bound_by)
+        log(f"phase1c time {label}: kernel {kern:.4f} ms, plain version {plain:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB){extra}; "
+            f"{100 * bound / kern:.1f}% of the bound [{card}]")
+    host = beam_attention_host_us()
+    log(f"phase1c host {host['cross_us']:.1f} us a cross call, {host['self_us']:.1f} us a self "
+        f"call (B8 K5 H4 Dh64, 16 positions, bf16: the wrapper's checks, allocation and launch)")
+    return max_err, timings, library, host
+
+
 # ---------------------------------------------------------------- phase 2
 def ids_differing_from_jax(decode_dir: str, vocab_path: str, want=None) -> int:
     """Utterances whose 1-best in ``predict.txt`` is not the JAX package's
@@ -1043,7 +1268,8 @@ def host_seconds(run) -> float:
 def worst_case_decode(tag: str, model, lm=None, feat_dim: int = 40):
     """One warm-up of the flagship worst case, one counted run (launch
     counts, peak memory, output checks), then the median of three timed
-    runs. Returns (one-head launches, two-head launches, median seconds)."""
+    runs. Returns (one-head launches, two-head launches, median seconds,
+    kernel-4 launches)."""
     from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
 
     batch, frames, max_len, beam = (WORST_CASE[k] for k in ("batch", "frames", "max_len", "beam"))
@@ -1052,9 +1278,11 @@ def worst_case_decode(tag: str, model, lm=None, feat_dim: int = 40):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     project_logp_topk.launches = project2_logp_topk.launches = 0
+    att0 = attention_launches()
     hyp = run()
     torch.cuda.synchronize()
     one, two = project_logp_topk.launches, project2_logp_topk.launches
+    att = attention_launches() - att0
     peak = torch.cuda.max_memory_allocated() / 2**30
     shape_ok = tuple(hyp.tokens.shape) == (batch, beam, max_len + 1)
     finite = bool(torch.isfinite(hyp.scores).all())
@@ -1065,23 +1293,27 @@ def worst_case_decode(tag: str, model, lm=None, feat_dim: int = 40):
     log(f"{tag} bf16 beam {beam} B={batch} x {frames} frames, {max_len} steps: "
         f"median {secs:.3f} s of {[round(t, 3) for t in times]}, {batch / secs:.2f} utts/s, "
         f"RTFx {batch * frames * 0.01 / secs:.2f}, peak memory {peak:.2f} GiB, "
-        f"kernel launches one-head {one} two-head {two} [{card_line()}]")
+        f"kernel launches one-head {one} two-head {two} beam attention {att} [{card_line()}]")
     if not (shape_ok and finite and full):
         raise AssertionError(f"{tag}: decode output wrong: shape {tuple(hyp.tokens.shape)}, "
                              f"finite {finite}, all full-length {full}")
-    return one, two, secs
+    return one, two, secs, att
 
 
 def phase_flagship():
-    """Phase 3. Returns (kernel-1 launches, the decode's median seconds)."""
+    """Phase 3. Returns (kernel-1 launches, the decode's median seconds,
+    kernel-4 launches)."""
     small_input_check("phase3 flagship f32", seeded_model(FLAGSHIP_CFG, torch.float32, seed=0))
-    one, two, secs = worst_case_decode("phase3 flagship",
-                                       seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0))
+    one, two, secs, att = worst_case_decode("phase3 flagship",
+                                            seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0))
     max_len = WORST_CASE["max_len"]
-    if one != max_len or two != 0:
-        raise AssertionError(f"expected one one-head kernel launch per decode step ({max_len}) "
-                             f"and no two-head launch, counted {one} and {two}")
-    return one, secs
+    # kernel 4: each decoder block's self and cross attention at every step
+    att_want = 2 * FLAGSHIP_CFG["decoder"]["n_blocks"] * max_len
+    if one != max_len or two != 0 or att != att_want:
+        raise AssertionError(f"expected one one-head kernel launch per decode step ({max_len}), "
+                             f"no two-head launch and {att_want} beam attention launches, "
+                             f"counted {one}, {two} and {att}")
+    return one, secs, att
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1151,7 +1383,8 @@ def phase_flagship_lm():
     del model32
     model = seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0)
     lm = seeded_model(FLAGSHIP_LM_CFG, torch.bfloat16, seed=1)
-    one, two, _ = worst_case_decode("phase5 flagship + transformer LM shallow fusion", model, lm)
+    one, two, _, _ = worst_case_decode("phase5 flagship + transformer LM shallow fusion", model,
+                                       lm)
     max_len = WORST_CASE["max_len"]
     if two != max_len or one != 0:
         raise AssertionError(f"expected one two-head kernel launch per decode step ({max_len}) "
@@ -1364,6 +1597,16 @@ def overfit_model_cfg(model_cfg: dict) -> dict:
         cfg["predictor"] = dict(cfg.get("predictor") or {}, d_model=d, num_layers=1)
         cfg["d_joint"] = d
     return cfg
+
+
+def attention_launches() -> int:
+    """Kernel 4's launches so far in this process, both entries."""
+    from opentransformer_tpu_torch.ops.beam_attention import (
+        beam_cross_attention,
+        beam_self_attention,
+    )
+
+    return beam_cross_attention.launches + beam_self_attention.launches
 
 
 def reset_launch_counts():
@@ -1799,7 +2042,7 @@ def phase_conformer():
 
     model = seeded_model(conformer_model_cfg(CONFORMERS[0]), torch.bfloat16,
                          seed=c["weights_seed"])
-    one, two, secs = worst_case_decode(f"phase9c {CONFORMERS[0]}", model, feat_dim=c["mel"])
+    one, two, secs, _ = worst_case_decode(f"phase9c {CONFORMERS[0]}", model, feat_dim=c["mel"])
     if one != WORST_CASE["max_len"] or two != 0:
         raise AssertionError(f"phase9c: expected one one-head kernel launch per decode step "
                              f"({WORST_CASE['max_len']}) and no two-head launch, counted {one} "
@@ -4403,7 +4646,7 @@ def phase15b_worst_case(flagship_secs: float) -> int:
     beside a dense one. Returns the kernel-1 launches."""
     cfg = conformer_model_cfg(MOE_NAME)
     model = seeded_model(cfg, torch.bfloat16, seed=MOE_INPUTS["weights_seed"])
-    one, two, secs = worst_case_decode(f"phase15b {MOE_NAME}", model)
+    one, two, secs, _ = worst_case_decode(f"phase15b {MOE_NAME}", model)
     if one != WORST_CASE["max_len"] or two != 0:
         raise AssertionError(f"phase15b: expected one one-head kernel launch per decode step "
                              f"({WORST_CASE['max_len']}) and no two-head launch, counted {one} "
@@ -5525,13 +5768,14 @@ def phase_tools(workdir: str, data: str, corpus: dict, device: str = "cuda"):
     return k1, k2, k3
 
 
-def kernel_record(name, source, replaces, launches, max_err, timing, by_path):
+def kernel_record(name, source, replaces, launches, max_err, timing, by_path, library_ms=None):
     """The kernel's entry of the JSON line: ``launches`` on its first main
-    path, ``launches_by_path`` on each path that launches it."""
+    path, ``launches_by_path`` on each path that launches it; ``library_ms``
+    a library call that computes the same, where one exists."""
     kern, plain, bound, bound_by = timing
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": kern, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
             "launches_by_path": by_path}
 
 
@@ -5548,26 +5792,50 @@ def main() -> int:
     phase_build()
     max_err, timings = phase_kernel()
     max_err2, timings2 = phase_kernel2()
+    max_err4, timings4, library4, _ = phase_kernel4()
+    # kernel 4 runs on every beam and greedy decode of an attention decoder:
+    # its launches in this process, counted from 0 over each phase
+    att = {}
+
+    def counted(label, phase, *args):
+        from opentransformer_tpu_torch.ops.beam_attention import (
+            beam_cross_attention,
+            beam_self_attention,
+        )
+
+        beam_cross_attention.launches = beam_self_attention.launches = 0
+        out = phase(*args)
+        att[label] = attention_launches()
+        return out
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        data = phase_anchor(workdir)
-        launches, flagship_secs = phase_flagship()
-        phase_anchor_lm(workdir, data)
-        ctc_launches = phase_anchor_ctc(workdir, data)
-        launches2 = phase_flagship_lm()
+        data = counted("phase2 anchor eval CLI (f32, bf16)", phase_anchor, workdir)
+        launches, flagship_secs, launches4 = counted("phase3 flagship", phase_flagship)
+        counted("phase4 anchor eval CLI + LM", phase_anchor_lm, workdir, data)
+        ctc_launches = counted("phase8 anchor CTC and beam + CTC rescoring", phase_anchor_ctc,
+                               workdir, data)
+        launches2 = counted("phase5 flagship + LM", phase_flagship_lm)
         max_err3, timing3 = phase_fbank()
-        launches3, corpus = phase_train(workdir)
-        conformer_train_launches = phase_conformer_train(workdir, corpus)
-        conformer_launches = phase_conformer()
-        stream_launches, stream_launches2 = phase_streaming(workdir, data, corpus)
-        transducer_launches = phase_transducer(workdir, corpus)
-        recipe_launches, _ = phase_anchor_recipe(workdir, data)
-        family_launches, family_launches2, family_launches3 = phase_train_families(
-            workdir, data, corpus)
-        ref_launches, ref_launches2, ref_launches3 = phase_reference(workdir, data, corpus)
-        moe_launches, moe_launches2, moe_launches3 = phase_moe(workdir, data, corpus,
-                                                               flagship_secs)
-        par_launches, par_launches2, par_launches3 = phase_parallel(workdir, data, corpus)
-        tool_launches, tool_launches2, tool_launches3 = phase_tools(workdir, data, corpus)
+        launches3, corpus = counted("phase7 training and its reload decode", phase_train, workdir)
+        conformer_train_launches = counted("phase9d conformer training and its reload decode",
+                                           phase_conformer_train, workdir, corpus)
+        conformer_launches = counted("phase9 conformer decodes", phase_conformer)
+        stream_launches, stream_launches2 = counted("phase10 streaming and serving",
+                                                    phase_streaming, workdir, data, corpus)
+        transducer_launches = counted("phase11 transducer", phase_transducer, workdir, corpus)
+        recipe_launches, _ = counted("phase12 anchor recipe and its decode", phase_anchor_recipe,
+                                     workdir, data)
+        family_launches, family_launches2, family_launches3 = counted(
+            "phase13 model families", phase_train_families, workdir, data, corpus)
+        ref_launches, ref_launches2, ref_launches3 = counted(
+            "phase14 reference checkpoints", phase_reference, workdir, data, corpus)
+        moe_launches, moe_launches2, moe_launches3 = counted(
+            "phase15 mixture of experts", phase_moe, workdir, data, corpus, flagship_secs)
+        par_launches, par_launches2, par_launches3 = counted(
+            "phase16 parallelism (this process)", phase_parallel, workdir, data, corpus)
+        tool_launches, tool_launches2, tool_launches3 = counted(
+            "phase17 tools and recipe (this process)", phase_tools, workdir, data, corpus)
+    log(f"kernel 4 launches by phase: {att}")
 
     # launches: each kernel's count on its own main paths (phase 3 without an
     # LM, phase 8's CTC decodes, phase 9's conformer decodes, phase 10's
@@ -5577,8 +5845,10 @@ def main() -> int:
     # phase 15's MoE decodes, phase 16's eval -n 1 and each rank's eval -n 2,
     # phase 17's tools and the flagship recipe's dev probe, phases 5, 10d,
     # 13e, 14a, 15d, 16b and 17a with an LM, phases 7, 9d, 13c, 14c, 15c,
-    # 16 and 17f's training runs and steps); times at the flagship
-    # bf16 beam-step shape and at the 16 x 10 s training batch
+    # 16 and 17f's training runs and steps; kernel 4 on phase 3's counted
+    # decode and each phase's decodes in this process); times at the flagship
+    # bf16 beam-step shape, at the 16 x 10 s training batch and, for kernel
+    # 4, at the decode cell's longest cross attention
     record = {"kernels": [
         kernel_record("project_logp_topk", "opentransformer_tpu_torch/csrc/project_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:96", launches, max_err,
@@ -5603,6 +5873,10 @@ def main() -> int:
                        "phase9d conformer_baseline training": conformer_train_launches,
                        **family_launches3, **ref_launches3, **moe_launches3,
                        **par_launches3, **tool_launches3}),
+        kernel_record("beam_attention", "opentransformer_tpu_torch/csrc/beam_attention.cu",
+                      "none", launches4, max_err4, timings4[BEAM_ATTENTION_RECORD],
+                      {"phase3 flagship decode": launches4, **att},
+                      library4[BEAM_ATTENTION_RECORD]),
     ]}
     log(f"chip_smoke ran every phase in {time.time() - t0:.1f} s")
     print(json.dumps(record))

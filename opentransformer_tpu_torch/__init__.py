@@ -51,7 +51,11 @@ under ``csrc/``, built with ``nvcc`` at first use (``ops/cuda_build.py``):
 the fused projection → log-softmax → top-k of a decode step
 (``project_topk.cu``), its two-head form for LM fusion
 (``project2_topk.cu``) and the fused DFT → power → mel → log of the
-training feature stage (``fbank_spec_mel.cu``). Each kernel has a plain
+training feature stage (``fbank_spec_mel.cu``). One more kernel replaces
+no Pallas kernel: the beam step's attention over its cross and self
+caches (``beam_attention.cu``, ``ops/beam_attention.py``), which reads the
+caches in place where PyTorch's eager form of the JAX package's einsums
+cast, copied and gathered them every step. Each kernel has a plain
 PyTorch version beside it, which is what runs for tensors on the CPU.
 """
 

@@ -212,7 +212,7 @@ class TransformerLanguageModel(_VocabHead):
         ``src``: optional int[B, K, U] beam-ancestry map (B·K = N), the one
         the decoder threads through its own step. With it the KV caches are
         unordered append-only buffers read through the map
-        (``modules.ancestral_decode_context``) and the beam search never
+        (``ops.beam_attention.beam_self_attention``) and the beam search never
         gathers them: the LM consumes exactly the decoder's token sequence,
         so the decoder's ancestry is the LM's. Without it the caches are in
         hypothesis order and the caller reorders them between steps.

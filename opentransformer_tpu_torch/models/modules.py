@@ -25,8 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.masks import apply_attn_mask
+from ..ops.beam_attention import beam_cross_attention, beam_self_attention
 from ..ops.collectives import copy_to, count_over, reduce_from, sum_over
+from ..ops.masks import apply_attn_mask
 
 LN_EPS = 1e-6
 
@@ -144,32 +145,6 @@ def attention_context(q, k, v, mask):
     return torch.matmul(weights.float(), v.float()).to(q.dtype)
 
 
-def ancestral_decode_context(q, cache_k, cache_v, index: int, src):
-    """Beam-search attention over an unordered, append-only KV cache.
-
-    q: [B·K, H, 1, Dh]; cache_k/v: [B·K, H, U, Dh] where row j holds what
-    slot j wrote at each step; src: int[B, K, U] ancestry map — the row of
-    the utterance's K that holds position u of the hypothesis in slot k.
-    The JAX reference selects rows with a one-hot einsum; here the rows of
-    positions 0..index are gathered by index, which gives the same numbers
-    (positions past ``index`` are masked out there and absent here)."""
-    b, kk, _ = src.shape
-    h, dk = q.shape[1], q.shape[3]
-    u = index + 1
-    qb = q.reshape(b, kk, h, dk).float()
-    ck = cache_k.reshape(b, kk, h, -1, dk)
-    cv = cache_v.reshape(b, kk, h, -1, dk)
-    bi = torch.arange(b, device=q.device)[:, None, None]
-    ui = torch.arange(u, device=q.device)[None, None, :]
-    rows = src[:, :, :u]
-    keys = ck[bi, rows, :, ui]  # [B, K, u, H, Dh]
-    vals = cv[bi, rows, :, ui]
-    scores = torch.einsum("bkhd,bkuhd->bkhu", qb, keys.float()) / math.sqrt(dk)
-    weights = torch.softmax(scores, dim=-1).to(q.dtype)
-    ctx = torch.einsum("bkhu,bkuhd->bkhd", weights.float(), vals.float()).to(q.dtype)
-    return ctx.reshape(b * kk, h, 1, dk)
-
-
 class MultiHeadSelfAttention(nn.Module):
     """Self-attention with a fused QKV projection and a cached decode step."""
 
@@ -196,10 +171,16 @@ class MultiHeadSelfAttention(nn.Module):
         The new key/value is written into the cache in place (the JAX
         reference returns updated copies). With ``src`` (int[B, K, U_max])
         the cache is unordered and rows are selected through the ancestry
-        map (``ancestral_decode_context``). ``index`` may be int[N], each row
-        at its own position (no ``src`` then): as the JAX package, a one-hot
-        write (a row past the cache writes nothing) and a mask of the
-        positions up to the row's. Returns out [N, 1, D]."""
+        map (``ops.beam_attention.beam_self_attention``, which also writes
+        them). ``index`` may be int[N], each row at its own position (no
+        ``src`` then): as the JAX package, a one-hot write (a row past the
+        cache writes nothing) and a mask of the positions up to the row's.
+        Returns out [N, 1, D]."""
+        if src is not None:  # q, k_t, v_t [N, H, Dh]: views of the one projection
+            n = x_t.shape[0]
+            q, k_t, v_t = self.qkv_proj(x_t).view(n, 3, self.n_heads, -1).unbind(1)
+            ctx = beam_self_attention(q, k_t, v_t, cache_k, cache_v, index, src)
+            return self.out_proj(ctx.reshape(n, 1, -1))
         q, k_t, v_t = self._qkv(x_t)
         if isinstance(index, torch.Tensor) and index.dim() == 1:
             pos = torch.arange(cache_k.shape[2], device=cache_k.device)
@@ -211,12 +192,8 @@ class MultiHeadSelfAttention(nn.Module):
             return self.out_proj(merge_heads(ctx))
         cache_k[:, :, index] = k_t[:, :, 0].to(cache_k.dtype)
         cache_v[:, :, index] = v_t[:, :, 0].to(cache_v.dtype)
-        if src is None:
-            ctx = attention_context(q, cache_k[:, :, : index + 1].to(q.dtype),
-                                    cache_v[:, :, : index + 1].to(q.dtype), None)
-        else:
-            ctx = ancestral_decode_context(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                                           index, src)
+        ctx = attention_context(q, cache_k[:, :, : index + 1].to(q.dtype),
+                                cache_v[:, :, : index + 1].to(q.dtype), None)
         return self.out_proj(merge_heads(ctx))
 
     def chunk_step(self, x, cache_k, cache_v, kv_mask=None):
@@ -265,18 +242,11 @@ class MultiHeadCrossAttention(nn.Module):
 
         x: [B·K, 1, D]; k/v: [B, H, T, Dh]; key_pad_mask: bool[B, T]. The
         cross K/V is the same for all beams of an utterance, so it is stored
-        once per utterance and never reordered."""
-        b, bk = k.shape[0], x.shape[0]
-        beams = bk // b
-        q = split_heads(self.q_proj(x), self.n_heads)  # [B·K, H, 1, Dh]
-        dk = q.shape[-1]
-        q = q.reshape(b, beams, self.n_heads, dk).float()
-        scores = torch.einsum("bkhd,bhtd->bkht", q, k.float()) / math.sqrt(dk)
-        if key_pad_mask is not None:
-            scores = apply_attn_mask(scores, key_pad_mask[:, None, None, :])
-        weights = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bkht,bhtd->bkhd", weights.float(), v.float()).to(x.dtype)
-        return self.out_proj(ctx.reshape(bk, 1, self.n_heads * dk))
+        once per utterance and never reordered; the attention is
+        ``ops.beam_attention.beam_cross_attention``, in x's type."""
+        q = self.q_proj(x).view(x.shape[0], self.n_heads, -1)  # [B·K, H, Dh]
+        ctx = beam_cross_attention(q, k, v, key_pad_mask, x.dtype)
+        return self.out_proj(ctx.reshape(x.shape[0], 1, -1))
 
 
 def rel_pos_embedding(t: int, dim: int, dtype, device=None) -> torch.Tensor:

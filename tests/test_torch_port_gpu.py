@@ -857,3 +857,194 @@ def test_program_spans_time_the_device_inside_a_window(cuda):
     assert all(s.device_ms is None for s in names["beam.select"] + names["multistream.pack"])
     assert len(names["beam.wait"]) == 8 and len(names["beam.search"]) == 1
     profiling.reset()
+
+
+def _beam_case(b, k, h, dh, n_pos, dtype, seed, entry):
+    """Inputs of one beam attention entry on the card, in the layouts the
+    decoder hands over (``chip_smoke.beam_attention_case``, which phase 1c
+    holds to the same limit)."""
+    import chip_smoke
+
+    return chip_smoke.beam_attention_case(entry, b, k, h, dh, n_pos, dtype, seed, cuda_device())
+
+
+def cuda_device():
+    return torch.device("cuda")
+
+
+def assert_beam_context_close(got, ref, weighted_abs):
+    """The kernel's context against the plain version's, each rounded once
+    to the output type from float32 sums taken in another order
+    (``chip_smoke.beam_context_gap`` states the room and why). bf16: within
+    one bf16 rounding step at the element's magnitude plus 2⁻⁷·Σw·|v|, and
+    at least 99% of the elements equal; float32: within 1e-5 of the (beam,
+    head) row's largest magnitude."""
+    import chip_smoke
+
+    worst, equal = chip_smoke.beam_context_gap(got, ref, weighted_abs)
+    assert worst <= 1.0, f"{worst} of the room"
+    if ref.dtype == torch.bfloat16:
+        assert equal >= 0.99, equal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,b,k,h,dh,n_pos,dtype", [
+    # the offline decode cell: B = 1,024, beam 5, d256 over 4 heads; the
+    # shortest and longest buckets' frames, the first and the 54th step
+    ("cross", 1024, 5, 4, 64, 62, torch.bfloat16),
+    ("cross", 1024, 5, 4, 64, 374, torch.bfloat16),
+    ("self", 1024, 5, 4, 64, 1, torch.bfloat16),
+    ("self", 1024, 5, 4, 64, 54, torch.bfloat16),
+    # float32 models (the eval CLI's default --dtype), d128 and d384 over 4 heads
+    ("cross", 1024, 5, 4, 32, 374, torch.float32),
+    ("cross", 1024, 5, 4, 96, 374, torch.float32),
+    ("self", 1024, 5, 4, 32, 54, torch.float32),
+    ("self", 1024, 5, 4, 96, 54, torch.float32),
+    # greedy (K = 1), a beam split into chunks, scores past the on-chip budget
+    ("cross", 64, 1, 4, 64, 200, torch.bfloat16),
+    ("cross", 64, 12, 4, 64, 120, torch.bfloat16),
+    ("self", 64, 12, 4, 64, 30, torch.bfloat16),
+    ("cross", 32, 5, 4, 64, 3000, torch.bfloat16),
+    ("self", 16, 5, 8, 96, 1800, torch.bfloat16),
+])
+def test_beam_attention_kernel_matches_plain_on_card(cuda, entry, b, k, h, dh, n_pos, dtype):
+    from opentransformer_tpu_torch.ops import beam_attention as ba
+
+    args = _beam_case(b, k, h, dh, n_pos, dtype, seed=b + k + dh + n_pos, entry=entry)
+    if entry == "cross":
+        q, key, value, mask = args
+        ref = ba.cross_attention_plain(*args, dtype)
+        weighted_abs = ba.cross_attention_plain(q, key, value.abs(), mask, dtype)
+        before = ba.beam_cross_attention.launches
+        got = ba.beam_cross_attention(*args, dtype)
+        assert ba.beam_cross_attention.launches == before + 1
+    else:
+        q, k_t, v_t, cache_k, cache_v, index, src = args
+        ref_k, ref_v = cache_k.clone(), cache_v.clone()
+        ref = ba.self_attention_plain(q, k_t, v_t, ref_k, ref_v, index, src)
+        weighted_abs = ba.self_attention_plain(q, k_t, v_t.abs(), cache_k.clone(), cache_v.abs(),
+                                               index, src)
+        before = ba.beam_self_attention.launches
+        got = ba.beam_self_attention(*args)
+        assert ba.beam_self_attention.launches == before + 1
+        assert torch.equal(cache_k, ref_k) and torch.equal(cache_v, ref_v)
+    torch.cuda.synchronize()
+    assert got.shape == (b * k, h, dh)
+    assert_beam_context_close(got, ref, weighted_abs)
+
+
+@pytest.mark.gpu
+def test_beam_attention_rejects_what_it_does_not_take(cuda):
+    from opentransformer_tpu_torch.ops import beam_attention as ba
+
+    q, key, value, mask = _beam_case(4, 5, 4, 64, 20, torch.bfloat16, 0, "cross")
+    with pytest.raises(TypeError):
+        ba.beam_cross_attention(q.half(), key.half(), value.half(), mask)
+    with pytest.raises(TypeError):  # k in another type than q
+        ba.beam_cross_attention(q, key.float(), value.float(), mask)
+    with pytest.raises(ValueError):  # Dh not innermost
+        ba.beam_cross_attention(q, key.transpose(2, 3), value.transpose(2, 3), mask)
+    with pytest.raises(ValueError):
+        ba.beam_cross_attention(q, key, value, mask.int())
+    q, k_t, v_t, cache_k, cache_v, index, src = _beam_case(4, 5, 4, 64, 6, torch.bfloat16, 0,
+                                                           "self")
+    with pytest.raises(ValueError):
+        ba.beam_self_attention(q, k_t, v_t, cache_k, cache_v, index, src.int())
+    with pytest.raises(ValueError):
+        ba.beam_self_attention(q, k_t, v_t, cache_k, cache_v, cache_k.shape[2], src)
+    with pytest.raises(TypeError):
+        ba.beam_self_attention(q, k_t, v_t, cache_k.float(), cache_v.float(), index, src)
+    with pytest.raises(RuntimeError):  # Dh past the 32 lanes a row may take
+        big = torch.zeros(20, 1, 512, dtype=torch.bfloat16, device=cuda)
+        ba.beam_cross_attention(big, torch.zeros(4, 1, 8, 512, dtype=torch.bfloat16,
+                                                 device=cuda),
+                                torch.zeros(4, 1, 8, 512, dtype=torch.bfloat16, device=cuda))
+
+
+@pytest.mark.gpu
+def test_six_block_beam_step_launches_the_attention_kernel_twelve_times(cuda):
+    """One beam step of a 6-block decoder: each block's self and cross
+    attention through the kernel, 12 launches, and the same top-k as the
+    plain versions run on the card."""
+    from opentransformer_tpu_torch.models import modules
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops import beam_attention as ba
+
+    torch.manual_seed(0)
+    cfg = dict(SMALL_CFG, decoder=dict(SMALL_CFG["decoder"], n_blocks=6))
+    model = build_model(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    b, k, steps = 3, 5, 4
+    x = torch.randn(b, 80, 20, device=cuda, dtype=torch.bfloat16)
+    mask = torch.ones(b, 80, dtype=torch.bool, device=cuda)
+    src = torch.arange(k, device=cuda)[None, :, None].repeat(b, 1, steps + 1)
+    tokens = torch.randint(0, 300, (b * k,), device=cuda)
+    with torch.inference_mode():
+        memory, memory_mask = model.encode(x, mask)
+        tops = []
+        for plain in (False, True):
+            if plain:
+                cross, self_ = modules.beam_cross_attention, modules.beam_self_attention
+                modules.beam_cross_attention = ba.cross_attention_plain
+                modules.beam_self_attention = ba.self_attention_plain
+            try:
+                cache = model.init_cache(memory, steps + 1, k)
+                before = ba.beam_cross_attention.launches + ba.beam_self_attention.launches
+                vals, ids, _ = model.decode_step_topk(tokens, cache, 0, memory_mask, src, k)
+                launched = (ba.beam_cross_attention.launches + ba.beam_self_attention.launches
+                            - before)
+                tops.append((vals, ids))
+            finally:
+                if plain:
+                    modules.beam_cross_attention, modules.beam_self_attention = cross, self_
+            assert launched == (0 if plain else 12)
+    torch.testing.assert_close(tops[0][0], tops[1][0], rtol=0, atol=0.05)
+
+
+@pytest.mark.gpu
+def test_anchor_beam_decode_through_the_kernel_gives_the_plain_n_best(cuda, monkeypatch):
+    """The committed anchor (float32, d128 over 4 heads) decodes the first
+    100 synthetic test utterances at beam 5 on the card through the beam
+    attention kernel, then through the plain versions on the card: the
+    same n-best ids."""
+    import json
+    import os
+
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.cli.eval import collate
+    from opentransformer_tpu_torch.data import synth
+    from opentransformer_tpu_torch.models import modules
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops import beam_attention as ba
+    from opentransformer_tpu_torch.recognize.base import SpeechToTextRecognizer
+
+    anchor = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "egs",
+                          "synth_bench", "trained", "anchor_synth_f16")
+    with open(anchor + ".manifest.json", encoding="utf-8") as f:
+        cfg = json.load(f)["model_cfg"]
+    model = compat.load_into(build_model(cfg, device=cuda), compat.load_npz(anchor + ".npz"))
+    x, mask, _ = collate([u[1] for u in list(synth.gen_split("test", 100))])
+    x, mask = torch.from_numpy(x).to(cuda), torch.from_numpy(mask).to(cuda)
+    rec = SpeechToTextRecognizer(model, beam_width=5, max_len=32, penalty=0.6)
+    before = ba.beam_self_attention.launches
+    fast = rec.recognize_arrays(x, mask)
+    assert ba.beam_self_attention.launches > before
+    monkeypatch.setattr(modules, "beam_cross_attention", ba.cross_attention_plain)
+    monkeypatch.setattr(modules, "beam_self_attention", ba.self_attention_plain)
+    plain = rec.recognize_arrays(x, mask)
+    assert torch.equal(fast.tokens, plain.tokens)
+    torch.testing.assert_close(fast.scores, plain.scores, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_beam_attention_takes_the_raw_stream_binding(cuda):
+    """A CUDA build of torch has the private binding the wrapper looks up
+    once at import, and it gives the current stream's handle."""
+    from opentransformer_tpu_torch.ops import beam_attention as ba
+
+    assert hasattr(torch._C, "_cuda_getCurrentRawStream")
+    assert ba._current_stream is torch._C._cuda_getCurrentRawStream
+    index = torch.cuda.current_device()
+    assert ba._current_stream(index) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert ba._current_stream(index) == side.cuda_stream

@@ -32,8 +32,8 @@ are counted a call.
   --micro      each per-step op at the step's shapes in a 24-step chained
                loop timed with CUDA events: the QKV and GLU FFN products,
                the vocabulary projection through kernel 1, layer norm,
-               cross attention, the ancestral self attention, the cache
-               writes, the beam's book-keeping
+               the cross and the ancestral self attention through kernel 4
+               (which also writes the caches), the beam's book-keeping
   --conformer  matched-batch encode and search for the transformer and the
                conformer encoder at B=256
   --lm         the search without an LM and with LMs of 0, 1 and 6 blocks
@@ -344,7 +344,8 @@ def micro_run(r: Runner) -> None:
     sk, sv = arr(n, h, u, dh), arr(n, h, u, dh)
     src = torch.arange(k, device=dev).repeat(b, u, 1).transpose(1, 2).contiguous()
 
-    from opentransformer_tpu_torch.models.modules import ancestral_decode_context
+    from opentransformer_tpu_torch.ops.beam_attention import (beam_cross_attention,
+                                                              beam_self_attention)
 
     def vocab(c):
         vals, _ = project_logp_topk(c, wv, bv, k)
@@ -355,20 +356,11 @@ def micro_run(r: Runner) -> None:
         return y.to(c.dtype) * 0.999
 
     def cross(c):
-        q = c.reshape(b, k, h, dh).float()
-        s = torch.einsum("bkhd,bhtd->bkht", q, ck.float()) / 8.0
-        w = torch.softmax(s, -1).to(bf)
-        ctx = torch.einsum("bkht,bhtd->bkhd", w.float(), cv.float())
-        return ctx.to(bf).reshape(n, d) * 0.999
+        return beam_cross_attention(c.reshape(n, h, dh), ck, cv).reshape(n, d) * 0.999
 
     def ancestral(c):
-        ctx = ancestral_decode_context(c.reshape(n, h, 1, dh), sk, sv, u - 1, src)
-        return ctx.reshape(n, d) * 0.999
-
-    def cache_write(c):
-        cache, step = c
-        cache[:, :, step % u] = cache[:, :, 0] * 0.999
-        return cache, step + 1
+        q = c.reshape(n, h, dh)
+        return beam_self_attention(q, q, q, sk, sv, u - 1, src).reshape(n, d) * 0.999
 
     sc = arr(b, k, dtype=torch.float32)
     tok = torch.ones(n, u, dtype=torch.long, device=dev)
@@ -387,7 +379,6 @@ def micro_run(r: Runner) -> None:
            ("layernorm x18", ln, x),
            ("cross_attn_math x6", cross, arr(n, d)),
            ("ancestral_self_attn x6", ancestral, arr(n, d)),
-           ("cache_write x12", cache_write, (sk.clone(), 0)),
            ("beam_bookkeeping x1", book, (sc, tok))]
     r.record["micro"] = {}
     with torch.inference_mode():
