@@ -624,6 +624,21 @@ def _inputs(n, d, v, dtype, seed):
     return h.cuda().to(dtype), w.cuda().to(dtype), b.cuda()
 
 
+# Whisper large-v3's beam step: 128 windows x beam 5 rows, D 1,280, its tied
+# head of 51,866 rows with no bias (the wrapper reads zeros), k 5, bf16
+WHISPER_HEAD = (640, 1280, 51866, 5)
+
+
+def _whisper_head_inputs(seed):
+    """(h, W, None) at ``WHISPER_HEAD``, drawn on the card: weights of the
+    model's scale (1/sqrt(D)), so logits of about unit spread."""
+    n, d, v, _ = WHISPER_HEAD
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(v, d, generator=gen, device="cuda") / d ** 0.5).to(torch.bfloat16)
+    return h, w, None
+
+
 def untied_slots(wide: torch.Tensor, k: int, tie: float) -> torch.Tensor:
     """bool[N, k]: the slots of a plain top-k whose ids a kernel must
     reproduce, given the plain top-(k+1) values ``wide`` (top-k when k = V):
@@ -652,7 +667,9 @@ def check_topk(h, w, b, k, label):
 
     vals, ids, lse = project_logp_topk(h, w, b, k, with_lse=True)
     torch.cuda.synchronize()
-    logits = h.float() @ w.float().T + b.float()
+    logits = h.float() @ w.float().T
+    if b is not None:
+        logits += b.float()
     scale = logits.abs().max().item()
     atol = 1e-4
     tie = 1e-5 * max(scale, 1.0)
@@ -671,6 +688,10 @@ def check_topk(h, w, b, k, label):
     if not ok:
         raise AssertionError(f"project_logp_topk kernel disagrees with its plain version: {label}")
     return err
+
+
+# the case of kernel 1 at Whisper large-v3's widths that the JSON line carries
+WHISPER_HEAD_RECORD = "whisper bf16"
 
 
 def phase_kernel():
@@ -723,6 +744,9 @@ def phase_kernel():
     max_err = 0.0
     for i, (label, n, d, v, k, dtype) in enumerate(cases):
         max_err = max(max_err, check_topk(*_inputs(n, d, v, dtype, seed=i), k, label))
+    n, d, v, k = WHISPER_HEAD
+    max_err = max(max_err, check_topk(*_whisper_head_inputs(21), k,
+                                      f"whisper beam step N={n} D={d} V={v} k={k} bf16 no bias"))
     # hand-made ties: identical rows; every logit value appears 40 times
     g = torch.Generator().manual_seed(3)
     h = torch.linspace(-1.0, 1.0, 16).repeat(4, 1).cuda()
@@ -753,6 +777,19 @@ def phase_kernel():
             f"(a composition of three calls, not a library call) {unfused:.4f} ms, "
             f"bound {bound:.4f} ms ({bound_by}); {rate_note(2.0 * n * d * 4233, kern, bound)}"
             f"{'' if kern < unfused else ', SLOWER than the composition'} [{card}]")
+    n, d, v, k = WHISPER_HEAD
+    h, w, b = _whisper_head_inputs(22)
+    kern = cuda_ms(lambda: project_logp_topk(h, w, b, k))
+    plain = cuda_ms(lambda: project_logp_topk_plain(h, w, b, k))
+    unfused = cuda_ms(lambda: torch.topk(torch.log_softmax((h @ w.T).float(), dim=-1), k))
+    bound, bound_by = topk_bound_ms(n, d, v, k, torch.bfloat16)
+    timings[WHISPER_HEAD_RECORD] = (kern, plain, bound, bound_by)
+    library = {WHISPER_HEAD_RECORD: unfused}
+    log(f"phase1 time {WHISPER_HEAD_RECORD} N={n} D={d} V={v} k={k} (no bias): kernel "
+        f"{kern:.4f} ms, plain version {plain:.4f} ms, unfused matmul+log_softmax+topk (a "
+        f"composition of three calls, not a library call) {unfused:.4f} ms, bound {bound:.4f} ms "
+        f"({bound_by}); {rate_note(2.0 * n * d * v, kern, bound)}"
+        f"{'' if kern < unfused else ', SLOWER than the composition'} [{card}]")
     # the CTC head's calls: top-1 for greedy and for the streamed tick, top-32
     # with lse for the prefix beam; the transducer's greedy lattice step: top-1
     # of the joint, D = d_joint = 256. At a few rows the calls are short enough
@@ -794,7 +831,7 @@ def phase_kernel():
             f"{'' if kern < unfused else f', SLOWER than the composition by {kern / unfused:.2f}x'}"
             f"; device time (torch.profiler, warm L2) kernel {dev_kern:.4f} ms, composition "
             f"{dev_unfused:.4f} ms [{card}]")
-    return max_err, timings
+    return max_err, timings, library
 
 
 # ---------------------------------------------------------------- phase 1b
@@ -1013,7 +1050,10 @@ def beam_attention_host_us(calls: int = 2000) -> dict:
 # entry, B, K, H, Dh, positions (cross T, self u), dtype: the offline decode
 # cell's beam step (B = 1,024 utterances, beam 5, d256 over 4 heads, bf16)
 # over the shortest and the longest bucket's frames and at the first and the
-# 54th step; float32 models at d128 and d384 over 4 heads
+# 54th step; float32 models at d128 and d384 over 4 heads; the long-form
+# cell's Whisper large-v3 step (128 windows, beam 5, 20 heads of 64) over
+# 1,500-frame cross caches (48 KB of scores a block: the scratch path) and
+# its self caches at the 129th step
 BEAM_ATTENTION_CASES = [("cross", 1024, 5, 4, 64, 62, torch.bfloat16),
                         ("cross", 1024, 5, 4, 64, 374, torch.bfloat16),
                         ("self", 1024, 5, 4, 64, 1, torch.bfloat16),
@@ -1021,11 +1061,16 @@ BEAM_ATTENTION_CASES = [("cross", 1024, 5, 4, 64, 62, torch.bfloat16),
                         ("cross", 1024, 5, 4, 32, 374, torch.float32),
                         ("cross", 1024, 5, 4, 96, 374, torch.float32),
                         ("self", 1024, 5, 4, 32, 54, torch.float32),
-                        ("self", 1024, 5, 4, 96, 54, torch.float32)]
+                        ("self", 1024, 5, 4, 96, 54, torch.float32),
+                        ("cross", 128, 5, 20, 64, 1500, torch.bfloat16),
+                        ("self", 128, 5, 20, 64, 129, torch.bfloat16)]
 
 
-# the case whose times kernel 4's entry of the JSON line carries
+# the case whose times kernel 4's entry of the JSON line carries, and the
+# long-form cell's cases it carries beside them
 BEAM_ATTENTION_RECORD = "cross B=1024 K=5 H=4 Dh=64 T=374 bf16"
+BEAM_ATTENTION_WHISPER = ("cross B=128 K=5 H=20 Dh=64 T=1500 bf16",
+                          "self B=128 K=5 H=20 Dh=64 u=129 bf16")
 
 
 def phase_kernel4():
@@ -5768,15 +5813,113 @@ def phase_tools(workdir: str, data: str, corpus: dict, device: str = "cuda"):
     return k1, k2, k3
 
 
-def kernel_record(name, source, replaces, launches, max_err, timing, by_path, library_ms=None):
+def kernel_record(name, source, replaces, launches, max_err, timing, by_path, library_ms=None,
+                  at_shapes=None):
     """The kernel's entry of the JSON line: ``launches`` on its first main
     path, ``launches_by_path`` on each path that launches it; ``library_ms``
-    a library call that computes the same, where one exists."""
+    a library call that computes the same, where one exists; ``at_shapes``
+    {case: (timing, library ms or None)} the times of other cases."""
     kern, plain, bound, bound_by = timing
+    shapes = {}
+    for case, ((s_kern, s_plain, s_bound, s_by), s_lib) in (at_shapes or {}).items():
+        shapes[case] = {"ms": s_kern, "plain_ms": s_plain, "bound_ms": s_bound,
+                        "bound_by": s_by, "library_ms": s_lib}
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": kern, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
-            "launches_by_path": by_path}
+            "launches_by_path": by_path, "at_shapes": shapes}
+
+
+WHISPER_CONF = os.path.join(CONF_DIR, "whisper_large_v3.json")
+# phase 18: two batches of full 30-s windows, beam 5, a few steps
+WHISPER = {"windows": 4, "batch": 2, "max_len": 6, "frames": 3000}
+
+
+def whisper_state(model_cfg: dict, seed: int) -> dict:
+    """Seeded float32 weights of ``model_cfg`` by the port's names, built
+    from the shapes of a model on the meta device: LayerNorm gains 1,
+    other vectors 0.02, matrices and embeddings 1/sqrt(fan-in)."""
+    from opentransformer_tpu_torch.models.registry import build_model
+
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in build_model(model_cfg, device="meta").state_dict().items()}
+    g = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, shape in shapes.items():
+        x = torch.randn(shape, generator=g)
+        if len(shape) > 1:
+            state[name] = x / float(np.prod(shape[1:])) ** 0.5
+        elif "norm" in name and name.endswith("weight"):
+            state[name] = torch.ones(shape)
+        else:
+            state[name] = 0.02 * x
+    return state
+
+
+def phase_whisper(workdir: str, device: str = "cuda", model_cfg=None) -> int:
+    """Phase 18: Whisper large-v3 (``conf/whisper_large_v3.json``) through the
+    eval CLI's ``--npz`` path, as a user decodes it: seeded weights written
+    as an npz in the JAX layout (float16, 3.1 GB at full size), two batches
+    of full 30-s windows of 128-mel features, beam 5, bf16. Every step runs
+    kernel 1 once and kernel 4 twice a block; the n-best scores come out
+    sorted. ``model_cfg`` (a cut width) and ``device`` rehearse it on the
+    CPU. Returns kernel 1's launches."""
+    from opentransformer_tpu_torch import compat
+    from opentransformer_tpu_torch.cli import eval as eval_cli
+    from opentransformer_tpu_torch.config import load_config
+    from opentransformer_tpu_torch.data import write_vocab
+    from opentransformer_tpu_torch.data.kaldi_io import write_ark
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+
+    t0 = time.time()
+    model_cfg = model_cfg or load_config(WHISPER_CONF)["model"]
+    root = os.path.join(workdir, "whisper")
+    os.makedirs(root, exist_ok=True)
+    cfg_path = os.path.join(root, "model.json")
+    with open(cfg_path, "w") as f:
+        json.dump(model_cfg, f)
+    state = whisper_state(model_cfg, seed=18)
+    with torch.device("meta"):
+        meta = build_model(model_cfg, device="meta")
+    npz = os.path.join(root, "whisper.npz")
+    compat.save_npz(npz, compat.params_to_jax(meta, state))
+    del state
+    vocab = model_cfg["decoder"]["vocab_size"]
+    write_vocab({f"w{i}": i for i in range(vocab)}, os.path.join(root, "vocab"))
+    rng = np.random.default_rng(18)
+    mel = model_cfg["frontend"]["input_size"]
+    utts = {f"win{i:03d}": rng.normal(size=(WHISPER["frames"], mel)).astype(np.float32)
+            for i in range(WHISPER["windows"])}
+    write_ark(os.path.join(root, "feats.ark"), utts, os.path.join(root, "feats.scp"))
+    with open(os.path.join(root, "text"), "w") as f:
+        for utt in utts:
+            f.write(utt + " " + " ".join(f"w{i}" for i in rng.integers(3, vocab, 20)) + "\n")
+    log(f"phase18: npz and {len(utts)} windows written in {time.time() - t0:.1f} s")
+    out = os.path.join(root, "decode")
+    before = (project_logp_topk.launches, attention_launches())
+    rc = eval_cli.main([
+        "--npz", npz, "--model_cfg", cfg_path, "--feats", os.path.join(root, "feats.scp"),
+        "--text", os.path.join(root, "text"), "--vocab", os.path.join(root, "vocab"),
+        "-b", str(WHISPER["batch"]), "-bw", "5", "-pn", "0.6", "-ml", str(WHISPER["max_len"]),
+        "--dtype", "bfloat16", "--decode_dir", out, "--device", device])
+    if rc != 0:
+        raise AssertionError(f"phase18: the eval CLI returned {rc}")
+    one = project_logp_topk.launches - before[0]
+    four = attention_launches() - before[1]
+    decoded = nbest_scores_sorted(out)
+    with open(os.path.join(out, "RESULT")) as f:
+        result = f.read().splitlines()
+    blocks = model_cfg["decoder"]["n_blocks"]
+    if decoded != WHISPER["windows"]:
+        raise AssertionError(f"phase18: {decoded} of {WHISPER['windows']} windows decoded")
+    if device != "cpu" and (one == 0 or four != 2 * blocks * one):
+        raise AssertionError(f"phase18: kernel 1 launched {one} times, kernel 4 {four} times "
+                             f"(2 x {blocks} blocks a step)")
+    log(f"phase18 whisper large-v3 eval CLI: {decoded} windows in 2 batches | {result[3]} | "
+        f"kernel 1 launches {one}, kernel 4 {four} | wall {time.time() - t0:.1f} s "
+        f"[{card_line() if torch.cuda.is_available() else 'cpu'}]")
+    return one
 
 
 def main() -> int:
@@ -5790,7 +5933,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phase_build()
-    max_err, timings = phase_kernel()
+    max_err, timings, library1 = phase_kernel()
     max_err2, timings2 = phase_kernel2()
     max_err4, timings4, library4, _ = phase_kernel4()
     # kernel 4 runs on every beam and greedy decode of an attention decoder:
@@ -5835,6 +5978,7 @@ def main() -> int:
             "phase16 parallelism (this process)", phase_parallel, workdir, data, corpus)
         tool_launches, tool_launches2, tool_launches3 = counted(
             "phase17 tools and recipe (this process)", phase_tools, workdir, data, corpus)
+        whisper_launches = counted("phase18 whisper large-v3 eval CLI", phase_whisper, workdir)
     log(f"kernel 4 launches by phase: {att}")
 
     # launches: each kernel's count on its own main paths (phase 3 without an
@@ -5859,7 +6003,10 @@ def main() -> int:
                        "phase8c anchor beam + CTC rescoring (k=5)": ctc_launches["ctcw"],
                        **conformer_launches, **stream_launches, **transducer_launches,
                        **recipe_launches, **family_launches, **ref_launches,
-                       **moe_launches, **par_launches, **tool_launches}),
+                       **moe_launches, **par_launches, **tool_launches,
+                       "phase18 whisper large-v3 eval CLI": whisper_launches},
+                      at_shapes={WHISPER_HEAD_RECORD: (timings[WHISPER_HEAD_RECORD],
+                                                       library1[WHISPER_HEAD_RECORD])}),
         kernel_record("project2_logp_topk", "opentransformer_tpu_torch/csrc/project2_topk.cu",
                       "opentransformer_tpu/ops/project_topk.py:190", launches2, max_err2,
                       timings2["flagship bf16"],
@@ -5876,7 +6023,9 @@ def main() -> int:
         kernel_record("beam_attention", "opentransformer_tpu_torch/csrc/beam_attention.cu",
                       "none", launches4, max_err4, timings4[BEAM_ATTENTION_RECORD],
                       {"phase3 flagship decode": launches4, **att},
-                      library4[BEAM_ATTENTION_RECORD]),
+                      library4[BEAM_ATTENTION_RECORD],
+                      at_shapes={case: (timings4[case], library4.get(case))
+                                 for case in BEAM_ATTENTION_WHISPER}),
     ]}
     log(f"chip_smoke ran every phase in {time.time() - t0:.1f} s")
     print(json.dumps(record))

@@ -5,7 +5,11 @@ Teacher-forced ``forward`` for full sequences; ``init_cache`` projects the
 cross-attention K/V once per utterance (B rows) and allocates the
 self-attention caches at B·K rows, [N, H, U_max, Dh]; ``decode_step`` and
 ``decode_step_topk`` append one position. The output projection is the
-tied embedding with its own separate ``output_bias``. In training, dropout
+tied embedding with its own separate ``output_bias`` (none with
+``output_bias: false``, Whisper's). Positions are the reference's
+sinusoid added to the embedding scaled by √d, or with ``pos_style:
+"learned"`` a learned table of ``max_positions`` rows (``pos_embedding``)
+added to the unscaled embedding (Whisper's). In training, dropout
 acts after the embedding (``pos_dropout``), on the attention outputs
 (``slf_attn_dropout``, ``src_attn_dropout``), inside the FFN
 (``ffn_dropout``) and on every sublayer's output before the residual add
@@ -28,7 +32,9 @@ from torch import nn
 from ..ops.collectives import vocab_parallel_logits
 from ..ops.masks import causal_mask
 from ..ops.project_topk import project_logp_topk
+from .encoder import input_residual
 from .modules import (
+    LN_EPS,
     Dropout,
     MultiHeadCrossAttention,
     MultiHeadSelfAttention,
@@ -42,14 +48,16 @@ class TransformerDecoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, normalize_before: bool = False,
                  activation: str = "glu", slf_attn_dropout: float = 0.0,
                  src_attn_dropout: float = 0.0, ffn_dropout: float = 0.0,
-                 residual_dropout: float = 0.1, concat_after: bool = False):
+                 residual_dropout: float = 0.1, concat_after: bool = False,
+                 ln_eps: float = LN_EPS, input_residual: bool = False):
         super().__init__()
         self.d_model = d_model
         self.n_heads = n_heads
         self.normalize_before = normalize_before
-        self.norm1 = layer_norm(d_model)
-        self.norm2 = layer_norm(d_model)
-        self.norm3 = layer_norm(d_model)
+        self.input_residual = input_residual
+        self.norm1 = layer_norm(d_model, ln_eps)
+        self.norm2 = layer_norm(d_model, ln_eps)
+        self.norm3 = layer_norm(d_model, ln_eps)
         self.slf_attn = MultiHeadSelfAttention(n_heads, d_model, slf_attn_dropout)
         self.src_attn = MultiHeadCrossAttention(n_heads, d_model, src_attn_dropout)
         self.ffn = PositionwiseFeedForward(d_model, d_ff, activation, ffn_dropout)
@@ -60,10 +68,13 @@ class TransformerDecoderLayer(nn.Module):
         self.res_dropout = Dropout(residual_dropout)
 
     def _sublayer(self, norm, x, fn, concat=None):
-        # the residual is the sublayer's input: x (post-norm) or norm(x);
-        # with ``concat`` (concat_after) the branch is concat([h, fn(h)])
-        # through that linear, with no residual dropout
+        # the residual is the sublayer's input: x (post-norm, or pre-norm
+        # with input_residual) or norm(x); with ``concat`` (concat_after)
+        # the branch is concat([h, fn(h)]) through that linear, with no
+        # residual dropout
         h = norm(x) if self.normalize_before else x
+        if self.input_residual:
+            return x + self.res_dropout(fn(h))
         if concat is not None:
             x = h + concat(torch.cat([h, fn(h)], dim=-1))
         else:
@@ -107,39 +118,51 @@ class TransformerDecoder(nn.Module):
                  pos_dropout: float = 0.0, slf_attn_dropout: float = 0.0,
                  src_attn_dropout: float = 0.0, ffn_dropout: float = 0.0,
                  residual_dropout: float = 0.1, concat_after: bool = False,
-                 scan_layers: bool = False):
+                 scan_layers: bool = False, pos_style: str = "scaled", max_positions: int = 448,
+                 output_bias: bool = True, ln_eps: float = LN_EPS,
+                 pre_norm_residual: str = "normalized"):
         super().__init__()
         if memory_dim is not None and memory_dim != d_model:
             raise ValueError(f"memory_dim {memory_dim} must equal d_model {d_model}")
+        if pos_style not in ("scaled", "learned"):
+            raise ValueError(f"unknown decoder pos_style {pos_style!r} (known: scaled, learned)")
+        if not output_bias and not share_embedding:
+            raise ValueError("output_bias: false belongs to a tied head (share_embedding)")
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.share_embedding = share_embedding
         self.scan_layers = scan_layers  # the checkpoint layout only (compat)
         self.embedding = nn.Embedding(vocab_size, d_model)
+        self.pos_embedding = (nn.Embedding(max_positions, d_model) if pos_style == "learned"
+                              else None)
+        residual = input_residual(pre_norm_residual, normalize_before, concat_after)
         self.layers = []
         for i in range(n_blocks):
             layer = TransformerDecoderLayer(d_model, n_heads, d_ff, normalize_before, activation,
                                             slf_attn_dropout, src_attn_dropout, ffn_dropout,
-                                            residual_dropout, concat_after)
+                                            residual_dropout, concat_after, ln_eps, residual)
             self.add_module(f"block_{i}", layer)
             self.layers.append(layer)
-        self.after_norm = layer_norm(d_model) if normalize_before else None
+        self.after_norm = layer_norm(d_model, ln_eps) if normalize_before else None
         self.pos_dropout = Dropout(pos_dropout)
-        if share_embedding:
+        self.output_bias = None
+        if not share_embedding:
+            self.output_layer = nn.Linear(d_model, vocab_size)
+        elif output_bias:
             # the tied output layer keeps its own bias (reference parity)
             bound = 1.0 / math.sqrt(d_model)  # torch's Linear bias init, as in JAX
             self.output_bias = nn.Parameter(torch.empty(vocab_size).uniform_(-bound, bound))
-        else:
-            self.output_layer = nn.Linear(d_model, vocab_size)
 
     def _embed(self, tokens, start: int = 0):
         pos = torch.arange(start, start + tokens.shape[1], device=tokens.device)
         x = self.embedding(tokens)
+        if self.pos_embedding is not None:
+            return self.pos_dropout(x + self.pos_embedding(pos)[None])
         return self.pos_dropout(x * math.sqrt(self.d_model) + sinusoid_position_encoding(
             pos, self.d_model)[None].to(x.dtype))
 
     def vocab_head(self):
-        """(weight [V, D], bias [V]) of the output projection."""
+        """(weight [V, D], bias [V] or None) of the output projection."""
         if self.share_embedding:
             return self.embedding.weight, self.output_bias
         return self.output_layer.weight, self.output_layer.bias
@@ -148,7 +171,8 @@ class TransformerDecoder(nn.Module):
         w, b = self.vocab_head()
         if self.vocab_shard is not None:  # this rank's columns (tensor parallelism)
             return vocab_parallel_logits(h, w, b, self.vocab_shard)
-        return h.float() @ w.to(h.dtype).float().T + b.float()
+        logits = h.float() @ w.to(h.dtype).float().T
+        return logits if b is None else logits + b.float()
 
     def forward(self, targets_in, memory, memory_pad_mask):
         """Teacher-forced logits f32[B, U, V] for BOS-prefixed targets; the
@@ -171,12 +195,16 @@ class TransformerDecoder(nn.Module):
 
     def _decode_hidden(self, token_t, cache, index: int, memory_pad_mask, src=None):
         """Embed at ``index``, run the block stack against the cache, final
-        norm → [N, 1, D]. The position term is added as the JAX reference
-        does: embedded at position 0, then shifted by pe(index) − pe(0)."""
-        x = self._embed(token_t[:, None])
-        pos = torch.tensor([0, index], device=token_t.device)
-        pe = sinusoid_position_encoding(pos, self.d_model)
-        x = x + (pe[1] - pe[0]).to(x.dtype)
+        norm → [N, 1, D]. The sinusoid is added as the JAX reference does:
+        embedded at position 0, then shifted by pe(index) − pe(0); a learned
+        table is read at ``index``."""
+        if self.pos_embedding is not None:
+            x = self._embed(token_t[:, None], index)
+        else:
+            x = self._embed(token_t[:, None])
+            pos = torch.tensor([0, index], device=token_t.device)
+            pe = sinusoid_position_encoding(pos, self.d_model)
+            x = x + (pe[1] - pe[0]).to(x.dtype)
         for layer, sc, cc in zip(self.layers, cache["self"], cache["cross"]):
             x = layer.decode_step(x, sc, cc, index, memory_pad_mask, src)
         if self.after_norm is not None:

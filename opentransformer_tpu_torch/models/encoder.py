@@ -2,10 +2,13 @@
 Transformer and Conformer.
 
 ``TransformerEncoder``: post-norm (the shipped configs) or the reference's
-pre-norm, whose residual is the *normalized* tensor; absolute sinusoidal
-positions, or relative positions (``relative_positional``: rel-pos
-attention over −(T−1) … T−1, and no absolute encoding); block-chunked
-attention with ``chunk_size`` > 0. In training, dropout acts after the
+pre-norm, whose residual is the *normalized* tensor (``pre_norm_residual:
+"input"`` makes it the block's input, the usual pre-LN of Whisper);
+absolute sinusoidal positions (``pos_style``: the reference's x·√d + an
+interleaved table, or ``"whisper"``'s [sin | cos] table added unscaled), or
+relative positions (``relative_positional``: rel-pos attention over
+−(T−1) … T−1, and no absolute encoding); block-chunked attention with
+``chunk_size`` > 0; LayerNorm ε ``ln_eps``. In training, dropout acts after the
 absolute positions (``pos_dropout``), on the attention output
 (``slf_attn_dropout``), inside the FFN (``ffn_dropout``) and on both
 sublayers' outputs before the residual add (``residual_dropout``).
@@ -52,6 +55,7 @@ from torch import nn
 
 from ..ops.masks import attn_mask_from_pad, chunk_attn_mask
 from .modules import (
+    LN_EPS,
     ConformerConvModule,
     Dropout,
     MoEFeedForward,
@@ -133,6 +137,20 @@ def _like(module: nn.Module):
     return p.device, p.dtype
 
 
+PRE_NORM_RESIDUALS = ("normalized", "input")
+
+
+def input_residual(pre_norm_residual: str, normalize_before: bool, concat_after: bool) -> bool:
+    """Whether a pre-norm block adds its sublayers to their inputs (the
+    usual pre-LN) rather than to their normalized inputs (the reference's)."""
+    if pre_norm_residual not in PRE_NORM_RESIDUALS:
+        raise ValueError(f"unknown pre_norm_residual {pre_norm_residual!r} "
+                         f"(known: {list(PRE_NORM_RESIDUALS)})")
+    if pre_norm_residual == "input" and (not normalize_before or concat_after):
+        raise ValueError("pre_norm_residual 'input' needs normalize_before and no concat_after")
+    return pre_norm_residual == "input"
+
+
 def encoder_attn_mask(pad_mask: torch.Tensor, chunk_size: int = 0,
                       left_chunks: int = -1) -> torch.Tensor:
     """Key padding, AND the block-chunked mask when ``chunk_size`` > 0:
@@ -149,11 +167,13 @@ class TransformerEncoderLayer(nn.Module):
                  activation: str = "relu", slf_attn_dropout: float = 0.0,
                  ffn_dropout: float = 0.0, residual_dropout: float = 0.1,
                  relative_positional: bool = False, concat_after: bool = False,
-                 moe: dict | None = None):
+                 moe: dict | None = None, ln_eps: float = LN_EPS,
+                 input_residual: bool = False):
         super().__init__()
         self.normalize_before = normalize_before
-        self.norm1 = layer_norm(d_model)
-        self.norm2 = layer_norm(d_model)
+        self.input_residual = input_residual
+        self.norm1 = layer_norm(d_model, ln_eps)
+        self.norm2 = layer_norm(d_model, ln_eps)
         attn = RelPosSelfAttention if relative_positional else MultiHeadSelfAttention
         self.slf_attn = attn(n_heads, d_model, slf_attn_dropout)
         self.relative_positional = relative_positional
@@ -179,12 +199,12 @@ class TransformerEncoderLayer(nn.Module):
         h = self.norm1(x) if pre else x
         attn = (self.slf_attn(h, attn_mask, pos_emb) if self.relative_positional
                 else self.slf_attn(h, attn_mask))
-        h = self._attn_residual(h, attn)
+        h = self._attn_residual(x if self.input_residual else h, attn)
         if not pre:
             h = self.norm1(h)
         h2 = self.norm2(h) if pre else h
         out, aux = self.moe(h2, pad_mask) if self.moe is not None else (self.ffn(h2), None)
-        h = h2 + self.res_dropout(out)
+        h = (h if self.input_residual else h2) + self.res_dropout(out)
         if not pre:
             h = self.norm2(h)
         return h if aux is None else (h, aux)
@@ -196,11 +216,12 @@ class TransformerEncoderLayer(nn.Module):
         pre = self.normalize_before
         h = self.norm1(x) if pre else x
         attn, new_k, new_v = self.slf_attn.chunk_step(h, cache_k, cache_v, kv_mask)
-        h = self._attn_residual(h, attn)  # dropout is off in inference
+        h = self._attn_residual(x if self.input_residual else h, attn)  # no dropout here
         if not pre:
             h = self.norm1(h)
         h2 = self.norm2(h) if pre else h
-        h = h2 + (self.moe(h2, chunk_mask)[0] if self.moe is not None else self.ffn(h2))
+        h = (h if self.input_residual else h2) + (
+            self.moe(h2, chunk_mask)[0] if self.moe is not None else self.ffn(h2))
         if not pre:
             h = self.norm2(h)
         return h, new_k, new_v
@@ -214,25 +235,29 @@ class TransformerEncoder(nn.Module):
                  relative_positional: bool = False, chunk_size: int = 0,
                  left_chunks: int = -1, concat_after: bool = False, scan_layers: bool = False,
                  moe_experts: int = 0, moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
-                 moe_router_jitter: float = 0.0, moe_every: int = 1):
+                 moe_router_jitter: float = 0.0, moe_every: int = 1, pos_style: str = "scaled",
+                 ln_eps: float = LN_EPS, pre_norm_residual: str = "normalized"):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         self.scan_layers = scan_layers  # the checkpoint layout only (compat)
+        residual = input_residual(pre_norm_residual, normalize_before, concat_after)
         self.moe_experts, self.moe_top_k = moe_experts, moe_top_k
         self.moe_capacity_factor = moe_capacity_factor
         self.relative_positional = relative_positional
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
-        self.pos_enc = None if relative_positional else PositionalEncoding(d_model, pos_dropout)
+        self.pos_enc = None if relative_positional else PositionalEncoding(
+            d_model, pos_dropout, pos_style)
         self.layers = []
         moe = _moe_blocks(n_blocks, moe_experts, moe_top_k, moe_capacity_factor,
                           moe_router_jitter, moe_every, scan_layers)
         for i in range(n_blocks):
             layer = TransformerEncoderLayer(d_model, n_heads, d_ff, normalize_before, activation,
                                             slf_attn_dropout, ffn_dropout, residual_dropout,
-                                            relative_positional, concat_after, moe[i])
+                                            relative_positional, concat_after, moe[i], ln_eps,
+                                            residual)
             self.add_module(f"block_{i}", layer)
             self.layers.append(layer)
-        self.after_norm = layer_norm(d_model) if normalize_before else None
+        self.after_norm = layer_norm(d_model, ln_eps) if normalize_before else None
 
     def forward(self, x, pad_mask):
         """x: [B, T, D]; pad_mask: bool[B, T] → (y [B, T, D], pad_mask), and

@@ -12,6 +12,12 @@ Float32 convolutions run in TF32 under cuDNN by default; the port's entry
 points switch that off for float32 models (``utils.disable_tf32``).
 
 ``ConcatFrontEnd``: frame stacking, then an optional projection.
+
+``WhisperFrontEnd``: Whisper's two Conv1d over time (the mel bins as
+channels), kernel 3, padding 1, the second of stride 2, each followed by
+the exact GELU: T frames become ceil(T / 2), mask ``mask[:, ::2]``.
+
+Each frontend's ``output_length(t)`` gives the frames it makes of ``t``.
 """
 
 from __future__ import annotations
@@ -99,6 +105,9 @@ class ConcatFrontEnd(nn.Module):
         self.output_layer = nn.Linear(self.ctx * input_size, output_size) if with_linear else None
         self.dropout = Dropout(dropout)
 
+    def output_length(self, t: int) -> int:
+        return max(0, (t - self.ctx) // self.stride + 1)
+
     def forward(self, x, mask):
         """x: [B, T, F]; mask: bool[B, T] → ([B, T', D], bool[B, T'])."""
         b, _, f = x.shape
@@ -109,3 +118,22 @@ class ConcatFrontEnd(nn.Module):
         if self.output_layer is not None:
             h = self.dropout(self.output_layer(h))
         return h, mask
+
+
+class WhisperFrontEnd(nn.Module):
+    """Conv1d(F → D, k 3, pad 1) → GELU → Conv1d(D → D, k 3, stride 2,
+    pad 1) → GELU over [B, T, F] features (Radford et al., 2022)."""
+
+    def __init__(self, input_size: int, output_size: int, act_func_type: str = "gelu_erf"):
+        super().__init__()
+        self.act = ACTIVATIONS[act_func_type]
+        self.conv1 = nn.Conv1d(input_size, output_size, 3, padding=1)
+        self.conv2 = nn.Conv1d(output_size, output_size, 3, stride=2, padding=1)
+
+    def output_length(self, t: int) -> int:
+        return conv_out_len(t, 3, 2, 1)
+
+    def forward(self, x, mask):
+        """x: [B, T, F]; mask: bool[B, T] → ([B, ceil(T/2), D], bool[B, ceil(T/2)])."""
+        h = self.act(self.conv2(self.act(self.conv1(x.transpose(1, 2)))))
+        return h.transpose(1, 2), mask[:, ::2]

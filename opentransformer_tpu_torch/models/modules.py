@@ -10,7 +10,8 @@ Numerics kept from the reference:
     the context product, which accumulates in float32;
   * masks are an additive ``NEG_INF`` inside the softmax
     (``ops.masks.apply_attn_mask``);
-  * LayerNorm eps is 1e-6 (flax's default; torch's is 1e-5);
+  * LayerNorm eps is 1e-6 (flax's default; torch's is 1e-5), unless a
+    config's ``ln_eps`` says otherwise (Whisper's 1e-5);
   * dropout sits where the JAX package has it and acts only in training
     mode, drawing from the generator the trainer hands out
     (``set_dropout_generator``); the cached decode paths have none.
@@ -32,8 +33,8 @@ from ..ops.masks import apply_attn_mask
 LN_EPS = 1e-6
 
 
-def layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LN_EPS)
+def layer_norm(dim: int, eps: float = LN_EPS) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=eps)
 
 
 class Dense(nn.Linear):
@@ -90,6 +91,8 @@ ACTIVATIONS = {
     "relu": F.relu,
     # jax.nn.gelu defaults to the tanh approximation
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    # the exact (erf) GELU, Whisper's
+    "gelu_erf": F.gelu,
     "tanh": torch.tanh,
     "swish": swish,
     # 'glu' is special-cased in the FFN (it halves the width).
@@ -107,24 +110,42 @@ def sinusoid_position_encoding(positions: torch.Tensor, dim: int) -> torch.Tenso
         *positions.shape, dim)
 
 
+def whisper_sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper's sinusoid of integer positions → f32[..., dim]: ``[sin |
+    cos]`` halves, frequency ``exp(-ln(1e4)·i/(half − 1))``."""
+    half = dim // 2
+    freq = torch.exp(-math.log(10000.0) / (half - 1)
+                     * torch.arange(half, dtype=torch.float32, device=positions.device))
+    angles = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
 class PositionalEncoding(nn.Module):
     """y = dropout(x·√d + pe) (the reference's additive mode), positions
     ``start`` … ``start`` + T − 1. ``start`` is an int or a 0-d tensor (a
     streamed chunk's offset), or int[B] (multi-stream: each row at its own
-    stream position, so the table is [B, T, D])."""
+    stream position, so the table is [B, T, D]). ``style="whisper"`` adds
+    Whisper's table (``whisper_sinusoid``) to x unscaled."""
 
-    def __init__(self, dim: int, dropout_rate: float = 0.0):
+    STYLES = {"scaled": sinusoid_position_encoding, "whisper": whisper_sinusoid}
+
+    def __init__(self, dim: int, dropout_rate: float = 0.0, style: str = "scaled"):
         super().__init__()
+        if style not in self.STYLES:
+            raise ValueError(f"unknown pos_style {style!r} (known: {sorted(self.STYLES)})")
         self.dim = dim
+        self.table = self.STYLES[style]
+        self.scale = math.sqrt(dim) if style == "scaled" else 1.0
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x, start=0):
         pos = torch.arange(x.shape[1], device=x.device)
         if isinstance(start, torch.Tensor) and start.dim() == 1:
-            pe = sinusoid_position_encoding(start.to(x.device)[:, None] + pos[None], self.dim)
+            pe = self.table(start.to(x.device)[:, None] + pos[None], self.dim)
         else:
-            pe = sinusoid_position_encoding(pos + start, self.dim)[None]
-        return self.dropout(x * math.sqrt(self.dim) + pe.to(x.dtype))
+            pe = self.table(pos + start, self.dim)[None]
+        x = x * self.scale if self.scale != 1.0 else x
+        return self.dropout(x + pe.to(x.dtype))
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:

@@ -2,11 +2,11 @@
 
 Builds a model from the ``model`` section of a config, as a dict (read from
 JSON: the anchor manifest's ``model_cfg`` is one). The port covers
-``speech2text``, ``ctc`` and ``transducer`` with a conv or concat
-frontend and a transformer or conformer encoder (absolute or relative
-positions, chunked attention, the reference's ``concat_after`` and
-``front_end_layer_norm``, the MoE feed-forward; a ``scan_layers`` config
-builds the same per-block modules), and the language models
+``speech2text``, ``ctc`` and ``transducer`` with a conv, concat or
+Whisper (Conv1d) frontend and a transformer or conformer encoder (absolute
+or relative positions, chunked attention, the reference's ``concat_after``
+and ``front_end_layer_norm``, the MoE feed-forward; a ``scan_layers``
+config builds the same per-block modules), and the language models
 ``transformer_lm`` (MoE included) and ``rnn_lm``.
 """
 

@@ -28,9 +28,9 @@ from ..ops.masks import mask_to_length
 from ..ops.project_topk import project_logp_topk
 from .decoder import TransformerDecoder
 from .encoder import ConformerEncoder, TransformerEncoder
-from .frontend import ConcatFrontEnd, ConvFrontEnd
+from .frontend import ConcatFrontEnd, ConvFrontEnd, WhisperFrontEnd
 
-FRONTENDS = {"conv": ConvFrontEnd, "concat": ConcatFrontEnd}
+FRONTENDS = {"conv": ConvFrontEnd, "concat": ConcatFrontEnd, "whisper": WhisperFrontEnd}
 ENCODERS = {"transformer": TransformerEncoder, "conformer": ConformerEncoder}
 
 

@@ -153,11 +153,13 @@ def batch_mean(per_row: torch.Tensor, group=None) -> torch.Tensor:
 
 
 # ------------------------------------------------------ a split vocabulary
-def vocab_parallel_logits(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+def vocab_parallel_logits(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
                           shard: VocabShard) -> torch.Tensor:
     """This rank's columns f32[..., V/n] of tied logits over its rows
     ``weight`` [V/n, D] of the table (f at the input; the whole bias through
     f, so each rank's slice of its gradient sums to the whole one)."""
     local = copy_to(h, shard.group).float() @ weight.to(h.dtype).float().T
+    if bias is None:
+        return local
     bias = copy_to(bias, shard.group).float()
     return local + bias[shard.start : shard.start + weight.shape[0]]

@@ -18,7 +18,8 @@ rule.
 
 Semantics (all paths): values are float32 log-probs sorted descending,
 ids int32, ties resolve to the smallest vocab id (the ``lax.top_k`` rule),
-``with_lse`` adds the row logsumexp. A weight is cast to its ``h``'s dtype
+``with_lse`` adds the row logsumexp; a bias of None is a head without one
+(the kernels read zeros). A weight is cast to its ``h``'s dtype
 (float32 or bfloat16) and the products accumulate in float32, as the JAX
 reference does with ``preferred_element_type``.
 """
@@ -48,9 +49,14 @@ def topk_smallest_id(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _logits_plain(h, weight, bias):
+    logits = h.float() @ weight.to(h.dtype).float().T
+    return logits if bias is None else logits + bias.float()
+
+
 def project_logp_topk_plain(h, weight, bias, k: int, with_lse: bool = False):
     """Plain PyTorch version: materialized logits → log_softmax → top-k."""
-    logits = h.float() @ weight.to(h.dtype).float().T + bias.float()
+    logits = _logits_plain(h, weight, bias)
     vals, idx = topk_smallest_id(torch.log_softmax(logits, dim=-1), k)
     idx = idx.to(torch.int32)
     if with_lse:
@@ -85,10 +91,24 @@ def _library() -> ctypes.CDLL:
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+_ZERO_BIAS: dict = {}
+
+
+def _zero_bias(v: int, device) -> torch.Tensor:
+    """float32 zeros [V] on ``device``, made once: the bias the kernels read
+    for a head without one."""
+    key = (v, str(device))
+    if key not in _ZERO_BIAS:
+        _ZERO_BIAS[key] = torch.zeros(v, dtype=torch.float32, device=device)
+    return _ZERO_BIAS[key]
+
+
 def _kernel_head(h, weight, bias):
-    """Check one head's (h [N, D], weight [V, D], bias [V]) for the kernels
-    and return (h, weight in h's dtype, bias in float32); raises on what the
-    kernels do not take."""
+    """Check one head's (h [N, D], weight [V, D], bias [V] or None) for the
+    kernels and return (h, weight in h's dtype, bias in float32); raises on
+    what the kernels do not take."""
+    if bias is None and weight.dim() == 2:
+        bias = _zero_bias(weight.shape[0], weight.device)
     if h.dim() != 2 or weight.dim() != 2 or bias.dim() != 1:
         raise ValueError(f"expected h [N, D], weight [V, D], bias [V]; got "
                          f"{tuple(h.shape)}, {tuple(weight.shape)}, {tuple(bias.shape)}")
@@ -162,8 +182,8 @@ project_logp_topk.launches = 0
 def project2_logp_topk_plain(h1, w1, b1, h2, w2, b2, lam: float, k: int):
     """Plain PyTorch version of the two-head form: both log-softmaxes
     materialized, ``lp1 + lam · lp2``, then top-k."""
-    lp1 = torch.log_softmax(h1.float() @ w1.to(h1.dtype).float().T + b1.float(), dim=-1)
-    lp2 = torch.log_softmax(h2.float() @ w2.to(h2.dtype).float().T + b2.float(), dim=-1)
+    lp1 = torch.log_softmax(_logits_plain(h1, w1, b1), dim=-1)
+    lp2 = torch.log_softmax(_logits_plain(h2, w2, b2), dim=-1)
     vals, idx = topk_smallest_id(lp1 + lam * lp2, k)
     return vals, idx.to(torch.int32)
 

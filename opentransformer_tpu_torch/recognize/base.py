@@ -15,6 +15,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..data import BLK, EOS, PAD
 from ..models.lm import RecurrentLanguageModel, TransformerLanguageModel
 from ..ops.loss import ctc_nll_from_logprobs, gather_label_logprobs
@@ -127,6 +128,23 @@ def make_memory_search(model, beam_width: int, max_len: int, penalty: float = 0.
     return search
 
 
+# bytes one float32 score tensor of an encoder layer may take: a batch whose
+# scores ([B, H, T', T'] at the encoder's T' positions) would be larger is
+# encoded in slices of rows (128 Whisper windows of 1,500 positions and 20
+# heads would take 23 GB a copy; 1,024 utterances of 374 and 4 heads take 2.3)
+ENCODE_SCORE_BYTES = 4 << 30
+
+
+def encode_slice_rows(model, batch: int, frames: int) -> int:
+    """Rows a slice of a [batch, frames] encode: the batch cut into as few
+    slices as keep each slice's float32 scores within
+    ``ENCODE_SCORE_BYTES``, as even as they come."""
+    t = model.frontend.output_length(frames)
+    per_row = 4 * model.encoder.n_heads * t * t
+    slices = max(1, -(-batch * per_row // ENCODE_SCORE_BYTES))
+    return max(1, -(-batch // slices))
+
+
 class SpeechToTextRecognizer(Recognizer):
     """Encoder + batched beam search with KV cache + optional LM fusion,
     then joint CTC/attention rescoring when ``ctc_weight`` > 0 (the model
@@ -146,9 +164,24 @@ class SpeechToTextRecognizer(Recognizer):
                                          lm_weight=float(lm_weight), eos_id=eos_id,
                                          force_beam=self.ctc_weight > 0.0)
 
+    def encode(self, feats, feat_mask):
+        """The encoder memory and its mask, ``model.encode`` over slices of
+        rows whose float32 attention scores stay within
+        ``ENCODE_SCORE_BYTES`` each (``encode_slice_rows``), each in a
+        program span ``encoder.slice`` (timed on the device too); one slice
+        returns as it came."""
+        rows = encode_slice_rows(self.model, feats.shape[0], feats.shape[1])
+        parts = []
+        for i in range(0, feats.shape[0], rows):
+            with profiling.span("encoder.slice", feats.device):
+                parts.append(self.model.encode(feats[i:i + rows], feat_mask[i:i + rows]))
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
     @torch.inference_mode()
     def recognize_arrays(self, feats, feat_mask) -> BeamHypotheses:
-        memory, memory_mask = self.model.encode(feats, feat_mask)
+        memory, memory_mask = self.encode(feats, feat_mask)
         hyp = self.search(memory, memory_mask)
         if self.ctc_weight > 0.0:
             hyp = ctc_rescore_scores(self.model.ctc_logits(memory), memory_mask, hyp,

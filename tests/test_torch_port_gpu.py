@@ -110,6 +110,28 @@ def test_kernel_matches_plain_on_card(cuda, n, d, v, k, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bias", ["none", "zero"])
+def test_kernel_at_whisper_widths_without_a_bias(cuda, bias):
+    """Whisper large-v3's beam step: 128 windows x beam 5, D 1,280, its tied
+    head of 51,866 rows with no bias (None, read as zeros) or a zero one;
+    weights of the model's scale, logits of about unit spread."""
+    n, d, v, k = 640, 1280, 51866, 5
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    h = torch.randn(n, d, generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(v, d, generator=gen, device=cuda) / d ** 0.5).to(torch.bfloat16)
+    b = None if bias == "none" else torch.zeros(v, device=cuda)
+    vals, idx, lse = port.project_logp_topk(h, w, b, k, with_lse=True)
+    ref_vals, ref_idx, ref_lse = port.project_logp_topk_plain(h, w, b, k, with_lse=True)
+    wide, _ = port.project_logp_topk_plain(h, w, b, k + 1)
+    logits = h.float() @ w.float().T
+    torch.cuda.synchronize()
+    assert_ids_match(idx, ref_idx, wide, k, logits.abs().max().item(), vals,
+                     torch.log_softmax(logits, -1))
+    torch.testing.assert_close(vals, ref_vals, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     h, w, b = (torch.from_numpy(a).to(cuda) for a in _rand(4, 16, 64))
     with pytest.raises(TypeError):
@@ -906,6 +928,11 @@ def assert_beam_context_close(got, ref, weighted_abs):
     ("self", 64, 12, 4, 64, 30, torch.bfloat16),
     ("cross", 32, 5, 4, 64, 3000, torch.bfloat16),
     ("self", 16, 5, 8, 96, 1800, torch.bfloat16),
+    # Whisper large-v3's long-form step: 128 windows, beam 5, 20 heads of 64,
+    # 1,500-frame cross caches (48 KB of scores a block: the scratch path),
+    # and the self caches at the 129th step
+    ("cross", 128, 5, 20, 64, 1500, torch.bfloat16),
+    ("self", 128, 5, 20, 64, 129, torch.bfloat16),
 ])
 def test_beam_attention_kernel_matches_plain_on_card(cuda, entry, b, k, h, dh, n_pos, dtype):
     from opentransformer_tpu_torch.ops import beam_attention as ba

@@ -336,8 +336,9 @@ def test_the_parent_stack_is_per_thread(recorder):
 
 
 def test_eval_profile_writes_the_spans_beside_the_trace(tmp_path, recorder):
-    """``--profile DIR``: DIR/spans.json holds the search's spans and steps
-    with the profiler's clock offset, and the decode is the one without."""
+    """``--profile DIR``: DIR/spans.json holds the encode's slice and the
+    search's spans and steps with the profiler's clock offset, and the
+    decode is the one without."""
     data = tmp_path / "data"
     synth.write_corpus(str(data), splits=("test",), n_utts={"test": 2})
     base = ["--npz", ANCHOR + ".npz", "--model_cfg", ANCHOR + ".manifest.json",
@@ -354,7 +355,8 @@ def test_eval_profile_writes_the_spans_beside_the_trace(tmp_path, recorder):
     with open(tmp_path / "prof" / "trace.json", encoding="utf-8") as f:
         trace = json.load(f)
     names = {s["name"] for s in out["spans"]}
-    assert names == {"beam.search", "beam.wait", "beam.decode", "beam.select"}
+    assert names == {"encoder.slice", "beam.search", "beam.wait", "beam.decode", "beam.select"}
+    assert sum(s["name"] == "encoder.slice" for s in out["spans"]) == 1  # one batch, one slice
     steps = sum(s["name"] == "beam.decode" for s in out["spans"])
     waits = sum(s["name"] == "beam.wait" for s in out["spans"])
     assert 0 < steps <= 8 and steps <= waits <= steps + 1
