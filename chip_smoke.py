@@ -33,6 +33,17 @@ each of which raises on failure:
      wrapper's host time a call; every later phase counts kernel 4's
      launches in this process (phase 3's decode: one of each entry per
      decoder block and step);
+  1d. hold kernel 5 (``encoder_attention``, self-attention at inference:
+     the encoders' bf16 encode) against the float64 attention at the
+     long-form cell's slice (22 Whisper windows, 20 heads of 64, 1,500
+     positions), the decode cell's longest bucket (1,024 x 374, 4 heads of
+     64, key padding), heads of 32 and 128, T_q != T_k, a row with no valid
+     key, a mask with holes and rows of 1 to 130 keys: within twice the
+     plain composition's own distance, the short rows also launched 50
+     times back to back, each equal to the first; time the kernel, the
+     plain version and
+     ``scaled_dot_product_attention`` at the first two beside the bf16
+     operation bound; every later phase counts kernel 5's launches;
   2. decode the 500-utterance synthetic test split with the committed
      anchor weights through the eval CLI in float32 (fails above 0.75% CER;
      the JAX package scored 0.65%; fails when more than 5 utterances' 1-best
@@ -41,7 +52,9 @@ each of which raises on failure:
      decode went through the kernel;
   3. drive the flagship geometry (d256, 12 encoder + 6 decoder blocks,
      V=4233) with seeded random weights: beam 5, bf16, 512 utterances x 500
-     frames, 24 steps with EOS disabled, as bench.py's worst-case row;
+     frames, 24 steps with EOS disabled, as bench.py's worst-case row; its
+     counted decode launches kernel 4 twice a decoder block and step and
+     kernel 5 once an encoder block;
   4. decode the anchor split through the eval CLI with a seeded random
      transformer LM handed over as an npz: at ``-lmw 0.0`` the fused score
      is the model's own, so the CER limit of phase 2 holds and every step
@@ -283,6 +296,7 @@ from __future__ import annotations
 import gc
 import json
 import logging
+import math
 import os
 import re
 import shutil
@@ -302,9 +316,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
-# the tensor-core top-k kernels are held to 0 bytes of register spill and of
-# stack frame (an accumulator or list array that falls to local memory)
-NO_SPILL_SOURCES = ("project_topk", "project2_topk")
+# the tensor-core kernels (top-k, the encoder's attention) are held to 0 bytes
+# of register spill and of stack frame (an accumulator or list array that
+# falls to local memory)
+NO_SPILL_SOURCES = ("project_topk", "project2_topk", "encoder_attention")
 ANCHOR = os.path.join(REPO, "egs", "synth_bench", "trained", "anchor_synth_f16")
 ANCHOR_CER_LIMIT = 0.75
 # the JAX package's 1-best ids of the anchor split (CPU, float32), written by
@@ -1144,6 +1159,172 @@ def phase_kernel4():
     return max_err, timings, library, host
 
 
+# ---------------------------------------------------------------- phase 1d
+def encoder_attention_case(b: int, h: int, t_q: int, t_k: int, dh: int, seed: int,
+                           mask: str = "ragged", empty_row: bool = False, device="cuda"):
+    """Inputs of kernel 5 in the layouts an encoder hands over: q, k and v
+    the head splits of one fused QKV projection's output [B, T, 3·H·Dh]
+    (with T_q ≠ T_k, q the first third of a projection of T_q positions and
+    k, v the last two of one of T_k), bf16, and a key mask [B, 1, 1, T_k]:
+    "full" all True (the long-form cell's), "ragged" every third row a third
+    shorter (key padding), "holes" every fifth key masked, "short" every
+    row a valid prefix of 1 to 130 keys, or None; ``empty_row`` leaves row 1
+    no valid key."""
+    from opentransformer_tpu_torch.models.modules import split_heads
+
+    g = torch.Generator().manual_seed(seed)
+    d = h * dh
+
+    def qkv(t):
+        return [split_heads(a, h) for a in
+                torch.randn(b, t, 3 * d, generator=g).to(device, torch.bfloat16).chunk(3, -1)]
+
+    q, k, v = qkv(t_q)
+    if t_k != t_q:
+        _, k, v = qkv(t_k)
+    if mask is None:
+        return q, k, v, None
+    keep = torch.ones(b, t_k, dtype=torch.bool)
+    if mask == "ragged":
+        keep[::3, max(1, 2 * t_k // 3):] = False
+    elif mask == "holes":
+        keep[:, ::5] = False
+    elif mask == "short":
+        keys = torch.randint(1, min(130, t_k) + 1, (b, 1), generator=g)
+        keep = torch.arange(t_k)[None, :] < keys
+    if empty_row:
+        keep[1 % b] = False
+    return q, k, v, keep.to(device)[:, None, None, :]
+
+
+def attention_f64(q, k, v, mask, rows: int = 4) -> torch.Tensor:
+    """The attention of bf16 q, k, v in float64 with no rounding between
+    (``NEG_INF`` where the mask is False), a few rows of the batch at a time."""
+    from opentransformer_tpu_torch.ops.masks import apply_attn_mask
+
+    out = []
+    for i in range(0, q.shape[0], rows):
+        m = None if mask is None else mask[i:i + rows] if mask.shape[0] > 1 else mask
+        s = torch.matmul(q[i:i + rows].double(), k[i:i + rows].double().transpose(-1, -2))
+        s = apply_attn_mask(s / math.sqrt(q.shape[-1]), m)
+        out.append(torch.matmul(torch.softmax(s, dim=-1), v[i:i + rows].double()))
+    return torch.cat(out)
+
+
+def encoder_attention_errors(got, q, k, v, mask) -> tuple[float, float]:
+    """(max |Δ| of kernel 5's context from the float64 attention, the same of
+    the plain composition's). Both round to bf16 twice, the weights and the
+    context, at other points (the kernel rounds the unnormalised weights and
+    divides by the float32 sum at the end), so the kernel is held to twice
+    the composition's own distance from the exact value."""
+    from opentransformer_tpu_torch.ops.encoder_attention import attention_plain
+
+    exact = attention_f64(q, k, v, mask)
+    plain = torch.cat([attention_plain(q[i:i + 4], k[i:i + 4], v[i:i + 4],
+                                       None if mask is None else
+                                       mask[i:i + 4] if mask.shape[0] > 1 else mask)
+                       for i in range(0, q.shape[0], 4)])
+    return (float((got.double() - exact).abs().max()),
+            float((plain.double() - exact).abs().max()))
+
+
+def encoder_attention_repeats_differing(q, k, v, mask, first) -> int:
+    """Of ``ENCODER_ATTENTION_REPEATS`` launches of kernel 5 queued back to
+    back, those whose context is not bit for bit ``first``: a block that
+    left a copy in flight into shared memory would corrupt the next one."""
+    from opentransformer_tpu_torch.ops.encoder_attention import encoder_self_attention
+
+    outs = [encoder_self_attention(q, k, v, mask) for _ in range(ENCODER_ATTENTION_REPEATS)]
+    return sum(not torch.equal(o, first) for o in outs)
+
+
+def encoder_attention_bound_ms(b: int, h: int, t_q: int, t_k: int, dh: int) -> float:
+    """Least time for one call of kernel 5: its 4·B·H·T_q·T_k·Dh operations
+    (the two products, every key counted) at the bf16 rate; its bytes (q, k,
+    v and the context once) take ~1/(2·T) of that."""
+    return 4.0 * b * h * t_q * t_k * dh / PEAK_FLOPS[torch.bfloat16] * 1e3
+
+
+# label, B, H, T_q, T_k, Dh, mask, a row with no valid key: the long-form
+# cell's slice (22 Whisper windows of 1,500 positions, 20 heads of 64, all
+# keys valid) and the decode cell's longest bucket (1,024 utterances of 374
+# positions, 4 heads of 64, key padding), then the other head widths, T_q ≠
+# T_k, a row with no valid key, a mask with holes, fewer keys than a tile and
+# rows of a few keys each (most of the tiles loaded ahead go unused)
+ENCODER_ATTENTION_SHORT = "B=1024 H=4 T=374 Dh=64 rows of 1-130 keys"
+ENCODER_ATTENTION_CASES = [
+    ("longform B=22 H=20 T=1500 Dh=64 full", 22, 20, 1500, 1500, 64, "full", False),
+    ("decode B=1024 H=4 T=374 Dh=64 ragged", 1024, 4, 374, 374, 64, "ragged", False),
+    ("B=64 H=4 T=300 Dh=32 ragged", 64, 4, 300, 300, 32, "ragged", False),
+    ("B=16 H=8 T=500 Dh=128 ragged", 16, 8, 500, 500, 128, "ragged", False),
+    ("B=8 H=4 Tq=77 Tk=250 Dh=64 ragged", 8, 4, 77, 250, 64, "ragged", False),
+    ("B=6 H=4 Tq=1 Tk=129 Dh=64 none", 6, 4, 1, 129, 64, None, False),
+    ("B=6 H=4 T=200 Dh=64 no valid key in row 1", 6, 4, 200, 200, 64, "ragged", True),
+    ("B=6 H=4 T=200 Dh=128 holes", 6, 4, 200, 200, 128, "holes", False),
+    ("B=6 H=4 Tq=3 Tk=7 Dh=32 ragged", 6, 4, 3, 7, 32, "ragged", False),
+    (ENCODER_ATTENTION_SHORT, 1024, 4, 374, 374, 64, "short", False),
+]
+ENCODER_ATTENTION_TIMED = ENCODER_ATTENTION_CASES[:2]
+# launches of the short-row case back to back, each equal to the first
+ENCODER_ATTENTION_REPEATS = 50
+
+
+def phase_kernel5():
+    """Phase 1d. Kernel 5 (``csrc/encoder_attention.cu``) against the float64
+    attention at ``ENCODER_ATTENTION_CASES``, held to twice the plain
+    composition's own distance (``encoder_attention_errors``); then, at the
+    long-form slice and the decode shape, the kernel, the plain version and
+    PyTorch's ``scaled_dot_product_attention`` over the same tensors (a
+    yardstick; the port never calls it) queued back to back beside the bf16
+    operation bound. Returns (the largest |Δ| from float64, {case: (ms,
+    plain ms, bound ms, "operations")}, {case: library ms})."""
+    from opentransformer_tpu_torch.ops.encoder_attention import (
+        attention_plain,
+        encoder_self_attention,
+    )
+
+    card = card_line()
+    max_err, timings, library = 0.0, {}, {}
+    for label, b, h, t_q, t_k, dh, mask, empty in ENCODER_ATTENTION_CASES:
+        q, k, v, m = encoder_attention_case(b, h, t_q, t_k, dh, seed=b + h + t_q + dh,
+                                            mask=mask, empty_row=empty)
+        before = encoder_self_attention.launches
+        got = encoder_self_attention(q, k, v, m)
+        torch.cuda.synchronize()
+        if encoder_self_attention.launches != before + 1 or got.shape != q.shape:
+            raise AssertionError(f"phase1d {label}: no launch, or {tuple(got.shape)}")
+        err, plain_err = encoder_attention_errors(got, q, k, v, m)
+        max_err = max(max_err, err)
+        ok = err <= 2.0 * plain_err
+        log(f"phase1d {label}: max|d| from float64 kernel {err:.3e}, plain {plain_err:.3e} "
+            f"({err / plain_err:.2f}x) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"kernel 5 strays from float64 more than twice the plain "
+                                 f"composition: {label}")
+        if label == ENCODER_ATTENTION_SHORT:
+            differ = encoder_attention_repeats_differing(q, k, v, m, got)
+            log(f"phase1d {label}: {ENCODER_ATTENTION_REPEATS} launches back to back, "
+                f"{differ} differ from the first {'ok' if differ == 0 else 'FAIL'}")
+            if differ:
+                raise AssertionError(f"kernel 5 gave {differ} other results of {label}")
+    for label, b, h, t_q, t_k, dh, mask, empty in ENCODER_ATTENTION_TIMED:
+        q, k, v, m = encoder_attention_case(b, h, t_q, t_k, dh, seed=b + h + t_q + dh,
+                                            mask=mask, empty_row=empty)
+        kern = cuda_ms(lambda: encoder_self_attention(q, k, v, m), 20, 3, True)
+        plain = cuda_ms(lambda: attention_plain(q, k, v, m), 5, 1, True)
+        sdpa_mask = None if mask == "full" else m
+        library[label] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=sdpa_mask), 20, 3, True)
+        bound = encoder_attention_bound_ms(b, h, t_q, t_k, dh)
+        flops = 4.0 * b * h * t_q * t_k * dh
+        timings[label] = (kern, plain, bound, "operations")
+        log(f"phase1d time {label}: kernel {kern:.4f} ms ({rate_note(flops, kern, bound)}), "
+            f"plain version {plain:.4f} ms, scaled_dot_product_attention "
+            f"{library[label]:.4f} ms, bound {bound:.4f} ms (operations: {flops / 1e9:.1f} "
+            f"GFLOP at 989 TFLOP/s) [{card}]")
+    return max_err, timings, library
+
+
 # ---------------------------------------------------------------- phase 2
 def ids_differing_from_jax(decode_dir: str, vocab_path: str, want=None) -> int:
     """Utterances whose 1-best in ``predict.txt`` is not the JAX package's
@@ -1314,7 +1495,8 @@ def worst_case_decode(tag: str, model, lm=None, feat_dim: int = 40):
     """One warm-up of the flagship worst case, one counted run (launch
     counts, peak memory, output checks), then the median of three timed
     runs. Returns (one-head launches, two-head launches, median seconds,
-    kernel-4 launches)."""
+    kernel-4 launches, kernel-5 launches), the launches of the counted run."""
+    from opentransformer_tpu_torch.ops.encoder_attention import encoder_self_attention
     from opentransformer_tpu_torch.ops.project_topk import project2_logp_topk, project_logp_topk
 
     batch, frames, max_len, beam = (WORST_CASE[k] for k in ("batch", "frames", "max_len", "beam"))
@@ -1323,11 +1505,13 @@ def worst_case_decode(tag: str, model, lm=None, feat_dim: int = 40):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     project_logp_topk.launches = project2_logp_topk.launches = 0
+    encoder_self_attention.launches = 0
     att0 = attention_launches()
     hyp = run()
     torch.cuda.synchronize()
     one, two = project_logp_topk.launches, project2_logp_topk.launches
     att = attention_launches() - att0
+    enc = encoder_self_attention.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     shape_ok = tuple(hyp.tokens.shape) == (batch, beam, max_len + 1)
     finite = bool(torch.isfinite(hyp.scores).all())
@@ -1338,27 +1522,31 @@ def worst_case_decode(tag: str, model, lm=None, feat_dim: int = 40):
     log(f"{tag} bf16 beam {beam} B={batch} x {frames} frames, {max_len} steps: "
         f"median {secs:.3f} s of {[round(t, 3) for t in times]}, {batch / secs:.2f} utts/s, "
         f"RTFx {batch * frames * 0.01 / secs:.2f}, peak memory {peak:.2f} GiB, "
-        f"kernel launches one-head {one} two-head {two} beam attention {att} [{card_line()}]")
+        f"kernel launches one-head {one} two-head {two} beam attention {att} encoder "
+        f"attention {enc} [{card_line()}]")
     if not (shape_ok and finite and full):
         raise AssertionError(f"{tag}: decode output wrong: shape {tuple(hyp.tokens.shape)}, "
                              f"finite {finite}, all full-length {full}")
-    return one, two, secs, att
+    return one, two, secs, att, enc
 
 
 def phase_flagship():
     """Phase 3. Returns (kernel-1 launches, the decode's median seconds,
-    kernel-4 launches)."""
+    kernel-4 launches, kernel-5 launches) of one decode."""
     small_input_check("phase3 flagship f32", seeded_model(FLAGSHIP_CFG, torch.float32, seed=0))
-    one, two, secs, att = worst_case_decode("phase3 flagship",
-                                            seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0))
+    one, two, secs, att, enc = worst_case_decode(
+        "phase3 flagship", seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0))
     max_len = WORST_CASE["max_len"]
-    # kernel 4: each decoder block's self and cross attention at every step
+    # kernel 4: each decoder block's self and cross attention at every step;
+    # kernel 5: each encoder block's self-attention, the batch in one slice
     att_want = 2 * FLAGSHIP_CFG["decoder"]["n_blocks"] * max_len
-    if one != max_len or two != 0 or att != att_want:
+    enc_want = FLAGSHIP_CFG["encoder"]["n_blocks"]
+    if one != max_len or two != 0 or att != att_want or enc != enc_want:
         raise AssertionError(f"expected one one-head kernel launch per decode step ({max_len}), "
-                             f"no two-head launch and {att_want} beam attention launches, "
-                             f"counted {one}, {two} and {att}")
-    return one, secs, att
+                             f"no two-head launch, {att_want} beam attention launches and "
+                             f"{enc_want} encoder attention launches, counted {one}, {two}, "
+                             f"{att} and {enc}")
+    return one, secs, att, enc
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1428,7 +1616,7 @@ def phase_flagship_lm():
     del model32
     model = seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0)
     lm = seeded_model(FLAGSHIP_LM_CFG, torch.bfloat16, seed=1)
-    one, two, _, _ = worst_case_decode("phase5 flagship + transformer LM shallow fusion", model,
+    one, two, _, _, _ = worst_case_decode("phase5 flagship + transformer LM shallow fusion", model,
                                        lm)
     max_len = WORST_CASE["max_len"]
     if two != max_len or one != 0:
@@ -2087,7 +2275,8 @@ def phase_conformer():
 
     model = seeded_model(conformer_model_cfg(CONFORMERS[0]), torch.bfloat16,
                          seed=c["weights_seed"])
-    one, two, secs, _ = worst_case_decode(f"phase9c {CONFORMERS[0]}", model, feat_dim=c["mel"])
+    one, two, secs, _, _ = worst_case_decode(f"phase9c {CONFORMERS[0]}", model,
+                                             feat_dim=c["mel"])
     if one != WORST_CASE["max_len"] or two != 0:
         raise AssertionError(f"phase9c: expected one one-head kernel launch per decode step "
                              f"({WORST_CASE['max_len']}) and no two-head launch, counted {one} "
@@ -4691,7 +4880,7 @@ def phase15b_worst_case(flagship_secs: float) -> int:
     beside a dense one. Returns the kernel-1 launches."""
     cfg = conformer_model_cfg(MOE_NAME)
     model = seeded_model(cfg, torch.bfloat16, seed=MOE_INPUTS["weights_seed"])
-    one, two, secs, _ = worst_case_decode(f"phase15b {MOE_NAME}", model)
+    one, two, secs, _, _ = worst_case_decode(f"phase15b {MOE_NAME}", model)
     if one != WORST_CASE["max_len"] or two != 0:
         raise AssertionError(f"phase15b: expected one one-head kernel launch per decode step "
                              f"({WORST_CASE['max_len']}) and no two-head launch, counted {one} "
@@ -5862,15 +6051,18 @@ def phase_whisper(workdir: str, device: str = "cuda", model_cfg=None) -> int:
     as an npz in the JAX layout (float16, 3.1 GB at full size), two batches
     of full 30-s windows of 128-mel features, beam 5, bf16. Every step runs
     kernel 1 once and kernel 4 twice a block; the n-best scores come out
-    sorted. ``model_cfg`` (a cut width) and ``device`` rehearse it on the
-    CPU. Returns kernel 1's launches."""
+    sorted; each encoder block runs kernel 5 once a slice of each batch.
+    ``model_cfg`` (a cut width) and ``device`` rehearse it on the CPU.
+    Returns kernel 1's launches."""
     from opentransformer_tpu_torch import compat
     from opentransformer_tpu_torch.cli import eval as eval_cli
     from opentransformer_tpu_torch.config import load_config
     from opentransformer_tpu_torch.data import write_vocab
     from opentransformer_tpu_torch.data.kaldi_io import write_ark
     from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops.encoder_attention import encoder_self_attention
     from opentransformer_tpu_torch.ops.project_topk import project_logp_topk
+    from opentransformer_tpu_torch.recognize.base import encode_slice_rows
 
     t0 = time.time()
     model_cfg = model_cfg or load_config(WHISPER_CONF)["model"]
@@ -5885,6 +6077,12 @@ def phase_whisper(workdir: str, device: str = "cuda", model_cfg=None) -> int:
     npz = os.path.join(root, "whisper.npz")
     compat.save_npz(npz, compat.params_to_jax(meta, state))
     del state
+    # kernel 5's launches: every encoder block once a slice, each batch in
+    # as many slices as the recognizer cuts it into
+    sizes = [min(WHISPER["batch"], WHISPER["windows"] - i)
+             for i in range(0, WHISPER["windows"], WHISPER["batch"])]
+    five_want = model_cfg["encoder"]["n_blocks"] * sum(
+        -(-n // encode_slice_rows(meta, n, WHISPER["frames"])) for n in sizes)
     vocab = model_cfg["decoder"]["vocab_size"]
     write_vocab({f"w{i}": i for i in range(vocab)}, os.path.join(root, "vocab"))
     rng = np.random.default_rng(18)
@@ -5897,7 +6095,7 @@ def phase_whisper(workdir: str, device: str = "cuda", model_cfg=None) -> int:
             f.write(utt + " " + " ".join(f"w{i}" for i in rng.integers(3, vocab, 20)) + "\n")
     log(f"phase18: npz and {len(utts)} windows written in {time.time() - t0:.1f} s")
     out = os.path.join(root, "decode")
-    before = (project_logp_topk.launches, attention_launches())
+    before = (project_logp_topk.launches, attention_launches(), encoder_self_attention.launches)
     rc = eval_cli.main([
         "--npz", npz, "--model_cfg", cfg_path, "--feats", os.path.join(root, "feats.scp"),
         "--text", os.path.join(root, "text"), "--vocab", os.path.join(root, "vocab"),
@@ -5907,17 +6105,20 @@ def phase_whisper(workdir: str, device: str = "cuda", model_cfg=None) -> int:
         raise AssertionError(f"phase18: the eval CLI returned {rc}")
     one = project_logp_topk.launches - before[0]
     four = attention_launches() - before[1]
+    five = encoder_self_attention.launches - before[2]
     decoded = nbest_scores_sorted(out)
     with open(os.path.join(out, "RESULT")) as f:
         result = f.read().splitlines()
     blocks = model_cfg["decoder"]["n_blocks"]
     if decoded != WHISPER["windows"]:
         raise AssertionError(f"phase18: {decoded} of {WHISPER['windows']} windows decoded")
-    if device != "cpu" and (one == 0 or four != 2 * blocks * one):
+    if device != "cpu" and (one == 0 or four != 2 * blocks * one or five != five_want):
         raise AssertionError(f"phase18: kernel 1 launched {one} times, kernel 4 {four} times "
-                             f"(2 x {blocks} blocks a step)")
-    log(f"phase18 whisper large-v3 eval CLI: {decoded} windows in 2 batches | {result[3]} | "
-        f"kernel 1 launches {one}, kernel 4 {four} | wall {time.time() - t0:.1f} s "
+                             f"(2 x {blocks} blocks a step), kernel 5 {five} times "
+                             f"({five_want}: each encoder block once a slice)")
+    log(f"phase18 whisper large-v3 eval CLI: {decoded} windows in {len(sizes)} batches | "
+        f"{result[3]} | kernel 1 launches {one}, kernel 4 {four}, kernel 5 {five} | wall "
+        f"{time.time() - t0:.1f} s "
         f"[{card_line() if torch.cuda.is_available() else 'cpu'}]")
     return one
 
@@ -5936,24 +6137,30 @@ def main() -> int:
     max_err, timings, library1 = phase_kernel()
     max_err2, timings2 = phase_kernel2()
     max_err4, timings4, library4, _ = phase_kernel4()
-    # kernel 4 runs on every beam and greedy decode of an attention decoder:
-    # its launches in this process, counted from 0 over each phase
-    att = {}
+    max_err5, timings5, library5 = phase_kernel5()
+    # kernel 4 runs on every beam and greedy decode of an attention decoder,
+    # kernel 5 on every bf16 inference encode: their launches in this
+    # process, counted from 0 over each phase
+    att, enc = {}, {}
 
     def counted(label, phase, *args):
         from opentransformer_tpu_torch.ops.beam_attention import (
             beam_cross_attention,
             beam_self_attention,
         )
+        from opentransformer_tpu_torch.ops.encoder_attention import encoder_self_attention
 
         beam_cross_attention.launches = beam_self_attention.launches = 0
+        encoder_self_attention.launches = 0
         out = phase(*args)
         att[label] = attention_launches()
+        enc[label] = encoder_self_attention.launches
         return out
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         data = counted("phase2 anchor eval CLI (f32, bf16)", phase_anchor, workdir)
-        launches, flagship_secs, launches4 = counted("phase3 flagship", phase_flagship)
+        launches, flagship_secs, launches4, launches5 = counted("phase3 flagship",
+                                                                phase_flagship)
         counted("phase4 anchor eval CLI + LM", phase_anchor_lm, workdir, data)
         ctc_launches = counted("phase8 anchor CTC and beam + CTC rescoring", phase_anchor_ctc,
                                workdir, data)
@@ -5980,6 +6187,7 @@ def main() -> int:
             "phase17 tools and recipe (this process)", phase_tools, workdir, data, corpus)
         whisper_launches = counted("phase18 whisper large-v3 eval CLI", phase_whisper, workdir)
     log(f"kernel 4 launches by phase: {att}")
+    log(f"kernel 5 launches by phase: {enc}")
 
     # launches: each kernel's count on its own main paths (phase 3 without an
     # LM, phase 8's CTC decodes, phase 9's conformer decodes, phase 10's
@@ -6026,6 +6234,12 @@ def main() -> int:
                       library4[BEAM_ATTENTION_RECORD],
                       at_shapes={case: (timings4[case], library4.get(case))
                                  for case in BEAM_ATTENTION_WHISPER}),
+        kernel_record("encoder_attention", "opentransformer_tpu_torch/csrc/encoder_attention.cu",
+                      "none", launches5, max_err5,
+                      timings5[ENCODER_ATTENTION_TIMED[0][0]], enc,
+                      library5[ENCODER_ATTENTION_TIMED[0][0]],
+                      at_shapes={case[0]: (timings5[case[0]], library5[case[0]])
+                                 for case in ENCODER_ATTENTION_TIMED[1:]}),
     ]}
     log(f"chip_smoke ran every phase in {time.time() - t0:.1f} s")
     print(json.dumps(record))

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import encoder_attention
 from ..ops.beam_attention import beam_cross_attention, beam_self_attention
 from ..ops.collectives import copy_to, count_over, reduce_from, sum_over
 from ..ops.masks import apply_attn_mask
@@ -160,10 +161,13 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention_context(q, k, v, mask):
     """Scaled dot-product attention over [B, H, T, Dh]; ``mask`` is bool,
-    broadcastable to [B, H, Tq, Tk], True = may attend."""
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    weights = torch.softmax(apply_attn_mask(scores, mask), dim=-1).to(q.dtype)
-    return torch.matmul(weights.float(), v.float()).to(q.dtype)
+    broadcastable to [B, H, Tq, Tk], True = may attend. Kernel 5
+    (``ops.encoder_attention``) where it takes the call (bf16 on the card,
+    no gradient, a key-only mask, its head widths), else the plain
+    composition; the two compute the same function."""
+    if encoder_attention.takes(q, k, v, mask):
+        return encoder_attention.encoder_self_attention(q, k, v, mask)
+    return encoder_attention.attention_plain(q, k, v, mask)
 
 
 class MultiHeadSelfAttention(nn.Module):

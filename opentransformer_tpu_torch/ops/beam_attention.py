@@ -103,31 +103,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _stream_getter(c_module=torch._C):
-    """``device index -> the raw handle of its current stream``: the binding
-    that ``torch.cuda.current_stream`` calls, without building a
-    ``torch.cuda.Stream`` (~6 µs of host a call less), looked up once; a
-    torch without that private binding (a CPU-only build has none) takes
-    the public route."""
-    raw = getattr(c_module, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw
-    return lambda index: torch.cuda.current_stream(index).cuda_stream
-
-
-_current_stream = _stream_getter()
-
-
-def _launch(fn, index: int, args) -> int:
-    """``fn(*args, stream)`` on CUDA device ``index`` and its current
-    stream, entering the device only when it is not the current one (on
-    every decode path it is: entering and leaving costs ~12 µs of host)."""
-    if index == torch.cuda.current_device():
-        return fn(*args, _current_stream(index))
-    with torch.cuda.device(index):
-        return fn(*args, _current_stream(index))
-
-
 def _aligned(vec: int, *tensors) -> bool:
     """Every tensor's rows start on 16 bytes: its address a multiple of 16
     and every stride but the innermost (which is 1) a multiple of the
@@ -237,7 +212,7 @@ def _cross_cuda(q, k, v, key_pad_mask, out_dtype):
         raise _layout_error(q=q, k=k, v=v)
     out = torch.empty(plan.q_shape, dtype=out_dtype, device=plan.device)
     scratch = _scratch(plan.blocks, plan.kc, plan.positions, plan.device)
-    err = _launch(plan.fn, plan.index, (q_ptr, qs[0], qs[1], *plan.args,
+    err = cuda_build.launch(plan.fn, plan.index, (q_ptr, qs[0], qs[1], *plan.args,
                                         None if scratch is None else scratch.data_ptr(),
                                         out.data_ptr()))
     _raise_on(err, "cross")
@@ -313,7 +288,7 @@ def _self_cuda(q, k_t, v_t, cache_k, cache_v, index: int, src):
     out = torch.empty(plan.q_shape, dtype=plan.dtype, device=plan.device)
     scratch = _scratch(plan.blocks, plan.kc, index + 1, plan.device)
     cache_ptrs, shape = plan.args[:2], plan.args[2:]
-    err = _launch(plan.fn, plan.index, (
+    err = cuda_build.launch(plan.fn, plan.index, (
         q_ptr, qs[0], qs[1], k_ptr, v_ptr, ts[0], ts[1], *cache_ptrs, src.data_ptr(), src_len,
         index, plan.positions, *shape, None if scratch is None else scratch.data_ptr(),
         out.data_ptr()))

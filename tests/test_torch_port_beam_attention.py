@@ -16,6 +16,7 @@ import torch
 from opentransformer_tpu_torch.models import modules
 from opentransformer_tpu_torch.models.registry import build_model
 from opentransformer_tpu_torch.ops import beam_attention as ba
+from opentransformer_tpu_torch.ops import cuda_build
 from opentransformer_tpu_torch.ops.masks import apply_attn_mask
 from opentransformer_tpu_torch.recognize.base import make_memory_search
 
@@ -227,11 +228,11 @@ class _StubLibrary:
 @pytest.fixture
 def stub_launch(monkeypatch):
     """The CUDA path's host side on CPU tensors: the library stubbed,
-    ``_launch`` calling the entry with a stream handle of 0, and the
+    ``cuda_build.launch`` calling the entry with a stream handle of 0, and the
     current device -1 (what ``get_device`` reads on a CPU tensor)."""
     lib = _StubLibrary()
     monkeypatch.setattr(ba, "_library", lambda: lib)
-    monkeypatch.setattr(ba, "_launch", lambda fn, index, args: fn(*args, 0))
+    monkeypatch.setattr(cuda_build, "launch", lambda fn, index, args: fn(*args, 0))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: -1)
     return lib
 
@@ -324,8 +325,8 @@ def test_the_stream_handle_is_looked_up_once():
     def raw(index):
         return index
 
-    assert ba._stream_getter(SimpleNamespace(_cuda_getCurrentRawStream=raw)) is raw
-    fallback = ba._stream_getter(SimpleNamespace())
+    assert cuda_build.stream_getter(SimpleNamespace(_cuda_getCurrentRawStream=raw)) is raw
+    fallback = cuda_build.stream_getter(SimpleNamespace())
     assert fallback is not raw and callable(fallback)
     expected = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    assert (ba._current_stream is expected) == (expected is not None)
+    assert (cuda_build.current_stream is expected) == (expected is not None)

@@ -17,6 +17,8 @@ the two-head kernel, where the two normalisers are subtracted), so two
 values closer than that may trade places.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1064,14 +1066,162 @@ def test_anchor_beam_decode_through_the_kernel_gives_the_plain_n_best(cuda, monk
 
 @pytest.mark.gpu
 def test_beam_attention_takes_the_raw_stream_binding(cuda):
-    """A CUDA build of torch has the private binding the wrapper looks up
-    once at import, and it gives the current stream's handle."""
-    from opentransformer_tpu_torch.ops import beam_attention as ba
+    """A CUDA build of torch has the private binding that ``cuda_build``
+    looks up once at import for the kernels' wrappers, and it gives the
+    current stream's handle."""
+    from opentransformer_tpu_torch.ops import cuda_build
 
     assert hasattr(torch._C, "_cuda_getCurrentRawStream")
-    assert ba._current_stream is torch._C._cuda_getCurrentRawStream
+    assert cuda_build.current_stream is torch._C._cuda_getCurrentRawStream
     index = torch.cuda.current_device()
-    assert ba._current_stream(index) == torch.cuda.current_stream().cuda_stream
+    assert cuda_build.current_stream(index) == torch.cuda.current_stream().cuda_stream
     side = torch.cuda.Stream()
     with torch.cuda.stream(side):
-        assert ba._current_stream(index) == side.cuda_stream
+        assert cuda_build.current_stream(index) == side.cuda_stream
+
+
+# ---- kernel 5: self-attention at inference (ops/encoder_attention.py)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t_q,t_k,dh,mask,empty", [
+    # the long-form cell's slice: 22 Whisper windows, 20 heads of 64, all keys valid
+    (22, 20, 1500, 1500, 64, "full", False),
+    # the decode cell's longest bucket: 1,024 utterances, 4 heads of 64, key padding
+    (1024, 4, 374, 374, 64, "ragged", False),
+    # the other head widths, T_q != T_k (the cached step without a beam:
+    # T_q = 1), a row with no valid key, a mask with holes
+    (64, 4, 300, 300, 32, "ragged", False),
+    (16, 8, 500, 500, 128, "ragged", False),
+    (8, 4, 77, 250, 64, "ragged", False),
+    (6, 4, 1, 129, 64, None, False),
+    (6, 4, 200, 200, 64, "ragged", True),
+    (6, 4, 200, 200, 128, "holes", False),
+    (6, 4, 3, 7, 32, "ragged", False),  # fewer keys than a tile's rows
+])
+def test_encoder_attention_kernel_within_twice_the_composition(cuda, b, h, t_q, t_k, dh, mask,
+                                                               empty):
+    """Kernel 5 against the float64 attention of the same bf16 inputs (the
+    head splits of a fused QKV projection's output, ``chip_smoke``'s case):
+    its largest |Δ| is at most twice the plain composition's own. Both round
+    the weights and the context to bf16, at other points (the kernel rounds
+    the unnormalised weights and divides by the float32 sum at the end), so
+    neither is the other's reference; the exact value is."""
+    import chip_smoke
+    from opentransformer_tpu_torch.ops import encoder_attention as ea
+
+    q, k, v, m = chip_smoke.encoder_attention_case(b, h, t_q, t_k, dh, seed=b + h + t_q + dh,
+                                                   mask=mask, empty_row=empty)
+    before = ea.encoder_self_attention.launches
+    got = ea.encoder_self_attention(q, k, v, m)
+    torch.cuda.synchronize()
+    assert ea.encoder_self_attention.launches == before + 1
+    assert got.shape == (b, h, t_q, dh) and got.dtype == torch.bfloat16
+    err, plain_err = chip_smoke.encoder_attention_errors(got, q, k, v, m)
+    assert err <= 2.0 * plain_err, (err, plain_err)
+
+
+@pytest.mark.gpu
+def test_encoder_attention_short_rows_back_to_back(cuda):
+    """Rows of 1 to 130 valid keys at the decode cell's shape, launched
+    back to back: every block exits with tiles it loaded ahead and never
+    used, and each launch gives the first one's context bit for bit."""
+    import chip_smoke
+    from opentransformer_tpu_torch.ops import encoder_attention as ea
+
+    q, k, v, m = chip_smoke.encoder_attention_case(1024, 4, 374, 374, 64, seed=7, mask="short")
+    first = ea.encoder_self_attention(q, k, v, m)
+    assert chip_smoke.encoder_attention_repeats_differing(q, k, v, m, first) == 0
+    err, plain_err = chip_smoke.encoder_attention_errors(first, q, k, v, m)
+    assert err <= 2.0 * plain_err, (err, plain_err)
+
+
+@pytest.mark.gpu
+def test_encoder_attention_rejects_what_it_does_not_take(cuda):
+    import chip_smoke
+    from opentransformer_tpu_torch.ops import encoder_attention as ea
+    from opentransformer_tpu_torch.ops.masks import causal_mask
+
+    q, k, v, m = chip_smoke.encoder_attention_case(2, 4, 64, 64, 64, seed=0)
+    with pytest.raises(TypeError):
+        ea.encoder_self_attention(q.half(), k.half(), v.half(), m)
+    with pytest.raises(ValueError):  # Dh not innermost
+        ea.encoder_self_attention(q, k.transpose(2, 3), v.transpose(2, 3), m)
+    with pytest.raises(ValueError):  # a causal mask
+        ea.encoder_self_attention(q, k, v, causal_mask(64, cuda))
+    with pytest.raises(ValueError):  # the mask on another device
+        ea.encoder_self_attention(q, k, v, m.cpu())
+    q96, k96, v96, _ = chip_smoke.encoder_attention_case(2, 4, 16, 16, 96, seed=0)
+    with pytest.raises(ValueError):
+        ea.encoder_self_attention(q96, k96, v96)
+
+
+def _seeded_on_card(model, seed):
+    """Normal weights drawn on the card: LayerNorm gains 1, other vectors
+    0.02, matrices and embeddings 1/sqrt(fan-in)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            x = torch.randn(p.shape, generator=g, device="cuda")
+            if p.dim() > 1:
+                x /= float(np.prod(p.shape[1:])) ** 0.5
+            elif "norm" in name and name.endswith("weight"):
+                x = torch.ones_like(x)
+            else:
+                x *= 0.02
+            p.copy_(x)
+    return model
+
+
+@pytest.mark.gpu
+def test_whisper_width_encode_and_long_form_search_through_kernel_five(cuda, monkeypatch):
+    """Whisper large-v3 at its widths in bf16: one slice's encode launches
+    kernel 5 once per encoder block (32) and lies as close to the float32
+    encode of the same weights as the plain composition's bf16 encode does
+    (within twice its distance: both round at other points over 32 blocks);
+    ``recognize_arrays`` on two 30-s windows at beam 5 gives the plain
+    path's 1-best and its n-best: a hypothesis in both scores the same
+    within 1e-3 relative (the two encodes round to bf16 at other points;
+    gaps of up to 8.6e-4 were seen), and one in only one of them lost at
+    the cut, to a hypothesis within twice that (seeded weights leave the
+    fifth hypothesis of each window tied that close with the next)."""
+    from opentransformer_tpu_torch.config import CONF_DIR, load_config
+    from opentransformer_tpu_torch.models.registry import build_model
+    from opentransformer_tpu_torch.ops import encoder_attention as ea
+    from opentransformer_tpu_torch.recognize.base import SpeechToTextRecognizer
+
+    cfg = load_config(os.path.join(CONF_DIR, "whisper_large_v3.json"))["model"]
+    model = _seeded_on_card(build_model(cfg, device=cuda, dtype=torch.bfloat16).eval(), 22)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    feats = torch.randn(2, 3000, cfg["frontend"]["input_size"], generator=g,
+                        device=cuda).to(torch.bfloat16)
+    mask = torch.ones(2, 3000, dtype=torch.bool, device=cuda)
+    rec = SpeechToTextRecognizer(model, beam_width=5, max_len=8, penalty=0.6,
+                                 eos_id=cfg["decoder"]["vocab_size"])
+    with torch.inference_mode():
+        before = ea.encoder_self_attention.launches
+        memory, _ = rec.encode(feats[:1], mask[:1])
+        assert ea.encoder_self_attention.launches - before == cfg["encoder"]["n_blocks"] == 32
+        fast = rec.recognize_arrays(feats, mask)
+        with monkeypatch.context() as plain_path:
+            plain_path.setattr(ea, "takes", lambda *args: False)
+            plain_memory, _ = rec.encode(feats[:1], mask[:1])
+            plain = rec.recognize_arrays(feats, mask)
+        assert ea.encoder_self_attention.launches - before == 2 * 32  # none on the plain path
+        exact, _ = model.float().encode(feats[:1].float(), mask[:1])  # the composition
+
+    def gap(x):
+        return float((x.float() - exact).norm() / exact.norm())
+
+    assert gap(memory) <= 2.0 * gap(plain_memory), (gap(memory), gap(plain_memory))
+    assert torch.equal(fast.tokens[:, 0], plain.tokens[:, 0]), (fast.tokens, plain.tokens)
+    tol = 1e-3
+    for w in range(fast.tokens.shape[0]):
+        nbest = [{tuple(t.tolist()): float(s) for t, s in zip(hyp.tokens[w], hyp.scores[w])}
+                 for hyp in (fast, plain)]
+        for one, other in (nbest, nbest[::-1]):
+            cut = min(other.values())
+            for tokens, score in one.items():
+                if tokens in other:
+                    assert abs(score - other[tokens]) <= tol * abs(other[tokens]), (w, nbest)
+                else:
+                    assert abs(score - cut) <= 2 * tol * abs(cut), (w, nbest)
