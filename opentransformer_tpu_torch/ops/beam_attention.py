@@ -25,7 +25,6 @@ from q. Each entry's ``launches`` counts kernel launches.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -40,7 +39,10 @@ MAX_BEAMS = 8
 # scratch buffer in device memory beyond
 SCORES_ON_CHIP_BYTES = 32 * 1024
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_CROSS = cuda_build.Entry("beam_attention", "beam_attention_cross_launch",
+                          "pllpplllpll" + "i" * 9 + "pp")
+_SELF = cuda_build.Entry("beam_attention", "beam_attention_self_launch",
+                         "pllppllppp" + "i" * 10 + "pp")
 
 
 def cross_attention_plain(q, k, v, key_pad_mask, out_dtype):
@@ -88,37 +90,6 @@ def beam_plan(beams: int) -> tuple[int, int]:
     return chunks, -(-beams // chunks)
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("beam_attention")
-    if lib.beam_attention_cross_launch.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.beam_attention_cross_launch.argtypes = [
-            p, ll, ll, p, p, ll, ll, ll, p, ll, ll, i, i, i, i, i, i, i, i, i, p, p, p]
-        lib.beam_attention_cross_launch.restype = i
-        lib.beam_attention_self_launch.argtypes = [
-            p, ll, ll, p, p, ll, ll, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p]
-        lib.beam_attention_self_launch.restype = i
-        lib.beam_attention_error_string.argtypes = [i]
-        lib.beam_attention_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _aligned(vec: int, *tensors) -> bool:
-    """Every tensor's rows start on 16 bytes: its address a multiple of 16
-    and every stride but the innermost (which is 1) a multiple of the
-    ``vec`` elements of a 16-byte load (a power of two, so OR-ing keeps the
-    low bits a multiple shares)."""
-    addr = strides = 0
-    for t in tensors:
-        st = t.stride()
-        if st[-1] != 1:
-            return False
-        addr |= t.data_ptr()
-        for x in st[:-1]:
-            strides |= x
-    return addr % 16 == 0 and strides % vec == 0
-
-
 def _layout_error(**tensors) -> ValueError:
     return ValueError("beam attention: the kernel takes rows of Dh with unit stride starting "
                       "on 16 bytes, in one type on one device; got " + ", ".join(
@@ -136,12 +107,6 @@ def _scratch(blocks: int, kc: int, n_pos: int, device):
     return torch.empty((blocks * slots * n_pos,), dtype=torch.float32, device=device)
 
 
-def _raise_on(err: int, entry: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"beam attention kernel ({entry}) launch failed: "
-                           f"{_library().beam_attention_error_string(err).decode()} ({err})")
-
-
 class _Plan:
     """What an entry checked once about the tensors that stay the same over
     a search, and the launch arguments they give. The decoder builds its
@@ -154,13 +119,13 @@ class _Plan:
     What changes from call to call (q, the step's keys and values, ``src``,
     ``index``) is checked at every call."""
 
-    __slots__ = ("same", "ptr", "q_shape", "dtype", "vec", "index", "device", "fn", "args",
-                 "blocks", "kc", "positions")
+    __slots__ = ("same", "ptr", "q_shape", "dtype", "vec", "index", "device", "args", "blocks",
+                 "kc", "positions")
 
 
 def _cross_plan(q, k, v, key_pad_mask, out_dtype) -> _Plan:
-    code = _DTYPE_CODE.get(q.dtype)
-    if code is None or out_dtype not in _DTYPE_CODE:
+    code = cuda_build.DTYPE_CODE.get(q.dtype)
+    if code is None or out_dtype not in cuda_build.DTYPE_CODE:
         raise TypeError(f"beam attention: the kernel takes and writes float32 or bfloat16, "
                         f"got {q.dtype} and {out_dtype}")
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
@@ -174,8 +139,8 @@ def _cross_plan(q, k, v, key_pad_mask, out_dtype) -> _Plan:
         raise TypeError(f"beam attention: q, k and v must share a type, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     vec = 8 if code else 4
-    if k.device != q.device or v.device != q.device or v.stride() != k.stride() or not _aligned(
-            vec, k, v):
+    if (k.device != q.device or v.device != q.device or v.stride() != k.stride()
+            or not cuda_build.rows_aligned(k, v)):
         raise _layout_error(q=q, k=k, v=v)
     mask_ptr, mask_b, mask_t = None, 0, 0
     if key_pad_mask is not None:
@@ -192,9 +157,8 @@ def _cross_plan(q, k, v, key_pad_mask, out_dtype) -> _Plan:
     plan.q_shape, plan.dtype, plan.vec = q.shape, q.dtype, vec
     plan.device = q.device
     plan.index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    plan.fn = _library().beam_attention_cross_launch
     plan.args = (plan.ptr, v.data_ptr(), ks[0], ks[1], ks[2], mask_ptr, mask_b, mask_t, b,
-                 beams, h, t, dh, code, _DTYPE_CODE[out_dtype], kc, chunks)
+                 beams, h, t, dh, code, cuda_build.DTYPE_CODE[out_dtype], kc, chunks)
     plan.blocks, plan.kc, plan.positions = b * h * chunks, kc, t
     return plan
 
@@ -212,16 +176,14 @@ def _cross_cuda(q, k, v, key_pad_mask, out_dtype):
         raise _layout_error(q=q, k=k, v=v)
     out = torch.empty(plan.q_shape, dtype=out_dtype, device=plan.device)
     scratch = _scratch(plan.blocks, plan.kc, plan.positions, plan.device)
-    err = cuda_build.launch(plan.fn, plan.index, (q_ptr, qs[0], qs[1], *plan.args,
-                                        None if scratch is None else scratch.data_ptr(),
-                                        out.data_ptr()))
-    _raise_on(err, "cross")
+    _CROSS(plan.index, q_ptr, qs[0], qs[1], *plan.args,
+           None if scratch is None else scratch.data_ptr(), out.data_ptr())
     beam_cross_attention.launches += 1
     return out
 
 
 def _self_plan(q, cache_k, cache_v, beams: int) -> _Plan:
-    code = _DTYPE_CODE.get(q.dtype)
+    code = cuda_build.DTYPE_CODE.get(q.dtype)
     if code is None:
         raise TypeError(f"beam attention: the kernel takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 3 or cache_k.dim() != 4:
@@ -237,7 +199,7 @@ def _self_plan(q, cache_k, cache_v, beams: int) -> _Plan:
                         f"{cache_k.dtype}, {cache_v.dtype}")
     vec = 8 if code else 4
     if (cache_k.device != q.device or cache_v.device != q.device or not cache_k.is_contiguous()
-            or not cache_v.is_contiguous() or not _aligned(vec, cache_k, cache_v)):
+            or not cache_v.is_contiguous() or not cuda_build.rows_aligned(cache_k, cache_v)):
         raise _layout_error(q=q, cache_k=cache_k, cache_v=cache_v)
     chunks, kc = beam_plan(beams)
     plan = _Plan()
@@ -245,7 +207,6 @@ def _self_plan(q, cache_k, cache_v, beams: int) -> _Plan:
     plan.q_shape, plan.dtype, plan.vec = q.shape, q.dtype, vec
     plan.device = q.device
     plan.index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    plan.fn = _library().beam_attention_self_launch
     plan.args = (plan.ptr, cache_v.data_ptr(), bk // beams, beams, h, dh, code, kc, chunks)
     plan.blocks, plan.kc, plan.positions = bk // beams * h * chunks, kc, cache_k.shape[2]
     return plan
@@ -288,11 +249,9 @@ def _self_cuda(q, k_t, v_t, cache_k, cache_v, index: int, src):
     out = torch.empty(plan.q_shape, dtype=plan.dtype, device=plan.device)
     scratch = _scratch(plan.blocks, plan.kc, index + 1, plan.device)
     cache_ptrs, shape = plan.args[:2], plan.args[2:]
-    err = cuda_build.launch(plan.fn, plan.index, (
-        q_ptr, qs[0], qs[1], k_ptr, v_ptr, ts[0], ts[1], *cache_ptrs, src.data_ptr(), src_len,
-        index, plan.positions, *shape, None if scratch is None else scratch.data_ptr(),
-        out.data_ptr()))
-    _raise_on(err, "self")
+    _SELF(plan.index, q_ptr, qs[0], qs[1], k_ptr, v_ptr, ts[0], ts[1], *cache_ptrs,
+          src.data_ptr(), src_len, index, plan.positions, *shape,
+          None if scratch is None else scratch.data_ptr(), out.data_ptr())
     beam_self_attention.launches += 1
     return out
 

@@ -5,8 +5,13 @@ into ``_build/<name>-<hash>.so`` (the directory is gitignored; the hash
 covers the source, the ``csrc/*.cuh`` headers it may include and the flags,
 so an edited source or header rebuilds), then loaded with ``ctypes``. No
 PyTorch headers are involved, so a build takes seconds. Nothing is built or
-loaded when this module is imported. ``launch`` calls an entry on a
-device's current stream, for the wrappers that share it.
+loaded when this module is imported.
+
+Every wrapper under ``ops/`` calls its kernel through ``Entry``: a C launch
+entry of one library, called on a device's current stream (``launch``),
+whose non-zero return raises with the library's own error string.
+``DTYPE_CODE`` and ``rows_aligned`` are the type codes and the 16-byte row
+rule the entries share.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+# the code of a tensor type in the entries' ``dtype`` arguments (csrc/*.cu)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _nvcc() -> str:
@@ -112,3 +120,53 @@ def launch(fn, index: int, args) -> int:
         return fn(*args, current_stream(index))
     with torch.cuda.device(index):
         return fn(*args, current_stream(index))
+
+
+# ctypes type of each letter of an ``Entry`` signature
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong, "f": ctypes.c_float}
+
+
+class Entry:
+    """The C launch entry ``symbol`` of ``csrc/<lib>.cu``, whose arguments
+    are ``signature``, one letter each (p pointer, i int, l long long, f
+    float), followed by the stream handle every entry ends with.
+
+    ``entry(index, *args)`` launches it on CUDA device ``index``'s current
+    stream and raises ``RuntimeError`` with ``<lib>_error_string`` and the
+    code when it returns non-zero. The library is taken from ``load`` at
+    every call and its argument types are set once per loaded library, so
+    a rebuilt and reloaded library (``_loaded`` cleared) is picked up."""
+
+    __slots__ = ("lib", "symbol", "argtypes", "_bound")
+
+    def __init__(self, lib: str, symbol: str, signature: str):
+        self.lib, self.symbol = lib, symbol
+        self.argtypes = [_CTYPES[c] for c in signature] + [ctypes.c_void_p]
+        self._bound = (None, None)
+
+    def _bind(self, lib):
+        fn = getattr(lib, self.symbol)
+        fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        err = getattr(lib, self.lib + "_error_string")
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        self._bound = (lib, fn)
+        return fn
+
+    def __call__(self, index: int, *args) -> None:
+        lib = load(self.lib)
+        bound, fn = self._bound
+        err = launch(fn if bound is lib else self._bind(lib), index, args)
+        if err != 0:
+            msg = getattr(lib, self.lib + "_error_string")(err).decode()
+            raise RuntimeError(f"{self.symbol} failed: {msg} ({err})")
+
+
+def rows_aligned(*tensors) -> bool:
+    """Every tensor's rows start on 16 bytes, as the kernels' 16-byte loads
+    need: its innermost stride 1, its address a multiple of 16 and every
+    other stride a whole number of 16-byte vectors."""
+    for t in tensors:
+        st, size = t.stride(), t.element_size()
+        if st[-1] != 1 or t.data_ptr() % 16 or any(x * size % 16 for x in st[:-1]):
+            return False
+    return True

@@ -27,7 +27,6 @@ unnormalised weights, dividing the context by the float32 sum at the end;
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -72,16 +71,8 @@ def takes(q, k, v, mask) -> bool:
     return mask is None or _key_only(mask, q.shape[0], k.shape[-2])
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("encoder_attention")
-    if lib.encoder_attention_launch.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.encoder_attention_launch.argtypes = [
-            p, ll, ll, ll, p, ll, ll, ll, p, ll, ll, ll, p, ll, ll, p, i, i, i, i, i, p]
-        lib.encoder_attention_launch.restype = i
-        lib.encoder_attention_error_string.argtypes = [i]
-        lib.encoder_attention_error_string.restype = ctypes.c_char_p
-    return lib
+_LAUNCH = cuda_build.Entry("encoder_attention", "encoder_attention_launch",
+                          "plllplllplllpllp" + "i" * 5)
 
 
 def _error(q, k, v, mask, why: str) -> ValueError:
@@ -108,14 +99,9 @@ def _cuda(q, k, v, mask):
     index = q.get_device()
     if k.get_device() != index or v.get_device() != index:
         raise _error(q, k, v, mask, "q, k and v on different devices")
-    addr = strides = 0
-    for t in (q, k, v):
-        st = t.stride()
-        if st[3] != 1:
-            raise _error(q, k, v, mask, "Dh must be innermost")
-        addr |= t.data_ptr()
-        strides |= st[0] | st[1] | st[2]
-    if addr % 16 or strides % 8:
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise _error(q, k, v, mask, "Dh must be innermost")
+    if not cuda_build.rows_aligned(q, k, v):
         raise _error(q, k, v, mask, "rows must start on 16 bytes")
     mask_ptr, mask_b, mask_t = None, 0, 0
     if mask is not None:
@@ -126,14 +112,9 @@ def _cuda(q, k, v, mask):
         mask_b = m.stride(0) if m.shape[0] > 1 else 0
     out = torch.empty((b, t_q, h, dh), dtype=q.dtype, device=q.device)
     qs, ks, vs = q.stride(), k.stride(), v.stride()
-    lib = _library()
-    err = cuda_build.launch(lib.encoder_attention_launch, index, (
-        q.data_ptr(), qs[0], qs[1], qs[2], k.data_ptr(), ks[0], ks[1], ks[2],
-        v.data_ptr(), vs[0], vs[1], vs[2], mask_ptr, mask_b, mask_t, out.data_ptr(),
-        b, h, t_q, t_k, dh))
-    if err != 0:
-        raise RuntimeError(f"encoder attention kernel launch failed: "
-                           f"{lib.encoder_attention_error_string(err).decode()} ({err})")
+    _LAUNCH(index, q.data_ptr(), qs[0], qs[1], qs[2], k.data_ptr(), ks[0], ks[1], ks[2],
+            v.data_ptr(), vs[0], vs[1], vs[2], mask_ptr, mask_b, mask_t, out.data_ptr(),
+            b, h, t_q, t_k, dh)
     encoder_self_attention.launches += 1
     # [B, H, T_q, Dh] as a view of [B, T_q, H, Dh]: merge_heads reshapes it without a copy
     return out.transpose(1, 2)

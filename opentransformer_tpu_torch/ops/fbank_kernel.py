@@ -28,7 +28,6 @@ TPU's lane padding: 400 window rows, 257 frequencies, M mel columns.
 
 from __future__ import annotations
 
-import ctypes
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -145,15 +144,7 @@ def spec_mel_plain(frames, cos_b, sin_b, mel_t):
     return torch.log(torch.clamp_min(power @ mel_t, EPSILON))
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("fbank_spec_mel")
-    if lib.fbank_spec_mel_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fbank_spec_mel_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
-        lib.fbank_spec_mel_launch.restype = ctypes.c_int
-        lib.fbank_spec_mel_error_string.argtypes = [i]
-        lib.fbank_spec_mel_error_string.restype = ctypes.c_char_p
-    return lib
+_LAUNCH = cuda_build.Entry("fbank_spec_mel", "fbank_spec_mel_launch", "ppppiiiiip")
 
 
 def _spec_mel_cuda(frames, mel_t, twiddle, ranges):
@@ -183,21 +174,14 @@ def _spec_mel_cuda(frames, mel_t, twiddle, ranges):
             raise ValueError("frames, mel matrix, twiddles and mel ranges must be on one device")
         if not t.is_contiguous():
             raise ValueError(f"the fbank kernel needs a contiguous {name}")
-    if frames.data_ptr() % 16:
+    if not cuda_build.rows_aligned(frames):
         raise ValueError("the fbank kernel reads frames in 16-byte pieces: their storage "
                          "must start on 16 bytes")
     out = torch.empty((n_frames, n_mel), dtype=torch.float32, device=frames.device)
     if n_frames == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(frames.device):
-        stream = torch.cuda.current_stream(frames.device).cuda_stream
-        err = lib.fbank_spec_mel_launch(frames.data_ptr(), mel_t.data_ptr(), twiddle.data_ptr(),
-                                        ranges.data_ptr(), n_frames, window, n_fft, n_freq,
-                                        n_mel, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fbank_spec_mel kernel launch failed: "
-                           f"{lib.fbank_spec_mel_error_string(err).decode()} ({err})")
+    _LAUNCH(frames.get_device(), frames.data_ptr(), mel_t.data_ptr(), twiddle.data_ptr(),
+            ranges.data_ptr(), n_frames, window, n_fft, n_freq, n_mel, out.data_ptr())
     spec_mel.launches += 1
     return out
 

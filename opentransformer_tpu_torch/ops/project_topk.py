@@ -26,8 +26,6 @@ reference does with ``preferred_element_type``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import cuda_build
@@ -77,18 +75,8 @@ def split_plan(n: int, v: int) -> tuple[int, int]:
     return -(-n_tiles // per_split), per_split
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("project_topk")
-    if lib.project_topk_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.project_topk_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p]
-        lib.project_topk_launch.restype = ctypes.c_int
-        lib.project_topk_error_string.argtypes = [i]
-        lib.project_topk_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LAUNCH = cuda_build.Entry("project_topk", "project_topk_launch", "pppiiiiiiippppp")
+_LAUNCH2 = cuda_build.Entry("project2_topk", "project2_topk_launch", "ppppppfiiiiiiiipppp")
 
 
 _ZERO_BIAS: dict = {}
@@ -115,7 +103,7 @@ def _kernel_head(h, weight, bias):
     if weight.shape[1] != h.shape[1] or bias.shape[0] != weight.shape[0]:
         raise ValueError(f"shape mismatch: h {tuple(h.shape)}, weight {tuple(weight.shape)}, "
                          f"bias {tuple(bias.shape)}")
-    if h.dtype not in _DTYPE_CODE:
+    if h.dtype not in cuda_build.DTYPE_CODE:
         raise TypeError(f"the top-k kernels take float32 or bfloat16 h, got {h.dtype}")
     if weight.device != h.device or bias.device != h.device:
         raise ValueError("h, weight and bias must be on the same device")
@@ -146,16 +134,9 @@ def _project_logp_topk_cuda(h, weight, bias, k: int):
     splits, per_split = split_plan(n, v)
     part = torch.empty((splits * n * (2 + k),), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits * n * k,), dtype=torch.int32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.project_topk_launch(
-            h.data_ptr(), w.data_ptr(), b.data_ptr(), _DTYPE_CODE[h.dtype],
-            n, d, v, k, splits, per_split, part.data_ptr(), part_i.data_ptr(),
-            vals.data_ptr(), ids.data_ptr(), lse.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"project_topk kernel launch failed: "
-                           f"{lib.project_topk_error_string(err).decode()} ({err})")
+    _LAUNCH(h.get_device(), h.data_ptr(), w.data_ptr(), b.data_ptr(),
+            cuda_build.DTYPE_CODE[h.dtype], n, d, v, k, splits, per_split, part.data_ptr(),
+            part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(), lse.data_ptr())
     project_logp_topk.launches += 1
     return vals, ids, lse
 
@@ -188,18 +169,6 @@ def project2_logp_topk_plain(h1, w1, b1, h2, w2, b2, lam: float, k: int):
     return vals, idx.to(torch.int32)
 
 
-def _library2() -> ctypes.CDLL:
-    lib = cuda_build.load("project2_topk")
-    if lib.project2_topk_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.project2_topk_launch.argtypes = [p, p, p, p, p, p, ctypes.c_float,
-                                             i, i, i, i, i, i, i, i, p, p, p, p, p]
-        lib.project2_topk_launch.restype = ctypes.c_int
-        lib.project2_topk_error_string.argtypes = [i]
-        lib.project2_topk_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _project2_logp_topk_cuda(h1, w1, b1, h2, w2, b2, lam: float, k: int):
     h1, w1, b1 = _kernel_head(h1, w1, b1)
     h2, w2, b2 = _kernel_head(h2, w2, b2)
@@ -222,17 +191,10 @@ def _project2_logp_topk_cuda(h1, w1, b1, h2, w2, b2, lam: float, k: int):
     splits, per_split = split_plan(n, v)
     part = torch.empty((splits * n * (4 + k),), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits * n * k,), dtype=torch.int32, device=dev)
-    lib = _library2()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.project2_topk_launch(
-            h1.data_ptr(), w1.data_ptr(), b1.data_ptr(), h2.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), float(lam), _DTYPE_CODE[h1.dtype], n, d1, d2, v, k, splits,
-            per_split, part.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"project2_topk kernel launch failed: "
-                           f"{lib.project2_topk_error_string(err).decode()} ({err})")
+    _LAUNCH2(h1.get_device(), h1.data_ptr(), w1.data_ptr(), b1.data_ptr(), h2.data_ptr(),
+             w2.data_ptr(), b2.data_ptr(), float(lam), cuda_build.DTYPE_CODE[h1.dtype], n, d1,
+             d2, v, k, splits, per_split, part.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+             ids.data_ptr())
     project2_logp_topk.launches += 1
     return vals, ids
 

@@ -20,7 +20,7 @@ from ..data import BLK, EOS, PAD
 from ..models.lm import RecurrentLanguageModel, TransformerLanguageModel
 from ..ops.loss import ctc_nll_from_logprobs, gather_label_logprobs
 from ..ops.masks import mask_to_length
-from ..ops.project_topk import MAX_K, project2_logp_topk
+from ..ops.project_topk import MAX_K, project2_logp_topk, topk_smallest_id
 from .beam import BeamHypotheses, beam_search, greedy_search
 from .ctc_decode import ctc_collapse_ids
 
@@ -73,6 +73,17 @@ class Recognizer:
         return [[self.translate(hyp) for hyp in utt] for utt in np.asarray(tokens)]
 
 
+def _gather_rows(state, rows: torch.Tensor):
+    """Reorder the leading axis of every tensor in a nest of lists, tuples
+    and dicts (a transformer LM's per-block {"k", "v"}, an LSTM's per-layer
+    (c, h))."""
+    if isinstance(state, torch.Tensor):
+        return state.index_select(0, rows)
+    if isinstance(state, dict):
+        return {key: _gather_rows(val, rows) for key, val in state.items()}
+    return type(state)(_gather_rows(val, rows) for val in state)
+
+
 def make_memory_search(model, beam_width: int, max_len: int, penalty: float = 0.6,
                        lamda: float = 5.0, lm=None, lm_weight: float = 0.1,
                        eos_id: Optional[int] = None, force_beam: bool = False,
@@ -84,46 +95,58 @@ def make_memory_search(model, beam_width: int, max_len: int, penalty: float = 0.
     beam path, whose scores are length-penalised (CTC rescoring adds them).
 
     The beam consumes only the per-step top-k of the (LM-fused) next-token
-    distribution, so the fused projection→log-softmax→top-k step is used
-    whenever ``beam_width`` fits the kernel (≤ 128): without an LM the
-    model's ``decode_step_topk``, with one the two-head form over the
-    model's and the LM's hidden states, which also needs the two
-    vocabularies to be equal. ``fused_topk=False`` forces the materialized
-    log-probs and a plain top-k."""
+    distribution, so the step is chosen here, once, from four: where
+    ``beam_width`` fits the kernels (≤ 128), without an LM the model's
+    fused ``decode_step_topk`` (kernel 1), with one the two-head top-k of
+    ``logp_model + lm_weight · logp_lm`` from the model's and the LM's
+    hidden states (kernel 2; it also needs the two vocabularies equal);
+    otherwise the materialized log-probs, with or without the LM's added,
+    and a plain top-k. ``fused_topk=False`` forces the materialized ones.
+    The search's state is the decoder's caches, paired with the LM's state
+    under fusion. A transformer LM on kernel 2 takes the beam's ancestry
+    map (its caches stay append-only like the decoder's); every other LM
+    state is gathered to the surviving hypotheses after each step."""
     eos = EOS if eos_id is None else int(eos_id)
     fits_kernel = fused_topk and beam_width <= MAX_K
-    has_topk = lm is None and fits_kernel
-    has_topk_lm = (lm is not None and fits_kernel
-                   and model.decoder.vocab_size == lm.vocab_size)
-    # a transformer LM takes the beam's ancestry map: its KV caches stay
-    # append-only like the decoder's and the beam loop skips the per-step
-    # gather of the LM state. An LSTM's state has no positions to select
-    # from and is gathered.
-    lm_ancestral = has_topk_lm and isinstance(lm, TransformerLanguageModel)
-    lm_init, lm_step = make_lm_adapter(lm, max_len)
-
-    def decode_topk_lm(tokens, cache, lm_state, index, mem_mask, src, k):
-        h, cache = model.decode_hidden_step(tokens, cache, index, mem_mask, src)
-        if lm_ancestral:
-            h_lm, lm_state = lm.decode_hidden(tokens, lm_state, index, src)
+    reorder = None
+    if lm is None and fits_kernel:
+        step = model.decode_step_topk
+    elif lm is None:
+        def step(tokens, cache, index, mem_mask, src, k):
+            logp, cache = model.decode_step(tokens, cache, index, mem_mask, src)
+            return (*topk_smallest_id(logp, k), cache)
+    else:
+        lm_init, lm_step = make_lm_adapter(lm, max_len)
+        fused = fits_kernel and model.decoder.vocab_size == lm.vocab_size
+        ancestral = fused and isinstance(lm, TransformerLanguageModel)
+        if fused:
+            def step(tokens, state, index, mem_mask, src, k):
+                h, cache = model.decode_hidden_step(tokens, state[0], index, mem_mask, src)
+                h_lm, lm_state = (lm.decode_hidden(tokens, state[1], index, src) if ancestral
+                                  else lm.decode_hidden(tokens, state[1], index))
+                vals, idx = project2_logp_topk(h, *model.vocab_head(), h_lm, *lm.vocab_head(),
+                                               lm_weight, k)
+                return vals, idx, (cache, lm_state)
         else:
-            h_lm, lm_state = lm.decode_hidden(tokens, lm_state, index)
-        vals, idx = project2_logp_topk(h, *model.vocab_head(), h_lm, *lm.vocab_head(),
-                                       lm_weight, k)
-        return vals, idx, cache, lm_state
+            def step(tokens, state, index, mem_mask, src, k):
+                logp, cache = model.decode_step(tokens, state[0], index, mem_mask, src)
+                lm_logp, lm_state = lm_step(tokens, state[1], index)
+                return (*topk_smallest_id(logp + lm_weight * lm_logp, k), (cache, lm_state))
+        if not ancestral:
+            def reorder(state, flat_parent):
+                return state[0], _gather_rows(state[1], flat_parent)
+
+    def init_state(memory, k):
+        cache = model.init_cache(memory, max_len + 1, k)
+        return cache if lm is None else (cache, lm_init(memory.shape[0] * k))
 
     @torch.inference_mode()
     def search(memory, memory_mask) -> BeamHypotheses:
-        decode_topk = model.decode_step_topk if has_topk else None
         if beam_width == 1 and lm is None and not force_beam:
-            return greedy_search(model.decode_step, model.init_cache, memory, memory_mask,
-                                 max_len, eos_id=eos, decode_topk=decode_topk)
-        return beam_search(model.decode_step, model.init_cache, memory, memory_mask,
-                           beam_width=beam_width, max_len=max_len, penalty=penalty,
-                           lamda=lamda, eos_id=eos, decode_topk=decode_topk,
-                           lm_step=lm_step, lm_init=lm_init, lm_weight=lm_weight,
-                           decode_topk_lm=decode_topk_lm if has_topk_lm else None,
-                           lm_ancestral=lm_ancestral)
+            return greedy_search(step, init_state, memory, memory_mask, max_len, eos_id=eos)
+        return beam_search(step, init_state, memory, memory_mask, beam_width=beam_width,
+                           max_len=max_len, penalty=penalty, lamda=lamda, eos_id=eos,
+                           reorder=reorder)
 
     return search
 

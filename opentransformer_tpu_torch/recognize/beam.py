@@ -9,9 +9,10 @@ at additive 0 that forces EOS; the self-attention caches are append-only
 and read through the ancestry map ``src``; the search stops when every
 beam has ended; after the loop scores are divided by the length penalty
 ``((5+len)/6)^0.6`` with len = non-EOS tokens including BOS, and sorted.
-With an LM the per-step score is ``logp + lm_weight · lm_logp`` (shallow
-fusion), taken either from the fused two-head top-k or from the two
-materialized distributions.
+The search takes one ``step`` callable, which scores the beams' next
+tokens and returns their per-row top-k; what it scores with (the fused
+kernel, materialized log-probs, an LM fused into either) is chosen by its
+maker (``recognize.base.make_memory_search``), once a search.
 
 The JAX reference runs the loop as one ``lax.while_loop`` on the device;
 here it is a Python loop with one host sync per step for the early exit.
@@ -52,52 +53,32 @@ def _lengths(tokens: torch.Tensor, eos_id: int, max_len: int) -> torch.Tensor:
     return torch.where(is_eos.any(dim=-1), first, max_len) + 1
 
 
-def _gather_rows(state, rows: torch.Tensor):
-    """Reorder the leading axis of every tensor in a nest of lists, tuples
-    and dicts (a transformer LM's per-block {"k", "v"}, an LSTM's per-layer
-    (c, h))."""
-    if isinstance(state, torch.Tensor):
-        return state.index_select(0, rows)
-    if isinstance(state, dict):
-        return {key: _gather_rows(val, rows) for key, val in state.items()}
-    return type(state)(_gather_rows(val, rows) for val in state)
-
-
 @profiling.spanned("beam.search")
 def beam_search(
-    decode_step: Callable,  # (tokens[B·K], cache, index, mem_mask, src) -> (logp, cache)
-    init_cache: Callable,   # (memory, max_len, beam_width) -> cache
-    memory: torch.Tensor,   # [B, T, D]
+    step: Callable,        # (tokens[B·K], state, index, mem_mask, src, k) -> (vals, ids, state)
+    init_state: Callable,  # (memory, beam_width) -> state
+    memory: torch.Tensor,  # [B, T, D]
     memory_mask: torch.Tensor,  # bool[B, T]
     beam_width: int,
     max_len: int,
     penalty: float = 0.6,
     lamda: float = 5.0,
     eos_id: int = EOS,
-    decode_topk: Optional[Callable] = None,  # (tokens, cache, index, mem_mask, src, k) -> (vals, ids, cache)
-    lm_step: Optional[Callable] = None,  # (tokens[N], state, index) -> (logp, state)
-    lm_init: Optional[Callable] = None,  # (n) -> state
-    lm_weight: float = 0.1,
-    decode_topk_lm: Optional[Callable] = None,  # (tokens, cache, lm_state, index, mem_mask, src, k) -> (vals, ids, cache, lm_state)
-    lm_ancestral: bool = False,
+    reorder: Optional[Callable] = None,  # (state, flat_parent long[B·K]) -> state
 ) -> BeamHypotheses:
-    """``eos_id`` overrides the end token (an out-of-vocab id forces every
-    decode to run ``max_len`` steps). ``decode_topk`` is the fused
-    projection→log-softmax→top-k step, used without an LM instead of
-    ``decode_step`` and a top-k over the full log-probs.
-
-    ``lm_step``/``lm_init`` switch shallow fusion on. ``decode_topk_lm`` is
-    its fused step: the top-k of ``logp_model + lm_weight · logp_lm`` from
-    the two hidden states, neither distribution materialized; without it
-    the two log-prob tensors are added and ranked. The LM state follows
-    the surviving hypotheses by a gather of its rows each step, unless
-    ``lm_ancestral``: then ``decode_topk_lm`` threads the ancestry map into
-    the LM, whose caches are append-only like the decoder's."""
+    """``step`` gives each row's top-k next tokens (f32 log-prob scores
+    sorted descending, their ids) and the state after the step. The state
+    (the decoder's caches, and an LM's state with shallow fusion) is built
+    by ``init_state`` for ``memory.shape[0] · beam_width`` rows. The
+    decoder's caches are append-only and read through the ancestry map
+    ``src``; ``reorder`` gathers the rows of a state that is not (an LM
+    state that follows the surviving hypotheses) after each step, with the
+    parent row of every slot. ``eos_id`` overrides the end token (an
+    out-of-vocab id forces every decode to run ``max_len`` steps)."""
     b = memory.shape[0]
     k = beam_width
     dev = memory.device
-    cache = init_cache(memory, max_len + 1, k)
-    lm_state = lm_init(b * k) if lm_step is not None else None
+    state = init_state(memory, k)
 
     tokens = torch.full((b * k, max_len + 1), eos_id, dtype=torch.long, device=dev)
     tokens[:, 0] = BOS
@@ -112,24 +93,13 @@ def beam_search(
     fin_vals[:, 0] = 0.0
     row_base = torch.arange(b, device=dev)[:, None] * k
 
-    for step in range(max_len):
+    for index in range(max_len):
         with profiling.span("beam.wait"):
             ended = bool(end_flag.all())
         if ended:
             break
         with profiling.span("beam.decode", dev):
-            cur = tokens[:, step]
-            if decode_topk_lm is not None and lm_step is not None:
-                top_vals, top_idx, cache, lm_state = decode_topk_lm(
-                    cur, cache, lm_state, step, memory_mask, src, k)
-            elif decode_topk is not None and lm_step is None:
-                top_vals, top_idx, cache = decode_topk(cur, cache, step, memory_mask, src, k)
-            else:
-                logp, cache = decode_step(cur, cache, step, memory_mask, src)
-                if lm_step is not None:
-                    lm_logp, lm_state = lm_step(cur, lm_state, step)
-                    logp = logp + lm_weight * lm_logp
-                top_vals, top_idx = topk_smallest_id(logp, k)
+            top_vals, top_idx, state = step(tokens[:, index], state, index, memory_mask, src, k)
         with profiling.span("beam.select"):
             # finished beams: one alive branch with additive score 0, forced EOS
             fin = end_flag.reshape(b * k, 1)
@@ -143,13 +113,13 @@ def beam_search(
 
             flat_parent = (row_base + parent).reshape(-1)
             tokens = tokens[flat_parent]
-            tokens[:, step + 1] = tok.reshape(-1)
-            # positions <= step inherit the parent's lineage; step+1 is written
-            # by each row itself next iteration
+            tokens[:, index + 1] = tok.reshape(-1)
+            # positions <= index inherit the parent's lineage; index+1 is
+            # written by each row itself next iteration
             src = torch.gather(src, 1, parent[:, :, None].expand(b, k, max_len + 1))
-            src[:, :, step + 1] = ident
-            if lm_state is not None and not lm_ancestral:
-                lm_state = _gather_rows(lm_state, flat_parent)
+            src[:, :, index + 1] = ident
+            if reorder is not None:
+                state = reorder(state, flat_parent)
             end_flag = end_flag.reshape(-1)[flat_parent].reshape(b, k) | (tok == eos_id)
             scores = best_scores
 
@@ -163,35 +133,29 @@ def beam_search(
 
 
 def greedy_search(
-    decode_step: Callable,
-    init_cache: Callable,
+    step: Callable,
+    init_state: Callable,
     memory: torch.Tensor,
     memory_mask: torch.Tensor,
     max_len: int,
     eos_id: int = EOS,
-    decode_topk: Optional[Callable] = None,
 ) -> BeamHypotheses:
-    """Argmax decoding (beam 1); ``decode_topk`` gives the fused k=1 step,
-    with the same smallest-id tie rule as argmax."""
+    """Argmax decoding (beam 1): ``beam_search``'s ``step`` at k = 1 with no
+    ancestry map, whose top-1 keeps argmax's smallest-id tie rule."""
     b = memory.shape[0]
     dev = memory.device
-    cache = init_cache(memory, max_len + 1)
+    state = init_state(memory, 1)
     tokens = torch.full((b, max_len + 1), eos_id, dtype=torch.long, device=dev)
     tokens[:, 0] = BOS
     scores = torch.zeros((b,), dtype=torch.float32, device=dev)
     end_flag = torch.zeros((b,), dtype=torch.bool, device=dev)
-    for step in range(max_len):
+    for index in range(max_len):
         if bool(end_flag.all()):
             break
-        cur = tokens[:, step]
-        if decode_topk is not None:
-            vals, idx, cache = decode_topk(cur, cache, step, memory_mask, None, 1)
-        else:
-            logp, cache = decode_step(cur, cache, step, memory_mask)
-            vals, idx = topk_smallest_id(logp, 1)
+        vals, idx, state = step(tokens[:, index], state, index, memory_mask, None, 1)
         tok = torch.where(end_flag, eos_id, idx[:, 0].long())
         scores = scores + torch.where(end_flag, 0.0, vals[:, 0])
-        tokens[:, step + 1] = tok
+        tokens[:, index + 1] = tok
         end_flag = end_flag | (tok == eos_id)
     lengths = _lengths(tokens, eos_id, max_len)
     return BeamHypotheses(tokens=tokens[:, None], scores=scores[:, None],

@@ -19,6 +19,7 @@ from opentransformer_tpu_torch.ops import beam_attention as ba
 from opentransformer_tpu_torch.ops import cuda_build
 from opentransformer_tpu_torch.ops.masks import apply_attn_mask
 from opentransformer_tpu_torch.recognize.base import make_memory_search
+from torch_kernel_stub import kernel_stub  # noqa: F401 (a fixture)
 
 
 def old_attend_beamed_context(q, k, v, key_pad_mask, dtype):
@@ -190,10 +191,10 @@ def test_the_kernels_layout_rule_takes_the_decoders_views(dtype, dh, ok):
     q, k_t, v_t = torch.zeros(6, 1, 3 * h * dh, dtype=dtype).view(6, 3, h, dh).unbind(1)
     k, v = (modules.split_heads(a, h) for a in
             torch.zeros(2, 7, 2 * h * dh, dtype=dtype).chunk(2, dim=-1))
-    vec = 16 // q.element_size()
-    assert ba._aligned(vec, q, k_t, v_t) is ok and ba._aligned(vec, q, k, v) is ok
-    assert not ba._aligned(vec, q[..., 1:])
-    assert not ba._aligned(vec, k.transpose(2, 3))
+    aligned = cuda_build.rows_aligned
+    assert aligned(q, k_t, v_t) is ok and aligned(q, k, v) is ok
+    assert not aligned(q[..., 1:])
+    assert not aligned(k.transpose(2, 3))
 
 
 @pytest.mark.parametrize("kc,n_pos,slots", [(5, 1024, None), (5, 1025, 8), (1, 8192, None),
@@ -209,34 +210,6 @@ def test_scores_go_to_device_memory_past_the_on_chip_budget(kc, n_pos, slots):
         assert got.dtype == torch.float32 and got.numel() == 6 * slots * n_pos
 
 
-class _StubLibrary:
-    """Stands in for the built kernel library: each launch entry records
-    its arguments and returns 0 (success)."""
-
-    def __init__(self):
-        self.calls = []
-        self.beam_attention_cross_launch = self._entry("cross")
-        self.beam_attention_self_launch = self._entry("self")
-
-    def _entry(self, name):
-        def launch(*args):
-            self.calls.append((name, args))
-            return 0
-        return launch
-
-
-@pytest.fixture
-def stub_launch(monkeypatch):
-    """The CUDA path's host side on CPU tensors: the library stubbed,
-    ``cuda_build.launch`` calling the entry with a stream handle of 0, and the
-    current device -1 (what ``get_device`` reads on a CPU tensor)."""
-    lib = _StubLibrary()
-    monkeypatch.setattr(ba, "_library", lambda: lib)
-    monkeypatch.setattr(cuda_build, "launch", lambda fn, index, args: fn(*args, 0))
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: -1)
-    return lib
-
-
 def _counting(monkeypatch, name):
     built = []
     fn = getattr(ba, name)
@@ -249,7 +222,7 @@ def _counting(monkeypatch, name):
     return built
 
 
-def test_cross_entry_checks_the_caches_once_a_search(monkeypatch, stub_launch):
+def test_cross_entry_checks_the_caches_once_a_search(monkeypatch, kernel_stub):
     """The cross keys and values, the mask and the output type are checked
     once and their launch arguments kept on ``k``: twelve calls with the same
     tensors build one plan and launch twelve times with the arguments the
@@ -264,10 +237,10 @@ def test_cross_entry_checks_the_caches_once_a_search(monkeypatch, stub_launch):
             b * beams, 3, h, dh)[:, 0]
         out = ba._cross_cuda(q, k, v, mask, torch.bfloat16)
         assert out.shape == (b * beams, h, dh) and out.dtype == torch.bfloat16
-    assert len(built) == 1 and len(stub_launch.calls) == 12
-    name, args = stub_launch.calls[-1]
+    assert len(built) == 1 and len(kernel_stub.calls) == 12
+    name, args = kernel_stub.calls[-1]
     ks = k.stride()
-    assert name == "cross" and args == (
+    assert name == "beam_attention_cross_launch" and args == (
         q.data_ptr(), 3 * h * dh, dh, k.data_ptr(), v.data_ptr(), ks[0], ks[1], ks[2],
         mask.data_ptr(), t, 1, b, beams, h, t, dh, 1, 1, 5, 1, None, out.data_ptr(), 0)
     ba._cross_cuda(q, k, torch.empty_strided(v.shape, v.stride(), dtype=v.dtype), mask,
@@ -283,7 +256,7 @@ def test_cross_entry_checks_the_caches_once_a_search(monkeypatch, stub_launch):
     assert len(built) == 5
 
 
-def test_self_entry_checks_the_caches_once_and_the_step_at_every_call(monkeypatch, stub_launch):
+def test_self_entry_checks_the_caches_once_and_the_step_at_every_call(monkeypatch, kernel_stub):
     built = _counting(monkeypatch, "_self_plan")
     b, beams, h, dh, u_max = 2, 5, 4, 64, 9
     n = b * beams
@@ -295,9 +268,9 @@ def test_self_entry_checks_the_caches_once_and_the_step_at_every_call(monkeypatc
         src = lineages(rng, b, beams, u_max, index)
         out = ba._self_cuda(q, k_t, v_t, cache_k, cache_v, index, src)
         assert out.shape == (n, h, dh)
-    assert len(built) == 1 and len(stub_launch.calls) == u_max
-    name, args = stub_launch.calls[-1]
-    assert name == "self" and args == (
+    assert len(built) == 1 and len(kernel_stub.calls) == u_max
+    name, args = kernel_stub.calls[-1]
+    assert name == "beam_attention_self_launch" and args == (
         q.data_ptr(), 3 * h * dh, dh, k_t.data_ptr(), v_t.data_ptr(), 3 * h * dh, dh,
         cache_k.data_ptr(), cache_v.data_ptr(), src.data_ptr(), u_max, u_max - 1, u_max, b,
         beams, h, dh, 1, 5, 1, None, out.data_ptr(), 0)

@@ -5,8 +5,8 @@ which has to be ``attention_context``'s composition as it was before the
 kernel, bit for bit: ``old_attention_context`` below is that code, kept here
 as the reference. ``attention_context`` hands a call to the kernel only where
 ``takes`` says so; that rule and the wrapper's host side (the launch
-arguments, the output layout) run here with the built library stubbed, as
-``test_torch_port_beam_attention.py`` stubs kernel 4. The kernel itself runs
+arguments, the output layout) run here with the built library stubbed
+(``torch_kernel_stub.py``, shared with kernels 1-4). The kernel itself runs
 only on the card (``tests/test_torch_port_gpu.py``).
 """
 
@@ -17,9 +17,9 @@ import torch
 
 from opentransformer_tpu_torch.models import modules
 from opentransformer_tpu_torch.models.registry import build_model
-from opentransformer_tpu_torch.ops import cuda_build
 from opentransformer_tpu_torch.ops import encoder_attention as ea
 from opentransformer_tpu_torch.ops.masks import apply_attn_mask, causal_mask, chunk_attn_mask
+from torch_kernel_stub import kernel_stub  # noqa: F401 (a fixture)
 
 
 def old_attention_context(q, k, v, mask):
@@ -68,28 +68,12 @@ def test_plain_equals_the_replaced_composition(dh, t_q, t_k, mask, dtype):
     assert torch.equal(modules.attention_context(q, k, v, m), want)
 
 
-class _StubLibrary:
-    """Stands in for the built kernel library: the launch entry records its
-    arguments and returns 0 (success)."""
-
-    def __init__(self):
-        self.calls = []
-
-    def encoder_attention_launch(self, *args):
-        self.calls.append(args)
-        return 0
-
-
 @pytest.fixture
-def on_card(monkeypatch):
+def on_card(monkeypatch, kernel_stub):
     """The CUDA path's host side on CPU tensors: tensors count as on the
-    card, the library stubbed, ``cuda_build.launch`` calling the entry with
-    a stream handle of 0."""
-    lib = _StubLibrary()
+    card, and the kernel library is the shared stub."""
     monkeypatch.setattr(ea, "_on_card", lambda t: True)
-    monkeypatch.setattr(ea, "_library", lambda: lib)
-    monkeypatch.setattr(cuda_build, "launch", lambda fn, index, args: fn(*args, 0))
-    return lib
+    return kernel_stub
 
 
 def _cases():
@@ -154,7 +138,8 @@ def test_launch_arguments_and_output_layout(on_card):
     q, k, v = qkv(b, h, t, t, dh)
     pad = key_mask("padding", b, t)
     out = ea.encoder_self_attention(q, k, v, pad)
-    (args,) = on_card.calls
+    ((name, args),) = on_card.calls
+    assert name == "encoder_attention_launch"
     qs, ks, vs = q.stride(), k.stride(), v.stride()
     assert qs == (t * 3 * h * dh, dh, 3 * h * dh, 1)
     assert args[:12] == (q.data_ptr(), qs[0], qs[1], qs[2], k.data_ptr(), ks[0], ks[1], ks[2],
@@ -168,9 +153,9 @@ def test_launch_arguments_and_output_layout(on_card):
     assert merged.shape == (b, t, h * dh) and merged.data_ptr() == out.data_ptr()
     assert merged._base is not None  # a view, not a copy
     ea.encoder_self_attention(q, k, v, pad[:1])
-    assert on_card.calls[-1][12:15] == (pad.data_ptr(), 0, 1)
+    assert on_card.calls[-1][1][12:15] == (pad.data_ptr(), 0, 1)
     ea.encoder_self_attention(q, k, v, None)
-    assert on_card.calls[-1][12:15] == (None, 0, 0)
+    assert on_card.calls[-1][1][12:15] == (None, 0, 0)
 
 
 def test_the_wrapper_refuses_what_the_kernel_does_not_take(on_card):

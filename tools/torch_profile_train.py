@@ -179,6 +179,7 @@ def main(argv=None) -> int:
         import time
 
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+        profiling.reset()  # count only the spans recorded under this profile
         t0 = time.perf_counter()
         with prof:
             run_updates(trainer, next_batch, updates)
