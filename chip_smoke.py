@@ -28,11 +28,15 @@ each of which raises on failure:
      caches, both entries) against its plain version on the card at the
      offline decode cell's shapes (B = 1,024 utterances, beam 5, 4 heads of
      64, bf16; 62 and 374 frames, steps 1 and 54) and in float32 at heads of
-     32 and 96, and time the kernel, the plain version and, for the cross
-     entry, ``scaled_dot_product_attention`` beside the byte bound, and the
-     wrapper's host time a call; every later phase counts kernel 4's
+     32 and 96 (bf16 cross calls take the one-pass entry, held to the
+     float64 attention within twice the plain version's own distance), and
+     time the kernel, the plain version and, for the cross entry,
+     ``scaled_dot_product_attention`` beside the byte bound (the one-pass
+     entry at the long-form shape, B 128, K 5, H 20, T 1,500, and at the
+     decode shape, also with its key padding); and the wrapper's host time
+     a call; every later phase counts kernel 4's
      launches in this process (phase 3's decode: one of each entry per
-     decoder block and step);
+     decoder block and step, every cross launch through the one-pass entry);
   1d. hold kernel 5 (``encoder_attention``, self-attention at inference:
      the encoders' bf16 encode) against the float64 attention at the
      long-form cell's slice (22 Whisper windows, 20 heads of 64, 1,500
@@ -963,15 +967,16 @@ def phase_kernel2():
 
 # ---------------------------------------------------------------- phase 1c
 def beam_attention_case(entry: str, b: int, k: int, h: int, dh: int, n_pos: int,
-                        dtype: torch.dtype, seed: int, device="cuda"):
+                        dtype: torch.dtype, seed: int, device="cuda", empty_row: bool = False):
     """Inputs of one entry of kernel 4 in the layouts the decoder hands
     over: q (and the step's key and value) head splits of one projection's
     output, the cross keys and values the halves of kv_proj's, a padded key
-    mask (every third utterance a third shorter), and lineages that merge
-    going back as a beam search leaves them (every slot from slot 0 at the
-    first step, then a random parent a step, the identity at ``index``).
-    Cross: (q, k, v, mask) over ``n_pos`` frames; self: (q, k_t, v_t,
-    cache_k, cache_v, index, src) at index ``n_pos`` - 1."""
+    mask (every third utterance a third shorter; ``empty_row``: utterance 1
+    all padding), and lineages that merge going back as a beam search leaves
+    them (every slot from slot 0 at the first step, then a random parent a
+    step, the identity at ``index``). Cross: (q, k, v, mask) over ``n_pos``
+    frames; self: (q, k_t, v_t, cache_k, cache_v, index, src) at index
+    ``n_pos`` - 1."""
     from opentransformer_tpu_torch.models.modules import split_heads
 
     g = torch.Generator().manual_seed(seed)
@@ -985,6 +990,8 @@ def beam_attention_case(entry: str, b: int, k: int, h: int, dh: int, n_pos: int,
         key, value = (split_heads(a, h) for a in normal(b, n_pos, 2 * d).chunk(2, dim=-1))
         lens = torch.full((b,), n_pos)
         lens[::3] = max(1, 2 * n_pos // 3)
+        if empty_row:
+            lens[1 % b] = 0
         mask = (torch.arange(n_pos)[None] < lens[:, None]).to(device)
         return q, key, value, mask
     q, k_t, v_t = (split_heads(a, h)[:, :, 0] for a in normal(b * k, 1, 3 * d).chunk(3, dim=-1))
@@ -1035,6 +1042,41 @@ def beam_context_gap(got, ref, weighted_abs) -> tuple[float, float]:
     return float(over.max()), float((diff == 0).float().mean())
 
 
+def beam_cross_f64(q, k, v, mask, rows: int = 8) -> torch.Tensor:
+    """The cross attention of q [B·K, H, Dh] over k, v [B, H, T, Dh] in
+    float64 with no rounding between (``NEG_INF`` where the mask is False), a
+    few utterances at a time."""
+    from opentransformer_tpu_torch.ops.masks import apply_attn_mask
+
+    b, h, _, dh = k.shape
+    beams = q.shape[0] // b
+    out = []
+    for i in range(0, b, rows):
+        qb = q[i * beams:(i + rows) * beams].double().reshape(-1, beams, h, dh)
+        s = torch.einsum("bkhd,bhtd->bkht", qb, k[i:i + rows].double()) / math.sqrt(dh)
+        if mask is not None:
+            s = apply_attn_mask(s, mask[i:i + rows, None, None, :])
+        out.append(torch.einsum("bkht,bhtd->bkhd", torch.softmax(s, dim=-1),
+                                v[i:i + rows].double()))
+    return torch.cat(out).reshape(q.shape)
+
+
+def beam_cross_errors(got, q, k, v, mask) -> tuple[float, float]:
+    """(max |Δ| of the one-pass cross entry's context from the float64
+    attention, the same of the plain version's). Both round the weights to
+    bf16 once, at other points (the kernel the unnormalised weights, then a
+    division by the float32 sum; the plain version the normalised ones), and
+    the context once, so neither is the other's reference: the kernel is held
+    to twice the plain version's own distance from the exact value (kernel
+    5's rule)."""
+    from opentransformer_tpu_torch.ops.beam_attention import cross_attention_plain
+
+    exact = beam_cross_f64(q, k, v, mask)
+    plain = cross_attention_plain(q, k, v, mask, torch.bfloat16)
+    return (float((got.double() - exact).abs().max()),
+            float((plain.double() - exact).abs().max()))
+
+
 def beam_context_within(got, ref, weighted_abs) -> bool:
     worst, equal = beam_context_gap(got, ref, weighted_abs)
     return worst <= 1.0 and (equal >= 0.99 or ref.dtype != torch.bfloat16)
@@ -1081,6 +1123,12 @@ BEAM_ATTENTION_CASES = [("cross", 1024, 5, 4, 64, 62, torch.bfloat16),
                         ("self", 128, 5, 20, 64, 129, torch.bfloat16)]
 
 
+# the decode cell's longest bucket timed with its key padding (the bf16
+# cross cases above take the one-pass entry, timed without): label, B, K, H,
+# Dh, T
+BEAM_ATTENTION_PADDED = ("cross B=1024 K=5 H=4 Dh=64 T=374 bf16 key padding", 1024, 5, 4, 64, 374)
+
+
 # the case whose times kernel 4's entry of the JSON line carries, and the
 # long-form cell's cases it carries beside them
 BEAM_ATTENTION_RECORD = "cross B=1024 K=5 H=4 Dh=64 T=374 bf16"
@@ -1122,15 +1170,23 @@ def phase_kernel4():
             got = ba.beam_self_attention(*args)
             writes_ok = torch.equal(cache_k, ref_k) and torch.equal(cache_v, ref_v)
         torch.cuda.synchronize()
-        worst, equal = beam_context_gap(got, ref, weighted_abs)
         err = float((got.float() - ref.float()).abs().max())
         max_err = max(max_err, err)
-        ok = beam_context_within(got, ref, weighted_abs) and writes_ok
-        writes = "" if entry == "cross" else f", cache writes equal {writes_ok}"
-        log(f"phase1c {label}: max|dctx|={err:.3e}, {worst:.3f} of the room, {100 * equal:.2f}% "
-            f"of the elements equal{writes} {'ok' if ok else 'FAIL'}")
+        if entry == "cross" and dtype == torch.bfloat16:
+            # the one-pass entry: held to the float64 attention
+            exact_err, plain_err = beam_cross_errors(got, *args)
+            ok = exact_err <= 2.0 * plain_err
+            log(f"phase1c {label} (one pass): max|dctx| from float64 {exact_err:.3e}, plain "
+                f"{plain_err:.3e} ({exact_err / max(plain_err, 1e-30):.2f}x), from the plain "
+                f"version {err:.3e} {'ok' if ok else 'FAIL'}")
+        else:
+            worst, equal = beam_context_gap(got, ref, weighted_abs)
+            ok = beam_context_within(got, ref, weighted_abs) and writes_ok
+            writes = "" if entry == "cross" else f", cache writes equal {writes_ok}"
+            log(f"phase1c {label}: max|dctx|={err:.3e}, {worst:.3f} of the room, "
+                f"{100 * equal:.2f}% of the elements equal{writes} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"kernel 4 disagrees with its plain version: {label}")
+            raise AssertionError(f"kernel 4 disagrees with its reference: {label}")
 
         if entry == "cross":
             mask = torch.ones_like(mask)
@@ -1150,9 +1206,31 @@ def phase_kernel4():
                                                               rows)
             extra = f" ({rows} distinct (row, position)s of {b * k * index} lineage references)"
         timings[label] = (kern, plain, bound, bound_by)
-        log(f"phase1c time {label}: kernel {kern:.4f} ms, plain version {plain:.4f} ms, bound "
+        kind = "one-pass entry" if entry == "cross" and dtype == torch.bfloat16 else "kernel"
+        log(f"phase1c time {label}: {kind} {kern:.4f} ms, plain version {plain:.4f} ms, bound "
             f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB){extra}; "
             f"{100 * bound / kern:.1f}% of the bound [{card}]")
+    # the one-pass entry queued back to back over the decode cell's key
+    # padding: the bound counts the valid frames' keys and values, all that
+    # the entry reads
+    label, b, k, h, dh, n_pos = BEAM_ATTENTION_PADDED
+    q, key, value, mask = beam_attention_case("cross", b, k, h, dh, n_pos, torch.bfloat16,
+                                              seed=b + k + dh + n_pos)
+    before = ba.beam_cross_attention.one_pass_launches
+    kern = cuda_ms(lambda: ba.beam_cross_attention(q, key, value, mask), 20, 3, True)
+    if ba.beam_cross_attention.one_pass_launches != before + 23:
+        raise AssertionError(f"phase1c {label}: the one-pass entry did not take the calls")
+    qb = q.reshape(b, k, h, dh).transpose(1, 2)
+    library[label] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qb, key, value, attn_mask=mask[:, None, None, :]), 20, 3, True)
+    valid = int(mask.sum())
+    nbytes = 2 * h * valid * dh * 2 + 2 * b * k * h * dh * 2 + b * n_pos
+    bound = nbytes / PEAK_BYTES * 1e3
+    timings[label] = (kern, None, bound, "bytes")
+    log(f"phase1c time {label}: one-pass entry {kern:.4f} ms, bound {bound:.4f} ms (bytes: "
+        f"{nbytes / 1e6:.1f} MB, {valid} valid frames of {b * n_pos}); {100 * bound / kern:.1f}% "
+        f"of the bound; scaled_dot_product_attention over the same tensors "
+        f"{library[label]:.4f} ms [{card}]")
     host = beam_attention_host_us()
     log(f"phase1c host {host['cross_us']:.1f} us a cross call, {host['self_us']:.1f} us a self "
         f"call (B8 K5 H4 Dh64, 16 positions, bf16: the wrapper's checks, allocation and launch)")
@@ -1532,10 +1610,17 @@ def worst_case_decode(tag: str, model, lm=None, feat_dim: int = 40):
 
 def phase_flagship():
     """Phase 3. Returns (kernel-1 launches, the decode's median seconds,
-    kernel-4 launches, kernel-5 launches) of one decode."""
+    kernel-4 launches, kernel-5 launches) of one decode. Every cross call of
+    the bf16 decodes takes kernel 4's one-pass entry."""
     small_input_check("phase3 flagship f32", seeded_model(FLAGSHIP_CFG, torch.float32, seed=0))
+    cross0 = cross_launch_counts()
     one, two, secs, att, enc = worst_case_decode(
         "phase3 flagship", seeded_model(FLAGSHIP_CFG, torch.bfloat16, seed=0))
+    cross, one_pass = (n - n0 for n, n0 in zip(cross_launch_counts(), cross0))
+    log(f"phase3 kernel 4 cross launches {cross}, through the one-pass entry {one_pass}")
+    if cross == 0 or one_pass != cross:
+        raise AssertionError(f"phase3: {one_pass} of {cross} bf16 cross launches took the "
+                             f"one-pass entry")
     max_len = WORST_CASE["max_len"]
     # kernel 4: each decoder block's self and cross attention at every step;
     # kernel 5: each encoder block's self-attention, the batch in one slice
@@ -1840,6 +1925,14 @@ def attention_launches() -> int:
     )
 
     return beam_cross_attention.launches + beam_self_attention.launches
+
+
+def cross_launch_counts() -> tuple[int, int]:
+    """Kernel 4's cross launches so far in this process, and those of them
+    through its one-pass entry."""
+    from opentransformer_tpu_torch.ops.beam_attention import beam_cross_attention
+
+    return beam_cross_attention.launches, beam_cross_attention.one_pass_launches
 
 
 def reset_launch_counts():
@@ -6050,7 +6143,8 @@ def phase_whisper(workdir: str, device: str = "cuda", model_cfg=None) -> int:
     eval CLI's ``--npz`` path, as a user decodes it: seeded weights written
     as an npz in the JAX layout (float16, 3.1 GB at full size), two batches
     of full 30-s windows of 128-mel features, beam 5, bf16. Every step runs
-    kernel 1 once and kernel 4 twice a block; the n-best scores come out
+    kernel 1 once and kernel 4 twice a block, each cross call through its
+    one-pass entry; the n-best scores come out
     sorted; each encoder block runs kernel 5 once a slice of each batch.
     ``model_cfg`` (a cut width) and ``device`` rehearse it on the CPU.
     Returns kernel 1's launches."""
@@ -6096,6 +6190,7 @@ def phase_whisper(workdir: str, device: str = "cuda", model_cfg=None) -> int:
     log(f"phase18: npz and {len(utts)} windows written in {time.time() - t0:.1f} s")
     out = os.path.join(root, "decode")
     before = (project_logp_topk.launches, attention_launches(), encoder_self_attention.launches)
+    cross0 = cross_launch_counts()
     rc = eval_cli.main([
         "--npz", npz, "--model_cfg", cfg_path, "--feats", os.path.join(root, "feats.scp"),
         "--text", os.path.join(root, "text"), "--vocab", os.path.join(root, "vocab"),
@@ -6106,18 +6201,23 @@ def phase_whisper(workdir: str, device: str = "cuda", model_cfg=None) -> int:
     one = project_logp_topk.launches - before[0]
     four = attention_launches() - before[1]
     five = encoder_self_attention.launches - before[2]
+    cross, one_pass = (n - n0 for n, n0 in zip(cross_launch_counts(), cross0))
     decoded = nbest_scores_sorted(out)
     with open(os.path.join(out, "RESULT")) as f:
         result = f.read().splitlines()
     blocks = model_cfg["decoder"]["n_blocks"]
     if decoded != WHISPER["windows"]:
         raise AssertionError(f"phase18: {decoded} of {WHISPER['windows']} windows decoded")
-    if device != "cpu" and (one == 0 or four != 2 * blocks * one or five != five_want):
+    if device != "cpu" and (one == 0 or four != 2 * blocks * one or five != five_want
+                            or one_pass != cross or cross != blocks * one):
         raise AssertionError(f"phase18: kernel 1 launched {one} times, kernel 4 {four} times "
-                             f"(2 x {blocks} blocks a step), kernel 5 {five} times "
-                             f"({five_want}: each encoder block once a slice)")
+                             f"(2 x {blocks} blocks a step), {cross} of them cross and "
+                             f"{one_pass} through the one-pass entry (every bf16 cross call), "
+                             f"kernel 5 {five} times ({five_want}: each encoder block once a "
+                             f"slice)")
     log(f"phase18 whisper large-v3 eval CLI: {decoded} windows in {len(sizes)} batches | "
-        f"{result[3]} | kernel 1 launches {one}, kernel 4 {four}, kernel 5 {five} | wall "
+        f"{result[3]} | kernel 1 launches {one}, kernel 4 {four} ({cross} cross, {one_pass} "
+        f"through the one-pass entry), kernel 5 {five} | wall "
         f"{time.time() - t0:.1f} s "
         f"[{card_line() if torch.cuda.is_available() else 'cpu'}]")
     return one
@@ -6233,7 +6333,8 @@ def main() -> int:
                       {"phase3 flagship decode": launches4, **att},
                       library4[BEAM_ATTENTION_RECORD],
                       at_shapes={case: (timings4[case], library4.get(case))
-                                 for case in BEAM_ATTENTION_WHISPER}),
+                                 for case in (*BEAM_ATTENTION_WHISPER,
+                                              BEAM_ATTENTION_PADDED[0])}),
         kernel_record("encoder_attention", "opentransformer_tpu_torch/csrc/encoder_attention.cu",
                       "none", launches5, max_err5,
                       timings5[ENCODER_ATTENTION_TIMED[0][0]], enc,

@@ -7,20 +7,35 @@ append-only self-attention caches ([B·K, H, U_max, Dh], row ``src[b, k, p]``
 of the utterance holding position p of the hypothesis in slot k).
 
 ``beam_cross_attention`` and ``beam_self_attention`` compute these. On a
-CUDA tensor they launch the hand-written kernel of
-``csrc/beam_attention.cu``, which reads each cache row in place, once a
+CUDA tensor they launch the hand-written kernels of
+``csrc/beam_attention.cu``, which read each cache row in place, once a
 step, in the caches' own type; on a CPU tensor they run
 ``cross_attention_plain`` and ``self_attention_plain``, the same functions
 in plain PyTorch (the decoder's code before the kernel, unchanged). There
 is no other switch and no fallback: a CUDA tensor the kernel does not take
 raises.
 
-Arithmetic (every path): scores q·k in float32 over √Dh, ``NEG_INF`` where
-the key padding mask is False (``masked_fill``), the softmax in float32,
-its weights rounded to the output type, the context summed in float32 and
-stored in the output type. The output type is the model's: the cross
-entry takes it from the caller (the decoder's hidden state), the self entry
-from q. Each entry's ``launches`` counts kernel launches.
+Which kernel a cross call takes is decided by what the call shows: bf16 q
+and caches with a bf16 output and Dh in ``ONE_PASS_DH`` take the one-pass
+entry (an online softmax over tiles of frames on the tensor cores, no score
+stored anywhere, at every T); every other cross call (float32 above all,
+whose products on the tensor cores would be TF32) and every self call take
+the two-pass kernel, which keeps the scores on chip up to
+``SCORES_ON_CHIP_BYTES`` and in a scratch buffer beyond.
+
+Arithmetic: scores q·k summed in float32 (the products of bf16 values are
+exact in float32) and scaled by 1/√Dh in float32, ``NEG_INF`` where the key
+padding mask is False (``masked_fill``), the softmax's max and sum in
+float32, the context summed in float32 and stored in the output type. The
+two-pass kernel and the plain versions round the normalised weights to the
+output type; the one-pass entry rounds the unnormalised weights exp(s − m)
+to bf16 for its P·V product and divides the float32 context by the float32
+sum: one bf16 rounding of the weights either way, at another point, and no
+lower precision than the configuration's. The output type is the model's:
+the cross entry takes it from the caller (the decoder's hidden state), the
+self entry from q. Each entry's ``launches`` counts kernel launches;
+``beam_cross_attention.one_pass_launches`` counts those of the one-pass
+entry.
 """
 
 from __future__ import annotations
@@ -36,11 +51,17 @@ from .masks import apply_attn_mask
 # is split into chunks of at most this many, each reading the caches again
 MAX_BEAMS = 8
 # a block keeps its scores in shared memory up to this many bytes, and in a
-# scratch buffer in device memory beyond
+# scratch buffer in device memory beyond (the two-pass kernel)
 SCORES_ON_CHIP_BYTES = 32 * 1024
+# the head widths the one-pass cross entry is built for, and the beams one
+# of its blocks serves (kOnlineMaxBeams: the rows of an m16n8k16 tile)
+ONE_PASS_DH = (32, 64, 96, 128)
+ONE_PASS_MAX_BEAMS = 16
 
 _CROSS = cuda_build.Entry("beam_attention", "beam_attention_cross_launch",
                           "pllpplllpll" + "i" * 9 + "pp")
+_CROSS_ONE_PASS = cuda_build.Entry("beam_attention", "beam_attention_cross_online_launch",
+                                   "pllpplllpll" + "i" * 7 + "p")
 _SELF = cuda_build.Entry("beam_attention", "beam_attention_self_launch",
                          "pllppllppp" + "i" * 10 + "pp")
 
@@ -83,10 +104,12 @@ def self_attention_plain(q, k_t, v_t, cache_k, cache_v, index: int, src):
     return ctx.reshape(b * kk, h, dk)
 
 
-def beam_plan(beams: int) -> tuple[int, int]:
-    """(chunks, beams a chunk): the fewest chunks of at most ``MAX_BEAMS``
-    beams, as even as they come; every chunk's blocks read the caches."""
-    chunks = -(-beams // MAX_BEAMS)
+def beam_plan(beams: int, most: int = MAX_BEAMS) -> tuple[int, int]:
+    """(chunks, beams a chunk): the fewest chunks of at most ``most`` beams
+    (the two-pass kernel's ``MAX_BEAMS`` or the one-pass entry's
+    ``ONE_PASS_MAX_BEAMS``), as even as they come; every chunk's blocks read
+    the caches."""
+    chunks = -(-beams // most)
     return chunks, -(-beams // chunks)
 
 
@@ -120,7 +143,7 @@ class _Plan:
     ``index``) is checked at every call."""
 
     __slots__ = ("same", "ptr", "q_shape", "dtype", "vec", "index", "device", "args", "blocks",
-                 "kc", "positions")
+                 "kc", "positions", "one_pass")
 
 
 def _cross_plan(q, k, v, key_pad_mask, out_dtype) -> _Plan:
@@ -150,15 +173,21 @@ def _cross_plan(q, k, v, key_pad_mask, out_dtype) -> _Plan:
                              f"{q.device}, got {key_pad_mask.dtype} {tuple(key_pad_mask.shape)}")
         mask_ptr, (mask_b, mask_t) = key_pad_mask.data_ptr(), key_pad_mask.stride()
     beams = bk // b
-    chunks, kc = beam_plan(beams)
     ks = k.stride()
     plan = _Plan()
     plan.same, plan.ptr = (v, key_pad_mask, out_dtype), k.data_ptr()
     plan.q_shape, plan.dtype, plan.vec = q.shape, q.dtype, vec
     plan.device = q.device
     plan.index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    plan.args = (plan.ptr, v.data_ptr(), ks[0], ks[1], ks[2], mask_ptr, mask_b, mask_t, b,
-                 beams, h, t, dh, code, cuda_build.DTYPE_CODE[out_dtype], kc, chunks)
+    plan.one_pass = q.dtype == out_dtype == torch.bfloat16 and dh in ONE_PASS_DH
+    caches = (plan.ptr, v.data_ptr(), ks[0], ks[1], ks[2], mask_ptr, mask_b, mask_t, b, beams, h,
+              t, dh)
+    if plan.one_pass:
+        chunks, kc = beam_plan(beams, ONE_PASS_MAX_BEAMS)
+        plan.args = (*caches, kc, chunks)
+    else:
+        chunks, kc = beam_plan(beams)
+        plan.args = (*caches, code, cuda_build.DTYPE_CODE[out_dtype], kc, chunks)
     plan.blocks, plan.kc, plan.positions = b * h * chunks, kc, t
     return plan
 
@@ -175,9 +204,13 @@ def _cross_cuda(q, k, v, key_pad_mask, out_dtype):
     if qs[2] != 1 or q_ptr % 16 or (qs[0] | qs[1]) % plan.vec or q.get_device() != plan.index:
         raise _layout_error(q=q, k=k, v=v)
     out = torch.empty(plan.q_shape, dtype=out_dtype, device=plan.device)
-    scratch = _scratch(plan.blocks, plan.kc, plan.positions, plan.device)
-    _CROSS(plan.index, q_ptr, qs[0], qs[1], *plan.args,
-           None if scratch is None else scratch.data_ptr(), out.data_ptr())
+    if plan.one_pass:
+        _CROSS_ONE_PASS(plan.index, q_ptr, qs[0], qs[1], *plan.args, out.data_ptr())
+        beam_cross_attention.one_pass_launches += 1
+    else:
+        scratch = _scratch(plan.blocks, plan.kc, plan.positions, plan.device)
+        _CROSS(plan.index, q_ptr, qs[0], qs[1], *plan.args,
+               None if scratch is None else scratch.data_ptr(), out.data_ptr())
     beam_cross_attention.launches += 1
     return out
 
@@ -276,6 +309,7 @@ def beam_cross_attention(q, k, v, key_pad_mask=None, out_dtype=None):
 
 
 beam_cross_attention.launches = 0
+beam_cross_attention.one_pass_launches = 0
 
 
 def beam_self_attention(q, k_t, v_t, cache_k, cache_v, index: int, src):

@@ -226,7 +226,9 @@ def test_cross_entry_checks_the_caches_once_a_search(monkeypatch, kernel_stub):
     """The cross keys and values, the mask and the output type are checked
     once and their launch arguments kept on ``k``: twelve calls with the same
     tensors build one plan and launch twelve times with the arguments the
-    kernel's C entry takes; a new value tensor, mask or q shape checks again."""
+    kernel's C entry takes (bf16 in and out: the one-pass entry); a new value
+    tensor, mask, output type or q shape checks again (a float32 output: the
+    two-pass entry, with its type codes and no scratch at 11 frames)."""
     built = _counting(monkeypatch, "_cross_plan")
     b, beams, h, dh, t = 3, 5, 4, 64, 11
     k, v = (modules.split_heads(a, h) for a in
@@ -240,13 +242,16 @@ def test_cross_entry_checks_the_caches_once_a_search(monkeypatch, kernel_stub):
     assert len(built) == 1 and len(kernel_stub.calls) == 12
     name, args = kernel_stub.calls[-1]
     ks = k.stride()
-    assert name == "beam_attention_cross_launch" and args == (
+    assert name == "beam_attention_cross_online_launch" and args == (
         q.data_ptr(), 3 * h * dh, dh, k.data_ptr(), v.data_ptr(), ks[0], ks[1], ks[2],
-        mask.data_ptr(), t, 1, b, beams, h, t, dh, 1, 1, 5, 1, None, out.data_ptr(), 0)
+        mask.data_ptr(), t, 1, b, beams, h, t, dh, 5, 1, out.data_ptr(), 0)
     ba._cross_cuda(q, k, torch.empty_strided(v.shape, v.stride(), dtype=v.dtype), mask,
                    torch.bfloat16)
     ba._cross_cuda(q, k, v, mask.clone(), torch.bfloat16)
-    ba._cross_cuda(q, k, v, mask, torch.float32)
+    out = ba._cross_cuda(q, k, v, mask, torch.float32)
+    assert kernel_stub.calls[-1] == ("beam_attention_cross_launch", (
+        q.data_ptr(), 3 * h * dh, dh, k.data_ptr(), v.data_ptr(), ks[0], ks[1], ks[2],
+        mask.data_ptr(), t, 1, b, beams, h, t, dh, 1, 0, 5, 1, None, out.data_ptr(), 0))
     ba._cross_cuda(q[: 2 * b], k, v, mask, torch.float32)
     assert len(built) == 5
     # q is checked at every call: rows that do not start on 16 bytes raise

@@ -925,28 +925,43 @@ def assert_beam_context_close(got, ref, weighted_abs):
     ("self", 1024, 5, 4, 32, 54, torch.float32),
     ("self", 1024, 5, 4, 96, 54, torch.float32),
     # greedy (K = 1), a beam split into chunks, scores past the on-chip budget
+    # (the two-pass kernel's; bf16 cross calls take the one-pass entry)
     ("cross", 64, 1, 4, 64, 200, torch.bfloat16),
     ("cross", 64, 12, 4, 64, 120, torch.bfloat16),
     ("self", 64, 12, 4, 64, 30, torch.bfloat16),
     ("cross", 32, 5, 4, 64, 3000, torch.bfloat16),
     ("self", 16, 5, 8, 96, 1800, torch.bfloat16),
     # Whisper large-v3's long-form step: 128 windows, beam 5, 20 heads of 64,
-    # 1,500-frame cross caches (48 KB of scores a block: the scratch path),
-    # and the self caches at the 129th step
+    # 1,500-frame cross caches, and the self caches at the 129th step
     ("cross", 128, 5, 20, 64, 1500, torch.bfloat16),
     ("self", 128, 5, 20, 64, 129, torch.bfloat16),
 ])
 def test_beam_attention_kernel_matches_plain_on_card(cuda, entry, b, k, h, dh, n_pos, dtype):
+    """Each entry against its plain version: the two-pass kernel (float32
+    cross calls, every self call) within ``assert_beam_context_close``; the
+    one-pass entry (bf16 cross calls) rounds its weights at another point,
+    so it is held to the float64 attention instead, within twice the plain
+    version's own distance (``chip_smoke.beam_cross_errors``)."""
+    import chip_smoke
     from opentransformer_tpu_torch.ops import beam_attention as ba
 
     args = _beam_case(b, k, h, dh, n_pos, dtype, seed=b + k + dh + n_pos, entry=entry)
     if entry == "cross":
         q, key, value, mask = args
+        before = ba.beam_cross_attention.launches, ba.beam_cross_attention.one_pass_launches
+        got = ba.beam_cross_attention(*args, dtype)
+        one_pass = dtype == torch.bfloat16
+        assert (ba.beam_cross_attention.launches,
+                ba.beam_cross_attention.one_pass_launches) == (before[0] + 1,
+                                                               before[1] + one_pass)
+        torch.cuda.synchronize()
+        assert got.shape == (b * k, h, dh)
+        if one_pass:
+            err, plain_err = chip_smoke.beam_cross_errors(got, *args)
+            assert err <= 2.0 * plain_err, (err, plain_err)
+            return
         ref = ba.cross_attention_plain(*args, dtype)
         weighted_abs = ba.cross_attention_plain(q, key, value.abs(), mask, dtype)
-        before = ba.beam_cross_attention.launches
-        got = ba.beam_cross_attention(*args, dtype)
-        assert ba.beam_cross_attention.launches == before + 1
     else:
         q, k_t, v_t, cache_k, cache_v, index, src = args
         ref_k, ref_v = cache_k.clone(), cache_v.clone()
@@ -960,6 +975,51 @@ def test_beam_attention_kernel_matches_plain_on_card(cuda, entry, b, k, h, dh, n
     torch.cuda.synchronize()
     assert got.shape == (b * k, h, dh)
     assert_beam_context_close(got, ref, weighted_abs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k,h,dh,t,empty", [
+    # frame counts at and around the 16-frame tiles and the four warps' 64
+    *[(64, 5, 4, 64, t, False) for t in (1, 15, 16, 17, 63, 64, 65)],
+    # the decode cell's longest bucket and Whisper's 1,500-frame caches
+    (1024, 5, 4, 64, 374, False),
+    (16, 5, 20, 64, 1499, False),
+    (128, 5, 20, 64, 1500, False),
+    # an utterance all padding (uniform weights over its frames)
+    (64, 5, 4, 64, 65, True),
+    (64, 8, 4, 64, 374, True),
+    # greedy, a full block of 8 and of 16 beams, a beam split into chunks
+    (64, 1, 4, 64, 374, False),
+    (64, 8, 4, 64, 120, False),
+    (16, 16, 4, 64, 300, False),
+    (32, 20, 4, 64, 120, False),
+    # the other head widths
+    (64, 5, 4, 32, 300, False),
+    (16, 5, 8, 96, 200, True),
+    (16, 5, 8, 128, 500, False),
+    (16, 20, 8, 128, 77, False),
+])
+def test_beam_attention_one_pass_cross_on_card(cuda, b, k, h, dh, t, empty):
+    """The one-pass cross entry on the strided [B, T, H, Dh] → [B, H, T, Dh]
+    views ``split_heads`` makes, with ragged key padding (and, where
+    ``empty``, an utterance all padding): its largest |Δ| from the float64
+    attention within twice the plain version's own, and two launches bit
+    for bit the same."""
+    import chip_smoke
+    from opentransformer_tpu_torch.ops import beam_attention as ba
+
+    q, key, value, mask = chip_smoke.beam_attention_case("cross", b, k, h, dh, t, torch.bfloat16,
+                                                         b + k + dh + t, cuda_device(),
+                                                         empty_row=empty)
+    before = ba.beam_cross_attention.one_pass_launches
+    got = ba.beam_cross_attention(q, key, value, mask)
+    again = ba.beam_cross_attention(q, key, value, mask)
+    torch.cuda.synchronize()
+    assert ba.beam_cross_attention.one_pass_launches == before + 2
+    assert got.shape == (b * k, h, dh) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    err, plain_err = chip_smoke.beam_cross_errors(got, q, key, value, mask)
+    assert err <= 2.0 * plain_err, (err, plain_err)
 
 
 @pytest.mark.gpu

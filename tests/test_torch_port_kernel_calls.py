@@ -186,6 +186,12 @@ def _beam_self():
             ba.beam_self_attention)
 
 
+def _beam_cross_two_pass():
+    k, v = torch.zeros(2, 2, 4, 7, 64).unbind(0)
+    q = torch.zeros(6, 4, 64)
+    return lambda: ba._cross_cuda(q, k, v, None, torch.float32), ba.beam_cross_attention
+
+
 def _encoder():
     q, k, v = torch.zeros(3, 2, 4, 12, 64, dtype=torch.bfloat16).unbind(0)
     return lambda: ea._cuda(q, k, v, None), ea.encoder_self_attention
@@ -198,6 +204,7 @@ ENTRIES = [
     ("beam_attention_cross", _beam_cross),
     ("beam_attention_self", _beam_self),
     ("encoder_attention", _encoder),
+    ("beam_attention_cross_launch", _beam_cross_two_pass),
 ]
 
 
@@ -255,3 +262,97 @@ def test_the_16_byte_row_rule(dtype, shape, strides, offset, ok):
     t = torch.zeros(128, dtype=dtype)[offset:].as_strided(shape, strides)
     assert cuda_build.rows_aligned(t) is ok
     assert cuda_build.rows_aligned(torch.zeros(4, 8, dtype=dtype), t) is ok
+
+
+# ---- kernel 4's entries (csrc/beam_attention.cu) and how a cross call is routed
+
+_LETTER = {"const void*": "p", "void*": "p", "float*": "p", "const long long*": "p",
+           "long long": "l", "int": "i", "float": "f"}
+
+
+def _c_signature(symbol: str) -> str:
+    """The argument letters of ``symbol``'s definition in
+    ``csrc/beam_attention.cu``, its trailing stream handle included."""
+    import os
+    import re
+
+    with open(os.path.join(cuda_build.CSRC_DIR, "beam_attention.cu")) as f:
+        source = f.read()
+    found = re.search(r"\bint " + symbol + r"\(([^)]*)\)", source)
+    assert found, symbol
+    letters = ""
+    for param in found.group(1).split(","):
+        kind = re.sub(r"\s+", " ", param.strip()).rsplit(" ", 1)[0].replace(" *", "*")
+        letters += _LETTER[kind]
+    return letters
+
+
+@pytest.mark.parametrize("entry", ["_CROSS", "_CROSS_ONE_PASS", "_SELF"])
+def test_kernel4_entries_hold_their_c_signatures(entry):
+    """Each ``Entry`` of kernel 4 types the arguments its C definition takes,
+    in order, the stream handle last: the stub checks every launch against
+    these types, so they have to be the source's."""
+    e = getattr(ba, entry)
+    assert e.lib == "beam_attention"
+    to_letter = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_longlong: "l",
+                 ctypes.c_float: "f"}
+    assert "".join(to_letter[t] for t in e.argtypes) == _c_signature(e.symbol)
+
+
+def _cross_inputs(q_dtype, dh, t=11, b=3, beams=5, h=4):
+    from opentransformer_tpu_torch.models import modules
+
+    k, v = (modules.split_heads(a, h) for a in
+            torch.zeros(b, t, 2 * h * dh, dtype=q_dtype).chunk(2, dim=-1))
+    q = torch.zeros(b * beams, 3 * h * dh, dtype=q_dtype).view(b * beams, 3, h, dh)[:, 0]
+    return q, k, v, torch.ones(b, t, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("q_dtype,out_dtype,dh,one_pass", [
+    (torch.bfloat16, torch.bfloat16, 64, True), (torch.bfloat16, torch.bfloat16, 32, True),
+    (torch.bfloat16, torch.bfloat16, 96, True), (torch.bfloat16, torch.bfloat16, 128, True),
+    (torch.float32, torch.float32, 64, False), (torch.bfloat16, torch.float32, 64, False),
+    (torch.float32, torch.bfloat16, 64, False), (torch.bfloat16, torch.bfloat16, 48, False)])
+def test_cross_calls_take_the_entry_their_types_show(kernel_stub, monkeypatch, q_dtype,
+                                                      out_dtype, dh, one_pass):
+    """bf16 q and caches with a bf16 output at a head width the one-pass
+    entry is built for take it; float32 (whose products on the tensor cores
+    would be TF32), a float32 output or another width take the two-pass
+    kernel. ``launches`` counts every call, ``one_pass_launches`` those of
+    the one-pass entry, and no score scratch is allocated for it, even at
+    Whisper's 1,500 frames, where the two-pass kernel's scores leave the chip."""
+    made = []
+    scratch = ba._scratch
+    monkeypatch.setattr(ba, "_scratch", lambda *a: made.append(scratch(*a)) or made[-1])
+    for t in (11, 1500):
+        q, k, v, mask = _cross_inputs(q_dtype, dh, t)
+        before = ba.beam_cross_attention.launches, ba.beam_cross_attention.one_pass_launches
+        out = ba._cross_cuda(q, k, v, mask, out_dtype)
+        name, args = kernel_stub.calls[-1]
+        assert name == ("beam_attention_cross_online_launch" if one_pass
+                        else "beam_attention_cross_launch")
+        assert args[-2:] == (out.data_ptr(), 0) and out.dtype == out_dtype
+        assert (ba.beam_cross_attention.launches,
+                ba.beam_cross_attention.one_pass_launches) == (before[0] + 1,
+                                                               before[1] + one_pass)
+    if one_pass:
+        assert made == []
+    else:
+        assert made[0] is None and made[1].numel() == 3 * 4 * 8 * 1500
+        assert args[-3] == made[1].data_ptr()
+
+
+@pytest.mark.parametrize("beams,plan", [(1, (1, 1)), (5, (1, 5)), (8, (1, 8)), (12, (1, 12)),
+                                        (16, (1, 16)), (17, (2, 9)), (20, (2, 10)),
+                                        (33, (3, 11))])
+def test_one_pass_entry_takes_sixteen_beams_a_block(kernel_stub, beams, plan):
+    """The one-pass entry's block serves up to 16 beams (the rows of its mma
+    tile); a wider beam is split into even chunks, each a block that reads
+    the caches again: the (kc, chunks) it is handed."""
+    q, k, v, mask = _cross_inputs(torch.bfloat16, 64, beams=beams)
+    ba._cross_cuda(q, k, v, mask, torch.bfloat16)
+    name, args = kernel_stub.calls[-1]
+    chunks, kc = plan
+    assert name == "beam_attention_cross_online_launch"
+    assert args[12] == beams and args[16:18] == (kc, chunks)
+    assert kc <= ba.ONE_PASS_MAX_BEAMS and (chunks - 1) * kc < beams <= chunks * kc
